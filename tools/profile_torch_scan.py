@@ -1,0 +1,163 @@
+#!/usr/bin/env python3
+"""Where a scan's time goes in the PyTorch port, on one CUDA card.
+
+    python tools/profile_torch_scan.py [--star-off] [--reps 3] [--out F.json]
+
+Runs urban_road_filter_torch.packed_scan (OS1-64 dims; the default
+configuration, or with ``--star-off`` the star search off) on the 7
+synthetic scenes at 64 rings x 2048 azimuths and 2 emulated OS1-64
+drive scans: first unprofiled (host-to-host wall per scan and the host
+time to enqueue it, p50), then under
+torch.profiler.  Prints the card's name and power limit; per stage (the
+pipeline's ``urf::<stage>`` ranges) per scan the host ms, the device ms of
+its kernels and its span on the device timeline (gaps included); the
+device-busy share of the profiled wall time; the device ops per scan; and
+the kernels by device time.  Needs a CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+import torch
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+
+def _union_us(intervals) -> float:
+    total, end = 0.0, float("-inf")
+    for s, e in sorted(intervals):
+        if e > end:
+            total += e - max(s, end)
+            end = e
+    return total
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--reps", type=int, default=3,
+                    help="profiled passes over the 9 scans")
+    ap.add_argument("--out", default=None, help="write the summary as JSON")
+    ap.add_argument("--star-off", action="store_true",
+                    help="FilterConfig(star_shaped_method=False)")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        sys.exit("profile_torch_scan: needs a CUDA device")
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from urban_road_filter_torch import (
+        FilterConfig, PipelineDims, pad_scan, packed_scan)
+    from urban_road_filter_torch.io import SCENES, make_drive, make_scan
+
+    dev = torch.device("cuda", 0)
+    dims = PipelineDims.for_sensor("os1-64")
+    cfg = FilterConfig(star_shaped_method=not args.star_off)
+    scans = [make_scan(spec(), n_rings=64, n_azimuth=2048, seed=i)
+             for i, spec in enumerate(SCENES.values())]
+    scans += list(make_drive(2, sensor="os1_64", seed=41))
+    hosts = [torch.from_numpy(pad_scan(s, dims.max_points)).pin_memory()
+             for s in scans]
+
+    def run(host):
+        """One scan; returns the host ms to enqueue it (packed_scan
+        returns before the device is done) and to fetch its outputs."""
+        t0 = time.perf_counter()
+        out = packed_scan(host.to(dev, non_blocking=True), cfg, dims)
+        t1 = time.perf_counter()
+        for t in out:
+            t.cpu()
+        return (t1 - t0) * 1e3, (time.perf_counter() - t0) * 1e3
+
+    for host in hosts:  # warm-up
+        run(host)
+    runs = [run(host) for _ in range(args.reps) for host in hosts]
+    enqueues, walls = zip(*runs)
+
+    n = args.reps * len(hosts)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(args.reps):
+            for host in hosts:
+                run(host)
+        window_us = (time.perf_counter() - t0) * 1e6
+
+    # Device rows are kernels, copies and memsets, plus the urf:: ranges
+    # projected onto the device timeline (spans, gaps included).
+    dev_events = [e for e in prof.events()
+                  if e.device_type == DeviceType.CUDA
+                  and not e.name.startswith("urf::")]
+    busy_us = _union_us((e.time_range.start, e.time_range.end)
+                        for e in dev_events)
+    stages = {}
+    kernels = []
+    for e in prof.key_averages():
+        dev_us = getattr(e, "device_time_total", None)
+        if dev_us is None:
+            dev_us = e.cuda_time_total
+        self_dev_us = getattr(e, "self_device_time_total", None)
+        if self_dev_us is None:
+            self_dev_us = e.self_cuda_time_total
+        if e.key.startswith("urf::"):
+            st = stages.setdefault(e.key[5:], {})
+            if e.device_type == DeviceType.CPU:  # host range: its kernels
+                st["host_ms"] = e.cpu_time_total / n / 1e3
+                st["device_ms"] = dev_us / n / 1e3
+            else:  # the range on the device timeline: first to last op
+                st["device_span_ms"] = self_dev_us / n / 1e3
+        elif self_dev_us > 0 and e.device_type == DeviceType.CUDA:
+            kernels.append((self_dev_us / n / 1e3, e.count / n, e.key))
+    kernels.sort(reverse=True)
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    summary = {
+        "card": smi, "star_shaped_method": cfg.star_shaped_method,
+        "scans": len(hosts), "reps": args.reps,
+        "wall_ms_p50": statistics.median(walls),
+        "enqueue_ms_p50": statistics.median(enqueues),
+        "profiled_wall_ms_per_scan": window_us / n / 1e3,
+        "device_busy_ms_per_scan": busy_us / n / 1e3 if dev_events else None,
+        "device_busy_share": busy_us / window_us if dev_events else None,
+        "device_ops_per_scan": len(dev_events) / n,
+        "stages": stages,
+        "kernels": [{"ms_per_scan": ms, "calls_per_scan": c, "name": k}
+                    for ms, c, k in kernels[:30]],
+    }
+    print(smi, f"star_shaped_method={cfg.star_shaped_method}")
+    print(f"host-to-host wall per scan, p50: {summary['wall_ms_p50']:.3f} ms "
+          f"(unprofiled; host enqueue p50 {summary['enqueue_ms_p50']:.3f} "
+          f"ms); profiled: {summary['profiled_wall_ms_per_scan']:.3f} ms")
+    if dev_events:
+        print(f"device busy {summary['device_busy_ms_per_scan']:.3f} ms per "
+              f"scan, {100 * summary['device_busy_share']:.1f} % of the "
+              f"profiled wall; {summary['device_ops_per_scan']:.0f} device "
+              f"ops per scan")
+    else:
+        print("device time: not measured (the profiler saw no device ops)")
+    for name, s in stages.items():
+        print(f"  stage {name:12s} host {s.get('host_ms', 0):8.3f} ms  "
+              f"device {s.get('device_ms', 0):8.3f} ms  "
+              f"device span {s.get('device_span_ms', 0):8.3f} ms")
+    for k in summary["kernels"][:15]:
+        print(f"  {k['ms_per_scan']:8.4f} ms  x{k['calls_per_scan']:6.1f}  "
+              f"{k['name'][:90]}")
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+        with open(args.out, "w") as f:
+            json.dump(summary, f, indent=1)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,180 @@
+"""Build, load and launch the port's CUDA kernels; count their launches.
+
+The sources in ``csrc/*.cu`` are compiled with ``nvcc`` for ``sm_90a`` into
+one shared library with a plain C interface, at first use, under
+``_build/`` (named by a hash of the sources and flags, so an edited source
+is rebuilt).  The library is loaded with ``ctypes``: pointers and the
+stream travel as ``c_void_p``.  Nothing here runs when the package is
+imported, so the CPU tests import every module without ``nvcc``.
+
+Every kernel wrapper in ``ops/`` counts one launch here each time it
+launches its kernel, and nowhere else; ``launch_counts`` shows whether a
+run really went through the kernels.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+import torch
+
+_PKG = Path(__file__).resolve().parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "--fmad=false", "-Xptxas=-v", "-shared",
+              "-Xcompiler", "-fPIC")
+
+# Launch-counter name -> (its CUDA source, the TPU kernel it replaces).
+KERNELS = {
+    "star_walk": ("urban_road_filter_torch/csrc/star.cu",
+                  "urban_road_filter_tpu/ops/star_scan.py:225"),
+    "group_rank": ("urban_road_filter_torch/csrc/group_place.cu",
+                   "urban_road_filter_tpu/ops/rank.py:112"),
+    "group_place": ("urban_road_filter_torch/csrc/group_place.cu",
+                    "urban_road_filter_tpu/ops/place.py:258"),
+    "xz_zero": ("urban_road_filter_torch/csrc/xz_zero.cu",
+                "urban_road_filter_tpu/ops/pallas_kernels.py:106"),
+    "flood_blocked": ("urban_road_filter_torch/csrc/flood.cu",
+                      "urban_road_filter_tpu/ops/flood_scan.py:142"),
+    "flood_labeled": ("urban_road_filter_torch/csrc/flood.cu",
+                      "urban_road_filter_tpu/ops/flood_scan.py:418"),
+    "marker_points": ("urban_road_filter_torch/csrc/markers.cu",
+                      "urban_road_filter_tpu/ops/marker_scan.py:343"),
+    "gather_pack": ("urban_road_filter_torch/csrc/gather_pack.cu",
+                    "urban_road_filter_tpu/ops/gather.py:126"),
+}
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+_SIGNATURES = {
+    "urf_star_walk": (_P, _P, _P, _P, _I, _F, _F, _F, _I, _P, _P),
+    "urf_group_rank": (_P, _I, _I, _P, _P, _P, _P),
+    "urf_group_place": (_P, _P, _I, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P),
+    "urf_xz_zero": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F,
+                    _P),
+    "urf_flood_blocked": (_P, _P, _P, _P, _I, _I, _F, _P, _P, _P),
+    "urf_flood_labeled": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _P, _P, _P),
+    "urf_marker_points": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P,
+                          _P, _P),
+    "urf_gather_pack": (_P, _I, _I, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P,
+                        _P),
+}
+
+_launches = dict.fromkeys(KERNELS, 0)
+_lib = None
+
+
+def launch_counts() -> dict:
+    """Launches of each kernel since the last reset."""
+    return dict(_launches)
+
+
+def reset_launch_counts() -> None:
+    for name in _launches:
+        _launches[name] = 0
+
+
+def on_cpu(t: torch.Tensor) -> bool:
+    """True for a CPU tensor (take the plain PyTorch twin), False for a CUDA
+    tensor (launch the kernel); any other device raises."""
+    if t.device.type == "cpu":
+        return True
+    if t.device.type == "cuda":
+        return False
+    raise ValueError(f"unsupported device {t.device}")
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    cand = Path(home) / "bin" / "nvcc"
+    if cand.is_file():
+        return str(cand)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found (set CUDA_HOME)")
+    return found
+
+
+def build() -> Path:
+    """Compile csrc/*.cu into _build/ unless that exact build exists.
+    Returns the library's path; nvcc's register report lands beside it
+    as ``<library>.log``."""
+    sources = sorted(CSRC.glob("*.cu"))
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources:
+        h.update(src.read_bytes())
+    out = BUILD_DIR / f"liburf_kernels_{h.hexdigest()[:16]}.so"
+    if out.is_file():
+        return out
+    BUILD_DIR.mkdir(exist_ok=True)
+    tmp = out.with_name(f".{out.name}.{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({res.returncode}): {' '.join(cmd)}"
+                           f"\n{res.stdout}{res.stderr}")
+    out.with_suffix(".log").write_text(res.stdout + res.stderr)
+    os.replace(tmp, out)
+    return out
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first call."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        for fn, args in _SIGNATURES.items():
+            getattr(lib, fn).argtypes = args
+            getattr(lib, fn).restype = ctypes.c_int
+        lib.urf_error_string.argtypes = (ctypes.c_int,)
+        lib.urf_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def check(t: torch.Tensor, what: str, dtype: torch.dtype, shape=None,
+          device=None) -> None:
+    """Raise unless ``t`` is a contiguous CUDA tensor of this dtype/shape
+    (on ``device`` when given)."""
+    if t.device.type != "cuda" or (device is not None and t.device != device):
+        raise ValueError(f"{what}: expected a CUDA tensor on "
+                         f"{device or 'cuda'}, got {t.device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{what}: expected {dtype}, got {t.dtype}")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{what}: expected shape {tuple(shape)}, "
+                         f"got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{what}: must be contiguous")
+
+
+def check_marker_dims(rings: int, p: int) -> None:
+    """The marker key (ops/markers.py) packs the ring into 15 bits and the
+    slot into 16."""
+    if rings >= 1 << 15 or p > 1 << 16:
+        raise ValueError(f"marker keys need rings < 2^15 and capacity <= "
+                         f"2^16, got ({rings}, {p})")
+
+
+def ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def launch(kernel: str, fn: str, device: torch.device, *args) -> None:
+    """Call C entry ``fn`` on ``device``'s current stream, raise on a CUDA
+    error, and count one launch of ``kernel``."""
+    lib = library()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = getattr(lib, fn)(*args, ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError(f"{kernel}: CUDA error {err}: "
+                           f"{lib.urf_error_string(err).decode()}")
+    _launches[kernel] += 1

@@ -1,0 +1,258 @@
+"""Blind-spot guard + road flood fill (reference: blind_spots.cpp:7-284).
+
+Port of urban_road_filter_tpu/ops/blind_spots.py.  The two sweeps over 361
+integer start angles only read curb labels and only write road labels, so
+the stage is a pure reachability computation over the INITIAL curb marks:
+
+    blocked[k, i] = any curb on ring k within window_k(i)
+    reach[k, i]   = active(i) & ~gate(i) & AND_{m<=k} ~blocked[m, i]
+    road(point p on ring k) = EXISTS i: reach[k, i] & p in window_k(i)
+
+The two existential quantifiers are the kernels of csrc/flood.cu:
+``flood_blocked`` (K8, replacing flood_scan.blocked_pallas) and
+``flood_labeled`` (K9, replacing flood_scan.labeled_markerf_pallas), which
+also returns the marker stage's per-bin first non-road key ``kf``
+(ops/markers.py).  On a CPU layout each runs its plain twin: the JAX
+package's dense compare-reduces over the (ring, slot, start) cube (its
+non-TPU branch, :180-191), evaluated a few rings at a time so the cube
+never exceeds ~16M elements.
+
+Float semantics follow the C++ and the JAX package: integer starts compared
+in f32, window bounds i +- w_k in f32, the `i == 360-beamZone` /
+`i == beamZone` exact-equality special cases for rings k >= 1 only
+(blind_spots.cpp:136-143,244-251).
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from urban_road_filter_tpu.config import FilterConfig
+from urban_road_filter_tpu.constants import LABEL_CURB, LABEL_ROAD
+from urban_road_filter_torch import _build
+from urban_road_filter_torch.ops.geometry import F32, I32, RingLayout, f32
+from urban_road_filter_torch.ops.markers import (
+    I64, N_BINS, NO_KEY, first_nonroad_keys)
+
+_NI = 362  # start angles 0..361 (361 used; one pad, as in the JAX package)
+_CUBE = 1 << 24  # elements of one (rings, slots, starts) chunk
+
+
+def _quadrant_extremes(alpha1, label1, valid1):
+    """Extremal curb azimuths on arc #1 per quadrant (blind_spots.cpp:19-57).
+    Strict >/< updates against the 0/180/180/360 inits are preserved."""
+    curb = valid1 & (label1 == LABEL_CURB)
+    a = alpha1
+
+    def mx(cond):
+        return torch.amax(torch.where(curb & cond, a, -math.inf))
+
+    def mn(cond):
+        return torch.amin(torch.where(curb & cond, a, math.inf))
+
+    r1 = (a >= 0) & (a < 90)
+    r2 = (a >= 90) & (a < 180)
+    r3 = (a >= 180) & (a < 270)
+    r4 = ~(r1 | r2 | r3) & ~torch.isnan(a)
+    zero = torch.zeros((), dtype=F32, device=a.device)
+    q1 = torch.where(mx(r1) > 0, mx(r1), zero)
+    q2 = torch.where(mn(r2) < 180, mn(r2), zero + 180)
+    q3 = torch.where(mx(r3) > 180, mx(r3), zero + 180)
+    q4 = torch.where(mn(r4) < 360, mn(r4), zero + 360)
+    return q1, q2, q3, q4
+
+
+def _gate(i_f, q, x_direction: int):
+    """Blind-spot angular gate per start angle (blind_spots.cpp:77-99)."""
+    q1, q2, q3, q4 = q
+    if x_direction == 0:
+        return ((q1 != 0) & (q4 != 360) & ((i_f <= q1) | (i_f >= q4))) | (
+            (q2 != 180) & (q3 != 180) & (i_f >= q2) & (i_f <= q3))
+    if x_direction == 1:
+        return ((q2 != 180) & (i_f >= q2) & (i_f <= 270)) | (
+            (q1 != 0) & ((i_f <= q1) | (i_f >= 270)))
+    return ((q4 != 360) & ((i_f >= q4) | (i_f <= 90))) | (
+        (q3 != 180) & (i_f <= q3) & (i_f >= 90))
+
+
+def window_widths(max_dist: torch.Tensor, beam_zone) -> torch.Tensor:
+    """Equal-arc-length window width per ring, degrees
+    (blind_spots.cpp:65,142,251): w[0] = beamZone; w[k] = arcDistance /
+    (maxDist_k * pi / 180); inf where a ring is empty (harmless: no points)."""
+    bz = f32(beam_zone)
+    deg_len = max_dist * f32(math.pi) / 180.0
+    arc_distance = deg_len[0] * bz
+    w = arc_distance / deg_len
+    w[0] = bz
+    return w
+
+
+def sweep_bounds(w: torch.Tensor, beam_zone, direction: int):
+    """(active, lo, hi) for one sweep; lo/hi are the ACTUAL per-(ring, start)
+    inclusive window bounds, exact-equality overrides applied."""
+    bz = f32(beam_zone)
+    rings = w.shape[0]
+    dev = w.device
+    i_f = torch.arange(_NI, dtype=F32, device=dev)
+    k_ge1 = torch.arange(rings, device=dev)[:, None] >= 1
+    if direction > 0:
+        edge = f32(360.0 - bz)  # exact: 360 - bz rounded once, as in f32
+        active = i_f <= edge
+        special = (i_f == edge)[None, :] & k_ge1
+        lo = i_f.expand(rings, _NI)
+        hi = torch.where(special, 360.0, i_f[None, :] + w[:, None])
+    else:
+        active = (i_f >= bz) & (i_f <= 360.0)
+        special = (i_f == bz)[None, :] & k_ge1
+        hi = i_f.expand(rings, _NI)
+        lo = torch.where(special, 0.0, i_f[None, :] - w[:, None])
+    return active, lo, hi
+
+
+def _ring_chunks(r: int, p: int):
+    step = max(1, _CUBE // max(1, p * _NI))
+    return [slice(k, min(r, k + step)) for k in range(0, r, step)]
+
+
+def blocked_bits(alpha, curb, lo, hi):
+    """blocked[k, i] = any curb point in [lo, hi] — dense compare-reduce.
+    alpha/curb: (R, P); lo/hi: (R, NI).  NaN alphas never block (NaN
+    compares false), matching the C++ walk stopping at NaN."""
+    out = []
+    for s in _ring_chunks(*alpha.shape):
+        a = alpha[s, :, None]
+        in_win = (a >= lo[s, None, :]) & (a <= hi[s, None, :])
+        out.append(torch.any(in_win & curb[s, :, None], dim=1))
+    return torch.cat(out)
+
+
+def labeled_mask(alpha, a_ok, reach, lo, hi):
+    """labeled[k, p] = exists i: reach[k, i] & alpha in [lo, hi] — dense."""
+    out = []
+    for s in _ring_chunks(*alpha.shape):
+        a = alpha[s, :, None]
+        in_win = (a >= lo[s, None, :]) & (a <= hi[s, None, :])
+        out.append(torch.any(in_win & reach[s, None, :], dim=2))
+    return torch.cat(out) & a_ok
+
+
+def reach_of(blocked, active, gate, ring_active):
+    """reach[k, i] = no blocked ring <= k, start active and not gated, ring
+    active.  Computed as k < (first blocked ring), a plain min-reduce."""
+    rings = blocked.shape[0]
+    ring_iota = torch.arange(rings, dtype=I32, device=blocked.device)
+    first_blocked = torch.amin(
+        torch.where(blocked & ring_active, ring_iota[:, None], rings), dim=0)
+    return ((ring_iota[:, None] < first_blocked[None, :])
+            & (active & ~gate)[None, :] & ring_active)
+
+
+def _slot_valid(layout: RingLayout) -> torch.Tensor:
+    p = layout.alpha.shape[1]
+    return (torch.arange(p, device=layout.alpha.device)[None, :]
+            < layout.counts[:, None])
+
+
+def flood_blocked_plain(layout: RingLayout, w, beam_zone):
+    curb = _slot_valid(layout) & (layout.label == LABEL_CURB)
+    return tuple(blocked_bits(layout.alpha, curb,
+                              *sweep_bounds(w, beam_zone, d)[1:])
+                 for d in (+1, -1))
+
+
+def flood_blocked(layout: RingLayout, w: torch.Tensor, beam_zone):
+    """(blocked_fwd, blocked_bwd), each (R, 362) bool: any curb slot of
+    ring k inside the forward / backward window of start i.  w: (R,) f32
+    window widths (window_widths)."""
+    if _build.on_cpu(layout.alpha):
+        return flood_blocked_plain(layout, w, beam_zone)
+    r, p = layout.alpha.shape
+    dev = layout.alpha.device
+    _build.check(layout.alpha, "alpha", F32, (r, p), dev)
+    _build.check(layout.label, "label", I32, (r, p), dev)
+    _build.check(layout.counts, "counts", I32, (r,), dev)
+    _build.check(w, "w", F32, (r,), dev)
+    bf = torch.empty((r, _NI), dtype=torch.bool, device=dev)
+    bb = torch.empty((r, _NI), dtype=torch.bool, device=dev)
+    _build.launch("flood_blocked", "urf_flood_blocked", dev,
+                  _build.ptr(layout.alpha), _build.ptr(layout.label),
+                  _build.ptr(layout.counts), _build.ptr(w), r, p,
+                  f32(beam_zone), _build.ptr(bf), _build.ptr(bb))
+    return bf, bb
+
+
+def flood_labeled_plain(layout: RingLayout, reach_f, reach_b, w, beam_zone,
+                        num_rings):
+    alpha, label = layout.alpha, layout.label
+    a_ok = (_slot_valid(layout) & torch.isfinite(alpha) & (alpha >= 0)
+            & (alpha <= 360.0))
+    road = (labeled_mask(alpha, a_ok, reach_f,
+                         *sweep_bounds(w, beam_zone, +1)[1:])
+            | labeled_mask(alpha, a_ok, reach_b,
+                           *sweep_bounds(w, beam_zone, -1)[1:]))
+    label = torch.where(road & (label != LABEL_CURB), LABEL_ROAD, label)
+    return label, first_nonroad_keys(layout._replace(label=label), num_rings)
+
+
+def flood_labeled(layout: RingLayout, reach_f, reach_b, w, beam_zone,
+                  num_rings):
+    """(label, kf): the layout's labels with every reached non-curb slot
+    set to LABEL_ROAD, and the (361,) int64 marker key of each bin's first
+    non-road point (ops/markers.py).  reach_f/reach_b: (R, 362) bool,
+    already gated (reach_of); num_rings: 0-d int32."""
+    if _build.on_cpu(layout.alpha):
+        return flood_labeled_plain(layout, reach_f, reach_b, w, beam_zone,
+                                   num_rings)
+    r, p = layout.alpha.shape
+    dev = layout.alpha.device
+    _build.check_marker_dims(r, p)
+    _build.check(layout.alpha, "alpha", F32, (r, p), dev)
+    _build.check(layout.label, "label", I32, (r, p), dev)
+    _build.check(layout.counts, "counts", I32, (r,), dev)
+    _build.check(w, "w", F32, (r,), dev)
+    _build.check(reach_f, "reach_f", torch.bool, (r, _NI), dev)
+    _build.check(reach_b, "reach_b", torch.bool, (r, _NI), dev)
+    _build.check(num_rings, "num_rings", I32, (), dev)
+    label = torch.empty_like(layout.label)
+    kf = torch.full((N_BINS,), NO_KEY, dtype=I64, device=dev)
+    _build.launch("flood_labeled", "urf_flood_labeled", dev,
+                  _build.ptr(layout.alpha), _build.ptr(layout.label),
+                  _build.ptr(layout.counts), _build.ptr(w),
+                  _build.ptr(reach_f), _build.ptr(reach_b),
+                  _build.ptr(num_rings), r, p, f32(beam_zone),
+                  _build.ptr(label), _build.ptr(kf))
+    return label, kf
+
+
+def sweep_reach(layout: RingLayout, blocked, w: torch.Tensor,
+                num_rings: torch.Tensor, cfg: FilterConfig):
+    """(reach_f, reach_b), each (R, 362) bool, from flood_blocked's bits:
+    the blind-spot gate of ring 1's curbs and the ring-outward blocking."""
+    alpha, label = layout.alpha, layout.label
+    r = alpha.shape[0]
+    dev = alpha.device
+    ring_active = (torch.arange(r, device=dev) < num_rings)[:, None]
+    gate = torch.zeros((_NI,), dtype=torch.bool, device=dev)
+    if cfg.blind_spots:
+        q = _quadrant_extremes(alpha[1], label[1], _slot_valid(layout)[1])
+        gate = _gate(torch.arange(_NI, dtype=F32, device=dev), q,
+                     int(cfg.x_direction))
+    return tuple(
+        reach_of(b, sweep_bounds(w, cfg.beam_zone, d)[0], gate, ring_active)
+        for b, d in zip(blocked, (+1, -1)))
+
+
+def blind_spots(layout: RingLayout, max_dist: torch.Tensor,
+                num_rings: torch.Tensor, cfg: FilterConfig):
+    """(layout with road labels, kf) from the flood fill over the
+    (unsorted) layout.  Order-free: every window test compares a slot's own
+    azimuth against per-(ring, start) bounds.  kf feeds
+    ops.markers.marker_points."""
+    w = window_widths(max_dist, cfg.beam_zone)
+    blocked = flood_blocked(layout, w, cfg.beam_zone)
+    reach_f, reach_b = sweep_reach(layout, blocked, w, num_rings, cfg)
+    label, kf = flood_labeled(layout, reach_f, reach_b, w, cfg.beam_zone,
+                              num_rings)
+    return layout._replace(label=label), kf

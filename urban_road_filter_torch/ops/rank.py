@@ -1,0 +1,52 @@
+"""Stable group ranking: position of each element within its group.
+
+``group_positions(ids, num_groups)`` returns, for every element, the number
+of EARLIER elements with the same group id (its slot in a stable grouped
+layout) plus the per-group totals: the primitive behind tensorization
+(points -> (ring, slot)).
+
+Port of urban_road_filter_tpu/ops/rank.py.  A CUDA tensor goes through the
+hand-written kernel csrc/group_place.cu (K5: per-block histograms, a scan
+over blocks, a warp-match rank inside each block); a CPU tensor through the
+plain twin below, which has the semantics of the JAX ``_xla_rank``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from urban_road_filter_torch import _build
+
+I32 = torch.int32
+_BLOCK = 1024  # points per block of the rank kernel (csrc/group_place.cu)
+
+
+def group_positions_plain(ids: torch.Tensor, num_groups: int):
+    """Stable sort by id; position = sorted index - group start."""
+    n = ids.shape[0]
+    iota = torch.arange(n, dtype=I32, device=ids.device)
+    ids_s, idx_s = torch.sort(ids, stable=True)
+    counts = torch.bincount(ids.long(), minlength=num_groups)[:num_groups]
+    starts = (torch.cumsum(counts, 0) - counts).to(I32)
+    pos_s = iota - starts[torch.clamp(ids_s.long(), 0, num_groups - 1)]
+    pos = torch.empty_like(ids)
+    pos[idx_s] = pos_s
+    return pos, counts.to(I32)
+
+
+def group_positions(ids: torch.Tensor, num_groups: int):
+    """(pos, counts): pos[i] = # of j < i with ids[j] == ids[i];
+    counts[g] = total elements of group g.  ids: (N,) int32 in
+    [0, num_groups)."""
+    if _build.on_cpu(ids):
+        return group_positions_plain(ids, num_groups)
+    n = ids.shape[0]
+    _build.check(ids, "ids", I32, (n,))
+    pos = torch.empty_like(ids)
+    counts = torch.empty((num_groups,), dtype=I32, device=ids.device)
+    hist = torch.empty((max(1, -(-n // _BLOCK)) * num_groups,), dtype=I32,
+                       device=ids.device)
+    _build.launch("group_rank", "urf_group_rank", ids.device,
+                  _build.ptr(ids), n, num_groups, _build.ptr(pos),
+                  _build.ptr(counts), _build.ptr(hist))
+    return pos, counts

@@ -1,0 +1,141 @@
+"""Star-shaped roadside search (reference: star_shaped_search.cpp:32-181).
+
+Port of urban_road_filter_tpu/ops/star.py:star_hits.  Each ROI point goes
+to one of 360 azimuth beams (optionally narrowed to the beam's rectangle);
+one stable sort by (beam, radius, input order) makes every beam a radially
+ordered segment; the walk along each segment (K4, ``star_walk``) marks at
+most one point per beam, the first whose slope trips a threshold.  The
+marks reach the (ring, slot) layout through a 360-element scatter
+(``star_labels``).
+
+The walk keeps the reference's sequential running mean and mean absolute
+deviation, rounded in its order, where the JAX package used segmented
+prefix sums: the CUDA kernel (csrc/star.cu) and the plain twin here
+repeat the numpy oracle's ``_beam_walk`` operation for operation.  The
+azimuth is the float64 atan2 rounded once to float32, as the C++ and the
+oracle compute it.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+from urban_road_filter_tpu.config import FilterConfig
+from urban_road_filter_tpu.constants import (
+    LABEL_CURB, STAR_KFI, STAR_REP, beam_tables)
+from urban_road_filter_torch import _build
+from urban_road_filter_torch.ops.geometry import F32, I32, f32, sqrt_rn
+
+
+def _rect(x, y, f):
+    """Beam-rectangle membership (star_shaped_search.cpp:73-107), strict <,
+    per point on its beam f."""
+    yx_t, d_t, o_t = (torch.from_numpy(np.asarray(t)).to(x.device)
+                      for t in beam_tables())
+    yx, d, o = yx_t[f], d_t[f], o_t[f]
+    c = d * torch.where(yx, y, x)
+    coord = torch.where(yx, x, y)
+    return ((c - o) < coord) & (coord < (c + o))
+
+
+def beam_streams(x, y, z, valid, cfg: FilterConfig):
+    """The four beam-sorted streams (beam, radius, z, point index), (N,)
+    each: beam STAR_REP (the sink, sorted last) for points outside the ROI
+    or their beam's rectangle; ties in radius keep input order."""
+    r = sqrt_rn(x * x + y * y)
+    fi = torch.atan2(y.double(), x.double()).float()
+    fi = torch.where(fi < 0, (fi.double() + 2.0 * math.pi).float(), fi)
+    # A sector index of 360 (fi a few ulps below 2 pi) is beam 0's.
+    f = (fi * f32(STAR_KFI)).to(I32) % STAR_REP
+    keep = valid
+    if cfg.starbeam_filter:
+        keep = keep & _rect(x, y, f.long())
+    fk = torch.where(keep, f, STAR_REP)
+    r_key = torch.where(keep, r, math.inf)
+    order = torch.sort(r_key, stable=True).indices
+    order = order[torch.sort(fk[order], stable=True).indices]
+    return fk[order], r_key[order], z[order], order.to(I32)
+
+
+def _walk_params(cfg: FilterConfig):
+    return (float(cfg.slope_param), f32(cfg.kdev_param), f32(cfg.kdist_param),
+            int(cfg.dmin_param))
+
+
+def star_walk_plain(fk_s, r_s, z_s, pid_s, cfg: FilterConfig):
+    """The reference walk on all 360 beams at once, one walk step per
+    iteration, each float operation as in oracle.reference._beam_walk."""
+    slope_param, kdev, kdist, dmin = _walk_params(cfg)
+    dev = fk_s.device
+    beams = torch.arange(STAR_REP, dtype=I32, device=dev)
+    start = torch.searchsorted(fk_s, beams)
+    length = torch.searchsorted(fk_s, beams, right=True) - start
+    steps = int(length.max()) if fk_s.numel() else 0
+    hit = torch.zeros((STAR_REP,), dtype=I32, device=dev)
+    if steps < 2:
+        return hit
+    col = torch.arange(steps, device=dev)
+    inside = col[None, :] < length[:, None]
+    at = torch.where(inside, start[:, None] + col[None, :], 0)
+    rs, zs, pids = r_s[at], z_s[at], pid_s[at]
+    zero = torch.zeros((STAR_REP,), dtype=F32, device=dev)
+    avg, devs, nan_count = zero, zero, zero
+    done = torch.zeros((STAR_REP,), dtype=torch.bool, device=dev)
+    bx, by = rs[:, 0], zs[:, 0]
+    for i in range(1, steps):
+        live = inside[:, i] & ~done
+        ax, ay, bx, by = bx, by, rs[:, i], zs[:, i]
+        slp = (by - ay) / (bx - ax)
+        skip = torch.isnan(slp)
+        nan_count = torch.where(skip, nan_count + 1.0, nan_count)
+        m = torch.full_like(zero, float(i)) - nan_count
+        inv_m = torch.reciprocal(m)
+        avg = torch.where(skip, avg, ((avg * (m - 1.0)) + slp) * inv_m)
+        devs = torch.where(
+            skip, devs, ((devs * (m - 1.0)) + torch.abs(slp - avg)) * inv_m)
+        lhs = (slp * slp - avg * avg) * kdev * ((bx - ax) * kdist)
+        trip = live & ((slp > slope_param) | ((i > dmin) & (lhs > devs)))
+        hit = torch.where(trip, pids[:, i] + 1, hit)
+        done = done | trip
+    return hit
+
+
+def star_walk(fk_s, r_s, z_s, pid_s, cfg: FilterConfig) -> torch.Tensor:
+    """(360,) int32 hp: hp[b] = 1 + index of beam b's first triggering
+    point, 0 where none (K4).  Inputs: beam_streams' four (N,) streams."""
+    if _build.on_cpu(fk_s):
+        return star_walk_plain(fk_s, r_s, z_s, pid_s, cfg)
+    n = fk_s.shape[0]
+    dev = fk_s.device
+    _build.check(fk_s, "fk", I32, (n,), dev)
+    _build.check(r_s, "r", F32, (n,), dev)
+    _build.check(z_s, "z", F32, (n,), dev)
+    _build.check(pid_s, "pid", I32, (n,), dev)
+    slope_param, kdev, kdist, dmin = _walk_params(cfg)
+    hp = torch.empty((STAR_REP,), dtype=I32, device=dev)
+    _build.launch("star_walk", "urf_star_walk", dev, _build.ptr(fk_s),
+                  _build.ptr(r_s), _build.ptr(z_s), _build.ptr(pid_s), n,
+                  slope_param, kdev, kdist, dmin, _build.ptr(hp))
+    return hp
+
+
+def star_hits(x, y, z, valid, cfg: FilterConfig) -> torch.Tensor:
+    """(360,) int32 hp of the star search over one scan's points."""
+    return star_walk(*beam_streams(x, y, z, valid, cfg), cfg)
+
+
+def star_labels(hp, ring_id, pos, rings: int, cap: int) -> torch.Tensor:
+    """(rings, cap) int32 layout labels: LABEL_CURB at each hit point's
+    (ring, slot), 0 elsewhere; a hit dropped at binning or by capacity
+    lands nowhere (pipeline.py:141-150 of the JAX package)."""
+    n = ring_id.shape[0]
+    h = torch.clamp(hp - 1, 0, n - 1).long()
+    ring, slot = ring_id[h].long(), pos[h].long()
+    landed = (hp > 0) & (ring < rings) & (slot < cap)
+    dst = torch.where(landed, ring * cap + slot, rings * cap)
+    lab = torch.zeros((rings * cap + 1,), dtype=I32, device=hp.device)
+    lab[dst] = LABEL_CURB
+    return lab[:rings * cap].reshape(rings, cap)
