@@ -6,19 +6,37 @@
 1. Builds the port's CUDA kernels from urban_road_filter_torch/csrc with
    nvcc (sm_90a) and prints the build time and the card's name and power
    limit.
-2. Holds each kernel (K4 star walk, K5 rank, K6 place, K7 x/z-zero, K8 +
-   K9 flood fill, K10 markers, K11 gather+pack; the list is
-   _build.KERNELS) against its plain PyTorch twin on the card, at OS1-64
-   shapes (131072 points, 64 rings x 4096 slots) on one emulated OS1-64
-   scan: every output must be bit-equal.  Prints median CUDA-event times
-   of kernel and twin.
+2. Holds each kernel (the list is _build.KERNELS) against its plain
+   PyTorch twin on the card; every output must be bit-equal.  The batch
+   ingest (K1 ingest_prep, with and without the star keys, K2
+   discover_rings, K3 assign_rings) runs on the phase-4 batch (128 planar
+   scans of 131072 points, 64 rings), on its first 8 scans as rows and as
+   planes, on 2 merged multi-LiDAR scans (262144 points, 128 rings), on an
+   all-invalid scan and on a scan with a NaN vertical angle in the ROI.
+   The per-scan kernels (K4 star walk, K5 rank, K6 place, K7 x/z-zero,
+   K8 + K9 flood fill, K10 markers, K11 gather+pack) run on one emulated
+   OS1-64 scan (131072 points, 64 rings x 4096 slots), and again at the
+   two shapes phase 4 gives them: a bench lane (64 rings x 2048 slots)
+   and a merged multi-LiDAR scan (262144 points, 128 rings x 2048 slots).
+   Prints median CUDA-event times of kernel and twin (the OS1-64 scan's
+   for K4-K11).
 3. Drives the single-scan pipeline (packed_scan) on 9 full-size scans, the
    7 synthetic scenes at 64 rings x 2048 azimuths and 2 emulated OS1-64
    drive scans, in two configurations: the default (star search on) and
    star search off.  Launch counters are zeroed just before and read just
    after: every kernel must have run.  Each result is gated against the
    numpy oracle (agreement >= 0.999, 0 systematic flips).
-4. Prints one JSON line of per-kernel results and, last,
+4. Drives the batch pipeline (process_batch, default configuration) on the
+   replay benchmark's batch: 128 planar scans of 131072 points, 64 rings x
+   2048 slots, two_curbs and blind_spot alternating (bench.py).  Launch
+   counters as in phase 3; prints scans/s host to host (median of 3 runs,
+   every output fetched).  Every lane must equal process_scan of its scan
+   bit for bit, and no ring may overflow.  A second batch of the 7 scenes
+   and 2 OS1-64 drive scans, with the star search on and off, and 4 lanes
+   of the first, are gated against the oracle as in phase 3; so is one
+   lane of a batch of 4 merged multi-LiDAR scans (262144 points, 128
+   rings, bench.py's rig).
+5. Prints one JSON line of per-kernel results and, last,
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Any failure raises (exit code 1).  Without a CUDA device, or outside a
@@ -40,6 +58,8 @@ import torch
 REPS = 50  # timed launches per kernel / twin (after 5 warm-up launches)
 WALK_REPS = 5  # timed launches of the star walk's twin (one op per step)
 SCAN_REPS = 5  # timed pipeline runs per scan (after 1 warm-up run)
+BATCH_REPS = 3  # timed batch runs (after 1 warm-up run)
+BATCH = 128  # scans in the phase-4 batch (bench.py's replay batch)
 
 
 def cuda_ms(fn, reps: int = REPS) -> float:
@@ -60,21 +80,138 @@ def cuda_ms(fn, reps: int = REPS) -> float:
 
 
 def max_abs_err(got, want) -> float:
-    """Max |got - want| over paired outputs; raises unless bit-equal."""
+    """Max |got - want| over paired outputs; raises unless bit-equal (float
+    outputs compare by their bits, so NaNs must match too)."""
     err = 0.0
     for g, w in zip(got, want):
         assert g.dtype == w.dtype and g.shape == w.shape, (g.dtype, w.dtype)
         assert g.device.type == "cuda"
+        if g.dtype == torch.float32:
+            same = torch.equal(g.view(torch.int32), w.view(torch.int32))
+        else:
+            same = torch.equal(g, w)
+        assert same, "kernel and plain twin disagree"
         if g.numel():
-            err = max(err, float((g.double() - w.double()).abs().max()))
-        assert torch.equal(g, w), "kernel and plain twin disagree"
+            d = torch.where(g == w, 0.0, (g.double() - w.double()).abs())
+            err = max(err, float(torch.nan_to_num(d, nan=0.0).max()))
     return err
 
 
-def phase_kernels(dev, dims, cfg):
-    """Each kernel against its plain twin on one OS1-64 scan."""
+def bench_scans(count: int):
+    """bench.py's batch: two_curbs and blind_spot alternating, 64 rings x
+    2048 azimuths, seed = lane."""
+    from urban_road_filter_torch.io import SCENES, make_scan
+
+    return [make_scan(SCENES["two_curbs" if i % 2 == 0 else "blind_spot"](),
+                      n_rings=64, n_azimuth=2048, seed=i)
+            for i in range(count)]
+
+
+def multi_lidar_scans():
+    """bench.py's merged multi-LiDAR rig: two emulated OS1-64 at offset
+    mounts, 2048 firings each, 262144 points; 4 scenes."""
+    from urban_road_filter_torch.io import (
+        Extrinsics, SceneSpec, make_sensor_scan, merge_scans)
+
+    exts = [Extrinsics(x=0.4, y=0.3, z=0.0, yaw_deg=1.5),
+            Extrinsics(x=-0.4, y=-0.3, z=-0.05, yaw_deg=-2.0)]
+    specs = [SceneSpec(curb_right_y=3.3 + 0.2 * i,
+                       curb_left_y=-3.4 + 0.15 * i,
+                       curb_height=0.15 + 0.02 * i,
+                       vehicles=((12.0 + 3.0 * i, 2.3, 2.2, 0.85, 1.5),),
+                       vegetation=((8.0 + 2.0 * i, -5.0 - 0.5 * i,
+                                    -1.2, 1.2),))
+             for i in range(4)]
+    return [merge_scans([make_sensor_scan(sp, "os1_64", seed=70 + 2 * i,
+                                          firings=2048),
+                         make_sensor_scan(sp, "os1_64", seed=71 + 2 * i,
+                                          firings=2048)], exts)
+            for i, sp in enumerate(specs)]
+
+
+def ingest_vs_twins(x, y, z, cfg, rings):
+    """K1-K3 on (B, N) coordinate views against their twins, bit-equal.
+    Returns {kernel: (kernel call, twin call, max abs error)} and the ring
+    counts."""
+    from urban_road_filter_torch.ops import geometry, ingest
+
+    k1 = lambda: ingest.ingest_prep(x, y, z, cfg)
+    p1 = lambda: ingest.ingest_prep_plain(x, y, z, cfg)
+    prep = k1()
+    e1 = max_abs_err(prep, p1())
+    valid = prep[0]
+    # Without the star keys (the star search off) only valid and piece.
+    lean = ingest.ingest_prep(x, y, z, cfg, want_star_keys=False)
+    assert lean[1] is None and lean[2] is None
+    max_abs_err(lean[::3], ingest.ingest_prep_plain(
+        x, y, z, cfg, want_star_keys=False)[::3])
+    _, alpha = geometry.vertical_angles(x, y, z)
+    k2 = lambda: ingest.discover_rings(alpha, valid, cfg.interval, rings)
+    p2 = lambda: ingest.discover_rings_plain(alpha, valid, cfg.interval,
+                                             rings)
+    angles, count = k2()
+    e2 = max_abs_err((angles, count), p2())
+    k3 = lambda: ingest.assign_rings(alpha, valid, angles, cfg.interval)
+    p3 = lambda: ingest.assign_rings_plain(alpha, valid, angles, cfg.interval)
+    e3 = max_abs_err((k3(),), (p3(),))
+    calls = {"ingest_prep": (k1, p1, e1), "discover_rings": (k2, p2, e2),
+             "assign_rings": (k3, p3, e3)}
+    return calls, count
+
+
+def phase_ingest(dev, cfg, planar, mrows):
+    """K1-K3 against their twins.  planar: the phase-4 batch (3, 128, N)
+    on the card; mrows: merged multi-LiDAR scans (B, 262144, 4) on the
+    card.  Returns the per-kernel results timed at the phase-4 shapes."""
+    from urban_road_filter_torch.ops import geometry
+
+    x, y, z, _ = geometry.xyz_of(planar, "planar", batched=True)
+    calls, count = ingest_vs_twins(x, y, z, cfg, 64)
+    assert int(count.min()) > 20, "every scan must have rings"
+    out = {}
+    for name, (kernel, plain, err) in calls.items():
+        out[name] = {"max_abs_err": err, "ms": cuda_ms(kernel),
+                     "plain_ms": cuda_ms(plain, WALK_REPS)}
+        print(f"  {name} (B={x.shape[0]}, N={x.shape[1]}): bit-equal, "
+              f"kernel {out[name]['ms']:.4f} ms, plain "
+              f"{out[name]['plain_ms']:.4f} ms", flush=True)
+
+    rows = planar[:, :8].permute(1, 2, 0).contiguous()
+    for layout, pts in (("rows", rows), ("planar", planar[:, :8])):
+        ingest_vs_twins(*geometry.xyz_of(pts, layout, batched=True)[:3], cfg,
+                        64)
+    print("  (8, 131072) rows and planar: bit-equal", flush=True)
+
+    mx, my, mz, _ = geometry.xyz_of(mrows[:2], "rows", batched=True)
+    calls, count = ingest_vs_twins(mx, my, mz, cfg, 128)
+    assert int(count.min()) > 64, "the merged rig must have > 64 rings"
+    times = ", ".join(f"{k} {cuda_ms(kc):.4f} / {cuda_ms(pc, WALK_REPS):.4f}"
+                      for k, (kc, pc, _) in calls.items())
+    print(f"  (2, 262144, 128 rings): bit-equal; kernel / plain ms: {times}",
+          flush=True)
+
+    empty = rows[:2].clone()
+    empty[1] = 0
+    _, count = ingest_vs_twins(*geometry.xyz_of(empty, "rows",
+                                                batched=True)[:3], cfg, 64)
+    assert int(count[1]) == 0
+    # A point in the ROI whose vertical angle is NaN (x*x + y*y + z*z
+    # underflows) is a ring in every round after it, as in the oracle.
+    odd = rows[:1].clone()
+    odd[0, 5] = torch.tensor([1e-25, 0.0, 0.0], device=dev)
+    _, count = ingest_vs_twins(*geometry.xyz_of(odd, "rows",
+                                                batched=True)[:3],
+                               cfg.replace(max_z=1.0), 64)
+    assert int(count[0]) == 64
+    print("  all-invalid scan and NaN vertical angle: bit-equal", flush=True)
+    return out
+
+
+def phase_kernels(dev, dims, cfg, scan, what, timed=True):
+    """Each per-scan kernel against its plain twin on one scan (a (M, >=3)
+    host array) padded to dims; timed, the CUDA-event times of kernel and
+    twin are taken and returned."""
     from urban_road_filter_torch import pad_scan
-    from urban_road_filter_torch.io import make_drive
     from urban_road_filter_torch.ops import blind_spots as bs
     from urban_road_filter_torch.ops import geometry
     from urban_road_filter_torch.ops import markers as mk
@@ -90,7 +227,7 @@ def phase_kernels(dev, dims, cfg):
     from urban_road_filter_torch.ops.zzero import z_zero
 
     r, p, n = dims.rings, dims.ring_capacity, dims.max_points
-    scan = next(make_drive(1, sensor="os1_64", seed=41))
+    print(f"  {what}: N={n}, {r} rings x {p} slots", flush=True)
     pts = torch.from_numpy(pad_scan(scan, n)).to(dev)
     x, y, z, _ = geometry.xyz_of(pts, "rows")
     x, y, z = x.contiguous(), y.contiguous(), z.contiguous()
@@ -102,10 +239,13 @@ def phase_kernels(dev, dims, cfg):
     out = {}
 
     def record(name, got, want, kernel, plain, plain_reps=REPS):
-        out[name] = {"max_abs_err": max_abs_err(got, want),
-                     "ms": cuda_ms(kernel),
-                     "plain_ms": cuda_ms(plain, plain_reps)}
-        print(f"  {name}: bit-equal, kernel {out[name]['ms']:.4f} ms, "
+        out[name] = {"max_abs_err": max_abs_err(got, want)}
+        if not timed:
+            print(f"    {name}: bit-equal", flush=True)
+            return
+        out[name].update(ms=cuda_ms(kernel),
+                         plain_ms=cuda_ms(plain, plain_reps))
+        print(f"    {name}: bit-equal, kernel {out[name]['ms']:.4f} ms, "
               f"plain {out[name]['plain_ms']:.4f} ms", flush=True)
 
     # K4: the star walk over the beam-sorted streams; also with the beams
@@ -121,13 +261,13 @@ def phase_kernels(dev, dims, cfg):
     assert int((hits > 0).sum()) > 30, "the scan must trigger star hits"
     record("star_walk", (hits,), (p4(),), k4, p4, WALK_REPS)
 
-    # K5: stable rank within ring, 65 groups.
+    # K5: stable rank within ring, rings + 1 groups.
     k5 = lambda: group_positions(ring_id, r + 1)
     p5 = lambda: group_positions_plain(ring_id, r + 1)
     pos, counts = k5()
     record("group_rank", (pos, counts), p5(), k5, p5)
 
-    # K6: placement into (64, 4096); also at capacity 64, where points
+    # K6: placement into (rings, slots); also at capacity 64, where points
     # overflow and must be dropped and counted alike.
     k6 = lambda: group_place(ring_id, pos, x, y, z, r, p)
     p6 = lambda: group_place_plain(ring_id, pos, x, y, z, r, p)
@@ -229,6 +369,93 @@ def phase_pipeline(dev, dims, configs, scans):
     return runs, launch_counts()
 
 
+def same_lanes(batch, dev_pts, cfg, dims):
+    """Every lane of a process_batch result equals process_scan of its scan
+    (planar (3, B, N) on the card), bit for bit on every field."""
+    from urban_road_filter_torch import process_scan
+
+    for b in range(dev_pts.shape[1]):
+        one = process_scan(dev_pts[:, b], cfg, dims, layout="planar")
+        for f, got, want in zip(one._fields, batch, one):
+            try:
+                max_abs_err((got[b],), (want,))
+            except AssertionError as e:
+                raise AssertionError(f"lane {b} field {f}: {e}") from None
+
+
+def gate_lanes(device_parity_gate, fetched, scans, lanes, cfg, what,
+               channels=None):
+    """The oracle gate on the named lanes of a fetched batch result."""
+    for b in lanes:
+        name, pts = scans[b]
+        labels = fetched.labels[b].numpy()
+        markers = fetched.markers[b].numpy()
+        assert np.isfinite(markers).all() and int(labels.max()) <= 2
+        assert bool(fetched.ok[b]) and int(fetched.num_rings[b]) > 0
+        agree, n_sys = device_parity_gate(pts, labels, markers, cfg, name,
+                                          channels=channels)
+        print(f"  {what} lane {b} {name}: parity {agree:.6f}, systematic "
+              f"{n_sys}, rings {int(fetched.num_rings[b])}", flush=True)
+        assert agree >= 0.999 and n_sys == 0, (what, b, name, agree, n_sys)
+
+
+def phase_batch(dev, cfg, scans, merged, dims, mdims, smi,
+                device_parity_gate):
+    """process_batch on the replay benchmark's batch (scans, at dims); then
+    on the 9 scenes with the star search on and off, and on 4 merged
+    multi-LiDAR scans (merged, at mdims).  Returns the launch counts of the
+    benchmark batch's runs."""
+    from urban_road_filter_torch import (
+        ScanResult, launch_counts, pad_scan, planarize_batch, process_batch,
+        reset_launch_counts)
+
+    host = torch.from_numpy(planarize_batch(np.stack(
+        [pad_scan(pts, dims.max_points) for _, pts in scans]))).pin_memory()
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    times = []
+    for _ in range(1 + BATCH_REPS):
+        t0 = time.perf_counter()
+        res = process_batch(host.to(dev, non_blocking=True), cfg, dims,
+                            layout="planar")
+        fetched = ScanResult(*(t.cpu() for t in res))  # synchronises
+        times.append(time.perf_counter() - t0)
+    launches = launch_counts()
+    b = host.shape[1]
+    step = statistics.median(times[1:])
+    print(f"  B={b}: {b / step:.3f} scans/s host to host ({step * 1e3:.3f} "
+          f"ms per batch, median of {BATCH_REPS}, outputs fetched) on "
+          f"{smi}", flush=True)
+    assert int(fetched.overflow.max()) == 0, "ring capacity overflow"
+    assert int(fetched.star_overflow.max()) == 0
+    same_lanes(res, host.to(dev), cfg, dims)
+    print(f"  all {b} lanes equal process_scan bit for bit", flush=True)
+    gate_lanes(device_parity_gate, fetched, scans, range(4), cfg, "bench")
+
+    mixed = scans_for_pipeline()
+    pts = torch.from_numpy(planarize_batch(np.stack(
+        [pad_scan(p, dims.max_points) for _, p in mixed]))).to(dev)
+    for what, c in (("scenes", cfg),
+                    ("scenes star off", cfg.replace(star_shaped_method=False))):
+        res = process_batch(pts, c, dims, layout="planar")
+        same_lanes(res, pts, c, dims)
+        fetched = ScanResult(*(t.cpu() for t in res))
+        assert int(fetched.overflow.max()) == 0
+        gate_lanes(device_parity_gate, fetched, mixed, range(len(mixed)), c,
+                   what)
+
+    pts = torch.from_numpy(planarize_batch(np.stack(
+        [pad_scan(p, mdims.max_points) for _, p in merged]))).to(dev)
+    res = process_batch(pts, cfg, mdims, layout="planar")
+    same_lanes(res, pts, cfg, mdims)
+    fetched = ScanResult(*(t.cpu() for t in res))
+    assert int(fetched.overflow.max()) == 0
+    assert int(fetched.num_rings.min()) > 64
+    gate_lanes(device_parity_gate, fetched, merged, [1], cfg, "multi-LiDAR",
+               channels=mdims.rings)
+    return launches
+
+
 def oracle_gate():
     """The reference package's numpy oracle gate, utils.parity's
     device_parity_gate.  It imports compact_markers from the JAX package's
@@ -248,11 +475,18 @@ def main() -> int:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False")
     from urban_road_filter_torch import FilterConfig, PipelineDims, _build
+    from urban_road_filter_torch import pad_scan, planarize_batch
     from urban_road_filter_torch import unpack_planes
+    from urban_road_filter_torch.io import make_drive
     device_parity_gate = oracle_gate()
 
     dev = torch.device("cuda", 0)
     dims = PipelineDims.for_sensor("os1-64")
+    # bench.py's replay batch and its merged multi-LiDAR rig.
+    bench_dims = PipelineDims(max_points=131072, rings=64, ring_capacity=2048,
+                              beam_capacity=512)
+    mdims = PipelineDims(max_points=262144, rings=128, ring_capacity=2048,
+                         beam_capacity=1024)
     cfg = FilterConfig(star_shaped_method=False)
 
     t0 = time.perf_counter()
@@ -268,18 +502,36 @@ def main() -> int:
         check=True, timeout=60).stdout.strip().splitlines()[0]
     print(smi, flush=True)
 
-    print("phase 2: kernels vs plain twins (os1-64 shapes)", flush=True)
-    kernels = phase_kernels(dev, dims, cfg)
+    print("phase 2: kernels vs plain twins", flush=True)
+    bench = [(f"bench_{'two_curbs' if i % 2 == 0 else 'blind_spot'}", s)
+             for i, s in enumerate(bench_scans(BATCH))]
+    merged = [(f"multi_lidar_{i}", s) for i, s in
+              enumerate(multi_lidar_scans())]
+    planar = torch.from_numpy(planarize_batch(np.stack(
+        [pad_scan(p, bench_dims.max_points) for _, p in bench]))).to(dev)
+    mrows = torch.from_numpy(np.stack(
+        [pad_scan(p, mdims.max_points) for _, p in merged[:2]])).to(dev)
+    kernels = phase_ingest(dev, cfg, planar, mrows)
+    del planar, mrows
+    kernels.update(phase_kernels(
+        dev, dims, cfg, next(make_drive(1, sensor="os1_64", seed=41)),
+        "OS1-64 drive scan"))
     assert set(kernels) == set(_build.KERNELS), sorted(kernels)
+    # The per-scan kernels again at the shapes the batch path gives them
+    # in phase 4: a bench lane and a merged multi-LiDAR scan (128 rings).
+    phase_kernels(dev, bench_dims, cfg, bench[0][1], "bench lane",
+                  timed=False)
+    phase_kernels(dev, mdims, cfg, merged[0][1], "multi-LiDAR scan",
+                  timed=False)
 
     configs = {"default": FilterConfig(), "star_off": cfg}
     print("phase 3: packed_scan on 9 full-size scans x 2 configurations",
           flush=True)
     scans = scans_for_pipeline()
-    runs, launches = phase_pipeline(dev, dims, configs, scans)
-    print(f"  launches: {launches}")
-    missing = [k for k in _build.KERNELS if launches.get(k, 0) <= 0]
-    assert not missing, f"kernels not launched by the main path: {missing}"
+    runs, scan_launches = phase_pipeline(dev, dims, configs, scans)
+    print(f"  launches: {scan_launches}")
+    missing = [k for k in _build.KERNELS if scan_launches.get(k, 0) <= 0]
+    assert not missing, f"kernels not launched by the scan path: {missing}"
     for cname, k, fetched, p50 in runs:
         name, pts = scans[k]
         packed, markers, ok, num_rings, overflow = (t.numpy()
@@ -301,6 +553,15 @@ def main() -> int:
         print(f"  {cname}: scan latency p50 over scans "
               f"{statistics.median(lat):.3f} ms (host to host, incl. H2D + "
               f"D2H)")
+
+    print(f"phase 4: process_batch on {BATCH} planar scans of 131072 "
+          f"points (default configuration)", flush=True)
+    launches = phase_batch(dev, FilterConfig(), bench, merged, bench_dims,
+                           mdims, smi, device_parity_gate)
+    print(f"  launches: {launches}")
+    missing = [k for k in _build.KERNELS if launches.get(k, 0) <= 0]
+    assert not missing, f"kernels not launched by the batch path: {missing}"
+    assert "jax" not in sys.modules, "the port must run without JAX"
 
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": src, "replaces": tpu,

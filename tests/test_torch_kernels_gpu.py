@@ -14,9 +14,12 @@ import torch
 
 from star_streams import walk_streams
 
-from urban_road_filter_torch import FilterConfig, _build, pad_scan
-from urban_road_filter_torch.io import SCENES, make_scan
-from urban_road_filter_torch.ops import geometry
+from urban_road_filter_torch import (
+    FilterConfig, PipelineDims, _build, pad_scan, planarize_batch,
+    process_batch, process_scan)
+from urban_road_filter_torch.io import (
+    SCENES, Extrinsics, SceneSpec, make_scan, make_sensor_scan, merge_scans)
+from urban_road_filter_torch.ops import geometry, ingest
 from urban_road_filter_torch.ops import blind_spots as bs
 from urban_road_filter_torch.ops import markers as mk
 from urban_road_filter_torch.ops import star
@@ -43,8 +46,11 @@ def dev():
 
 
 def _assert_same(got, want):
+    """Bit-equal: float outputs compare by their bits, so NaNs must match."""
     for g, w in zip(got, want):
         assert g.device.type == "cuda" and g.dtype == w.dtype
+        if g.dtype == torch.float32:
+            g, w = g.view(torch.int32), w.view(torch.int32)
         assert torch.equal(g, w)
 
 
@@ -205,3 +211,114 @@ def test_wrappers_refuse_bad_inputs(dev):
     with pytest.raises(ValueError):  # a CPU operand beside CUDA ones
         gather_pack(table, i32, i32.cpu(), i32 > 0,
                     torch.tensor(True, device=dev), 0)
+    rows = torch.zeros((2, 8, 4), device=dev)
+    with pytest.raises(ValueError):  # x, y, z must share one stride pattern
+        ingest.ingest_prep(rows[..., 0], rows[..., 1].contiguous(),
+                           rows[..., 2], FilterConfig())
+    alpha = torch.zeros((2, 8), device=dev)
+    with pytest.raises(ValueError):  # the ring table holds at most 128
+        ingest.discover_rings(alpha, alpha > 0, 0.18, 129)
+
+
+def _batch_rows(dev, n, n_rings, seeds):
+    """(B, n, 4) rows of two_curbs / blind_spot scans on the card."""
+    scenes = ("two_curbs", "blind_spot")
+    return torch.from_numpy(np.stack([pad_scan(make_scan(
+        SCENES[scenes[k % 2]](), n_rings=n_rings, n_azimuth=n // n_rings,
+        seed=s), n) for k, s in enumerate(seeds)])).to(dev)
+
+
+def _ingest_vs_twins(x, y, z, cfg, rings):
+    """K1-K3 on (B, N) views against their twins; returns the kernels'
+    (valid, ring_id, num_rings)."""
+    before = _build.launch_counts()
+    got = ingest.ingest_prep(x, y, z, cfg)
+    _assert_same(got, ingest.ingest_prep_plain(x, y, z, cfg))
+    valid = got[0]
+    _, alpha = geometry.vertical_angles(x, y, z)
+    angles, count = ingest.discover_rings(alpha, valid, cfg.interval, rings)
+    _assert_same((angles, count), ingest.discover_rings_plain(
+        alpha, valid, cfg.interval, rings))
+    ring_id = ingest.assign_rings(alpha, valid, angles, cfg.interval)
+    _assert_same((ring_id,), (ingest.assign_rings_plain(
+        alpha, valid, angles, cfg.interval),))
+    after = _build.launch_counts()
+    for k in ("ingest_prep", "discover_rings", "assign_rings"):
+        assert after[k] == before[k] + 1, k
+    return valid, ring_id, count
+
+
+@pytest.mark.parametrize("layout", ["rows", "planar"])
+def test_ingest_kernels(dev, layout):
+    cfg = FilterConfig()
+    rows = _batch_rows(dev, N, 32, (0, 1, 2))
+    rows[2, 7:100] = 0
+    pts = rows if layout == "rows" else rows[..., :3].permute(2, 0, 1)
+    pts = pts.contiguous() if layout == "planar" else pts
+    x, y, z, _ = geometry.xyz_of(pts, layout, batched=True)
+    _, _, count = _ingest_vs_twins(x, y, z, cfg, RINGS)
+    assert int(count.min()) > 20
+    got = ingest.ingest_prep(x, y, z, cfg, want_star_keys=False)
+    assert got[1] is None
+    _assert_same((got[0], got[3]), ingest.ingest_prep_plain(
+        x, y, z, cfg, want_star_keys=False)[::3])
+
+
+def _merged_rows(dev, seeds):
+    """(B, 262144, 4) rows of bench.py's multi-LiDAR rig on the card: two
+    emulated OS1-64 at offset mounts, 2048 firings each, merged."""
+    exts = [Extrinsics(x=0.4, y=0.3, z=0.0, yaw_deg=1.5),
+            Extrinsics(x=-0.4, y=-0.3, z=-0.05, yaw_deg=-2.0)]
+    return torch.from_numpy(np.stack([pad_scan(merge_scans(
+        [make_sensor_scan(SceneSpec(), "os1_64", seed=s + k, firings=2048)
+         for k in range(2)], exts), 262144) for s in seeds])).to(dev)
+
+
+def test_ingest_kernels_262k_128_rings(dev):
+    cfg = FilterConfig()
+    rows = _merged_rows(dev, (70, 72))
+    x, y, z, _ = geometry.xyz_of(rows, "rows", batched=True)
+    _, ring_id, count = _ingest_vs_twins(x, y, z, cfg, 128)
+    assert int(count.min()) > 64  # the tables pass 64 entries
+    # K5 then ranks more than 65 groups.
+    for b in range(rows.shape[0]):
+        _assert_same(group_positions(ring_id[b], 129),
+                     group_positions_plain(ring_id[b], 129))
+
+
+def test_ingest_kernels_all_invalid(dev):
+    cfg = FilterConfig()
+    rows = _batch_rows(dev, N, 32, (5, 6))
+    rows[1] = 0
+    x, y, z, _ = geometry.xyz_of(rows, "rows", batched=True)
+    valid, ring_id, count = _ingest_vs_twins(x, y, z, cfg, RINGS)
+    assert int(count[1]) == 0 and not bool(valid[1].any())
+    assert bool((ring_id[1] == RINGS).all())
+
+
+def test_ingest_kernels_nan_alpha(dev):
+    # A valid point whose vertical angle is NaN (x*x + y*y + z*z
+    # underflows): it fills every round after it, as the oracle does.
+    cfg = FilterConfig(max_z=1.0)
+    rows = _batch_rows(dev, N, 32, (3,))
+    rows[0, 5] = torch.tensor([1e-25, 0.0, 0.0, 0.0], device=dev)
+    x, y, z, _ = geometry.xyz_of(rows, "rows", batched=True)
+    _, ring_id, count = _ingest_vs_twins(x, y, z, cfg, RINGS)
+    assert int(count[0]) == RINGS and int(ring_id[0, 5]) == RINGS
+
+
+@pytest.mark.parametrize("cfg", [FilterConfig(),
+                                 FilterConfig(star_shaped_method=False)])
+def test_batch_lanes_equal_process_scan(dev, cfg):
+    dims = PipelineDims(max_points=N, rings=RINGS, ring_capacity=CAP)
+    rows = _batch_rows(dev, N, 32, (0, 1, 2))
+    planar = torch.from_numpy(planarize_batch(rows.cpu().numpy())).to(dev)
+    before = _build.launch_counts()
+    got = process_batch(planar, cfg, dims, layout="planar")
+    after = _build.launch_counts()
+    assert all(after[k] > before[k] for k in ("ingest_prep", "discover_rings",
+                                               "assign_rings", "group_rank"))
+    for b in range(rows.shape[0]):
+        one = process_scan(rows[b], cfg, dims)
+        for g, w in zip(got, one):
+            _assert_same((g[b],), (w,))

@@ -1,18 +1,23 @@
 #!/usr/bin/env python3
 """Where a scan's time goes in the PyTorch port, on one CUDA card.
 
-    python tools/profile_torch_scan.py [--star-off] [--reps 3] [--out F.json]
+    python tools/profile_torch_scan.py [--star-off] [--reps 3] [--batch B]
+                                       [--out F.json]
 
 Runs urban_road_filter_torch.packed_scan (OS1-64 dims; the default
 configuration, or with ``--star-off`` the star search off) on the 7
 synthetic scenes at 64 rings x 2048 azimuths and 2 emulated OS1-64
 drive scans: first unprofiled (host-to-host wall per scan and the host
-time to enqueue it, p50), then under
-torch.profiler.  Prints the card's name and power limit; per stage (the
-pipeline's ``urf::<stage>`` ranges) per scan the host ms, the device ms of
-its kernels and its span on the device timeline (gaps included); the
-device-busy share of the profiled wall time; the device ops per scan; and
-the kernels by device time.  Needs a CUDA device.
+time to enqueue it, p50), then under torch.profiler.  With ``--batch B``
+it runs process_batch instead, on bench.py's batch of B planar scans
+(131072 points, 64 rings x 2048 slots, two_curbs and blind_spot
+alternating), one call per pass, and reports per scan of the batch.
+Prints the card's name and power limit; per stage (the pipeline's
+``urf::<stage>`` ranges; a batch's ingest range covers K1-K3 over the
+whole batch) per scan the host ms, the device ms of its kernels and its
+span on the device timeline (gaps included); the device-busy share of the
+profiled wall time; the device ops per scan; and the kernels by device
+time.  Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -25,6 +30,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -42,10 +48,12 @@ def _union_us(intervals) -> float:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--reps", type=int, default=3,
-                    help="profiled passes over the 9 scans")
+                    help="profiled passes over the 9 scans (or the batch)")
     ap.add_argument("--out", default=None, help="write the summary as JSON")
     ap.add_argument("--star-off", action="store_true",
                     help="FilterConfig(star_shaped_method=False)")
+    ap.add_argument("--batch", type=int, default=0,
+                    help="profile process_batch on B scans instead")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("profile_torch_scan: needs a CUDA device")
@@ -54,34 +62,51 @@ def main() -> int:
     from torch.profiler import ProfilerActivity, profile
 
     from urban_road_filter_torch import (
-        FilterConfig, PipelineDims, pad_scan, packed_scan)
+        FilterConfig, PipelineDims, pad_scan, packed_scan, planarize_batch,
+        process_batch)
     from urban_road_filter_torch.io import SCENES, make_drive, make_scan
 
     dev = torch.device("cuda", 0)
-    dims = PipelineDims.for_sensor("os1-64")
     cfg = FilterConfig(star_shaped_method=not args.star_off)
-    scans = [make_scan(spec(), n_rings=64, n_azimuth=2048, seed=i)
-             for i, spec in enumerate(SCENES.values())]
-    scans += list(make_drive(2, sensor="os1_64", seed=41))
-    hosts = [torch.from_numpy(pad_scan(s, dims.max_points)).pin_memory()
-             for s in scans]
+    if args.batch:
+        dims = PipelineDims(max_points=131072, rings=64, ring_capacity=2048,
+                            beam_capacity=512)
+        scans = [make_scan(SCENES["two_curbs" if i % 2 == 0
+                                  else "blind_spot"](),
+                           n_rings=64, n_azimuth=2048, seed=i)
+                 for i in range(args.batch)]
+        hosts = [torch.from_numpy(planarize_batch(np.stack(
+            [pad_scan(s, dims.max_points) for s in scans]))).pin_memory()]
+        scans_per_call = args.batch
+        call = lambda pts: process_batch(pts, cfg, dims, layout="planar")
+    else:
+        dims = PipelineDims.for_sensor("os1-64")
+        scans = [make_scan(spec(), n_rings=64, n_azimuth=2048, seed=i)
+                 for i, spec in enumerate(SCENES.values())]
+        scans += list(make_drive(2, sensor="os1_64", seed=41))
+        hosts = [torch.from_numpy(pad_scan(s, dims.max_points)).pin_memory()
+                 for s in scans]
+        scans_per_call = 1
+        call = lambda pts: packed_scan(pts, cfg, dims)
 
     def run(host):
-        """One scan; returns the host ms to enqueue it (packed_scan
-        returns before the device is done) and to fetch its outputs."""
+        """One call; returns the host ms per scan to enqueue it (the
+        pipeline returns before the device is done) and to fetch its
+        outputs."""
         t0 = time.perf_counter()
-        out = packed_scan(host.to(dev, non_blocking=True), cfg, dims)
+        out = call(host.to(dev, non_blocking=True))
         t1 = time.perf_counter()
         for t in out:
             t.cpu()
-        return (t1 - t0) * 1e3, (time.perf_counter() - t0) * 1e3
+        return ((t1 - t0) * 1e3 / scans_per_call,
+                (time.perf_counter() - t0) * 1e3 / scans_per_call)
 
     for host in hosts:  # warm-up
         run(host)
     runs = [run(host) for _ in range(args.reps) for host in hosts]
     enqueues, walls = zip(*runs)
 
-    n = args.reps * len(hosts)
+    n = args.reps * len(hosts) * scans_per_call
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -123,7 +148,8 @@ def main() -> int:
         check=True, timeout=60).stdout.strip().splitlines()[0]
     summary = {
         "card": smi, "star_shaped_method": cfg.star_shaped_method,
-        "scans": len(hosts), "reps": args.reps,
+        "batch": args.batch, "scans": len(hosts) * scans_per_call,
+        "reps": args.reps,
         "wall_ms_p50": statistics.median(walls),
         "enqueue_ms_p50": statistics.median(enqueues),
         "profiled_wall_ms_per_scan": window_us / n / 1e3,

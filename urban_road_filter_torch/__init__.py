@@ -12,16 +12,18 @@ launches the kernel or raises.
 Imports no JAX: only the JAX-free modules of the reference package
 (``config``, ``constants``, ``io.synthetic``).
 
-Entry points: ``pipeline.process_scan`` / ``pipeline.packed_scan``.
+Entry points: ``pipeline.process_scan`` / ``pipeline.packed_scan`` for one
+scan, ``pipeline.process_batch`` for a batch.
 """
 
 from urban_road_filter_tpu.config import FilterConfig, PipelineDims
 
 from urban_road_filter_torch._build import launch_counts, reset_launch_counts
 from urban_road_filter_torch.pipeline import (
-    ScanResult, pad_scan, pad_scan_planar, packed_scan, process_scan,
-    unpack_planes)
+    ScanResult, pad_scan, pad_scan_planar, packed_scan, planarize_batch,
+    process_batch, process_scan, unpack_planes)
 
 __all__ = ["FilterConfig", "PipelineDims", "ScanResult", "launch_counts",
-           "pad_scan", "pad_scan_planar", "packed_scan", "process_scan",
-           "reset_launch_counts", "unpack_planes"]
+           "pad_scan", "pad_scan_planar", "packed_scan", "planarize_batch",
+           "process_batch", "process_scan", "reset_launch_counts",
+           "unpack_planes"]

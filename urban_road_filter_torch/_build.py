@@ -32,6 +32,12 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 # Launch-counter name -> (its CUDA source, the TPU kernel it replaces).
 KERNELS = {
+    "ingest_prep": ("urban_road_filter_torch/csrc/ingest.cu",
+                    "urban_road_filter_tpu/ops/ingest_scan.py:159"),
+    "discover_rings": ("urban_road_filter_torch/csrc/ingest.cu",
+                       "urban_road_filter_tpu/ops/ingest_scan.py:320"),
+    "assign_rings": ("urban_road_filter_torch/csrc/ingest.cu",
+                     "urban_road_filter_tpu/ops/ingest_scan.py:421"),
     "star_walk": ("urban_road_filter_torch/csrc/star.cu",
                   "urban_road_filter_tpu/ops/star_scan.py:225"),
     "group_rank": ("urban_road_filter_torch/csrc/group_place.cu",
@@ -54,6 +60,10 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
+    "urf_ingest_prep": (_P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F,
+                        _F, _I, _P, _P, _P, _P, _P),
+    "urf_discover_rings": (_P, _P, _I, _I, _F, _I, _P, _P, _P),
+    "urf_assign_rings": (_P, _P, _P, _I, _I, _I, _F, _P, _P),
     "urf_star_walk": (_P, _P, _P, _P, _I, _F, _F, _F, _I, _P, _P),
     "urf_group_rank": (_P, _I, _I, _P, _P, _P, _P),
     "urf_group_place": (_P, _P, _I, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P),

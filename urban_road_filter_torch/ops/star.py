@@ -12,8 +12,9 @@ The walk keeps the reference's sequential running mean and mean absolute
 deviation, rounded in its order, where the JAX package used segmented
 prefix sums: the CUDA kernel (csrc/star.cu) and the plain twin here
 repeat the numpy oracle's ``_beam_walk`` operation for operation.  The
-azimuth is the float64 atan2 rounded once to float32, as the C++ and the
-oracle compute it.
+sector and radius keys come from the ingest kernel K1 (ops/ingest.py),
+whose azimuth is the float64 atan2 rounded once to float32, as the C++ and
+the oracle compute it.
 """
 
 from __future__ import annotations
@@ -25,9 +26,10 @@ import torch
 
 from urban_road_filter_tpu.config import FilterConfig
 from urban_road_filter_tpu.constants import (
-    LABEL_CURB, STAR_KFI, STAR_REP, beam_tables)
+    LABEL_CURB, STAR_REP, beam_tables)
 from urban_road_filter_torch import _build
-from urban_road_filter_torch.ops.geometry import F32, I32, f32, sqrt_rn
+from urban_road_filter_torch.ops.geometry import F32, I32, f32
+from urban_road_filter_torch.ops.ingest import ingest_prep
 
 
 def _rect(x, y, f):
@@ -41,20 +43,26 @@ def _rect(x, y, f):
     return ((c - o) < coord) & (coord < (c + o))
 
 
-def beam_streams(x, y, z, valid, cfg: FilterConfig):
+def beam_streams(x, y, z, valid, cfg: FilterConfig, keys=None):
     """The four beam-sorted streams (beam, radius, z, point index), (N,)
     each: beam STAR_REP (the sink, sorted last) for points outside the ROI
-    or their beam's rectangle; ties in radius keep input order."""
-    r = sqrt_rn(x * x + y * y)
-    fi = torch.atan2(y.double(), x.double()).float()
-    fi = torch.where(fi < 0, (fi.double() + 2.0 * math.pi).float(), fi)
-    # A sector index of 360 (fi a few ulps below 2 pi) is beam 0's.
-    f = (fi * f32(STAR_KFI)).to(I32) % STAR_REP
-    keep = valid
+    or their beam's rectangle; ties in radius keep input order.
+
+    ``keys`` is this scan's (fk, r_key) from the ingest kernel K1
+    (ops.ingest.ingest_prep), which already sends the points outside the
+    ROI to the sink; without it K1 runs here on the one scan and the points
+    outside ``valid`` go to the sink."""
+    if keys is None:
+        _, fk, r_key, _ = ingest_prep(x[None], y[None], z[None], cfg)
+        fk = torch.where(valid, fk[0], STAR_REP)
+        r_key = torch.where(valid, r_key[0], math.inf)
+    else:
+        fk, r_key = keys
     if cfg.starbeam_filter:
-        keep = keep & _rect(x, y, f.long())
-    fk = torch.where(keep, f, STAR_REP)
-    r_key = torch.where(keep, r, math.inf)
+        # Sink points index the tables at beam 0; both branches keep them.
+        rect = _rect(x, y, torch.where(fk < STAR_REP, fk, 0).long())
+        fk = torch.where(rect, fk, STAR_REP)
+        r_key = torch.where(rect, r_key, math.inf)
     order = torch.sort(r_key, stable=True).indices
     order = order[torch.sort(fk[order], stable=True).indices]
     return fk[order], r_key[order], z[order], order.to(I32)
@@ -122,9 +130,10 @@ def star_walk(fk_s, r_s, z_s, pid_s, cfg: FilterConfig) -> torch.Tensor:
     return hp
 
 
-def star_hits(x, y, z, valid, cfg: FilterConfig) -> torch.Tensor:
-    """(360,) int32 hp of the star search over one scan's points."""
-    return star_walk(*beam_streams(x, y, z, valid, cfg), cfg)
+def star_hits(x, y, z, valid, cfg: FilterConfig, keys=None) -> torch.Tensor:
+    """(360,) int32 hp of the star search over one scan's points; ``keys``
+    as for beam_streams."""
+    return star_walk(*beam_streams(x, y, z, valid, cfg, keys), cfg)
 
 
 def star_labels(hp, ring_id, pos, rings: int, cap: int) -> torch.Tensor:

@@ -1,10 +1,15 @@
-"""One scan in, labels + markers out: the single-scan pipeline on tensors.
+"""Scans in, labels + markers out: the scan and batch pipelines on tensors.
 
-Port of urban_road_filter_tpu/pipeline.py:99-212 (process_scan) and
-:271-296 (the packed wire plane).  Dataflow, on the device of the input:
+Port of urban_road_filter_tpu/pipeline.py:99-212 (process_scan), :234-306
+(the batch path, process_batch_jit) and :271-296 (the packed wire plane).
+Dataflow, on the device of the input:
 
-    points (rows (N, >=3) or planar (3, N), named by ``layout``)
-      -> ROI mask, vertical angles, ring discovery + binning (ops.geometry)
+    points (one scan: rows (N, >=3) or planar (3, N); a batch: rows
+    (B, N, >=3) or planar (3, B, N); named by ``layout``)
+      -> ingest, once over the (B, N) streams (B = 1 for one scan):
+         ROI mask, star keys, in-ROI count (K1), vertical angles, ring
+         discovery (K2) and binning (K3)   (ops.ingest)
+    then per scan:
       -> star-shaped search: <= 360 curb hits (K4 ops.star), when
          cfg.star_shaped_method
       -> stable rank + placement into (rings, P), input order, the star
@@ -15,8 +20,8 @@ Port of urban_road_filter_tpu/pipeline.py:99-212 (process_scan) and
       -> markers on the unsorted layout (K10 ops.markers)
       -> labels back to input order, gated and packed (K11 ops.gather)
 
-Nothing here reads a value back to the host, so a CUDA scan is enqueued
-without a synchronisation.
+Nothing here reads a value back to the host, so a CUDA scan or batch is
+enqueued without a synchronisation.
 """
 
 from __future__ import annotations
@@ -28,7 +33,7 @@ import torch
 
 from urban_road_filter_tpu.config import FilterConfig, PipelineDims
 from urban_road_filter_tpu.constants import MIN_POINTS
-from urban_road_filter_torch.ops import geometry
+from urban_road_filter_torch.ops import geometry, ingest
 from urban_road_filter_torch.ops.blind_spots import blind_spots
 from urban_road_filter_torch.ops.gather import gather_pack
 from urban_road_filter_torch.ops.markers import marker_points
@@ -61,24 +66,15 @@ class ScanResult(NamedTuple):
     probably_road: torch.Tensor  # (N,) bool: cfg.probably_road_ring members
 
 
-def _scan(pts, cfg: FilterConfig, dims: PipelineDims, layout: str):
-    """(ScanResult, packed uint8 plane) of one scan."""
-    if pts.dtype != torch.float32:
-        raise TypeError(f"points must be float32, got {pts.dtype}")
-    x, y, z, _ = geometry.xyz_of(pts, layout)
+def _stages(x, y, z, valid, keys, ok, ring_id, num_rings, cfg: FilterConfig,
+            dims: PipelineDims):
+    """(ScanResult, packed uint8 plane) of one scan after the ingest; keys
+    are its star keys (fk, r_key), None with the star search off."""
     rings = dims.rings
-
-    with _stage("ingest"):
-        valid = geometry.roi_mask_xyz(x, y, z, cfg)
-        ok = torch.sum(valid) >= MIN_POINTS
-        _, alpha_v = geometry.vertical_angles(x, y, z)
-        angles, num_rings = geometry.discover_rings(
-            alpha_v, valid, cfg.interval, rings=rings)
-        ring_id = geometry.assign_rings(alpha_v, valid, angles, cfg.interval)
     hp = None
-    if cfg.star_shaped_method:
+    if keys is not None:
         with _stage("star"):
-            hp = star_hits(x, y, z, valid, cfg)
+            hp = star_hits(x, y, z, valid, cfg, keys)
     with _stage("tensorize"):
         rl, pos = geometry.tensorize(x, y, z, ring_id, dims.ring_capacity,
                                      rings=rings)
@@ -100,9 +96,34 @@ def _scan(pts, cfg: FilterConfig, dims: PipelineDims, layout: str):
         ok=ok, roi=roi, labels=labels, ring_id=ring_id, num_rings=num_rings,
         counts=rl.counts, max_distance=max_dist, markers=markers,
         overflow=rl.overflow,
-        star_overflow=torch.zeros((), dtype=I32, device=pts.device),
+        star_overflow=torch.zeros((), dtype=I32, device=x.device),
         probably_road=probably_road)
     return res, packed
+
+
+def _lanes(x, y, z, cfg: FilterConfig, dims: PipelineDims):
+    """[(ScanResult, packed uint8 plane)] of each scan of (B, N) coordinate
+    views: the ingest once over the batch, then the per-scan stages."""
+    if x.dtype != torch.float32:
+        raise TypeError(f"points must be float32, got {x.dtype}")
+    with _stage("ingest"):
+        valid, fk, r_key, piece = ingest.ingest_prep(
+            x, y, z, cfg, want_star_keys=bool(cfg.star_shaped_method))
+        _, alpha = geometry.vertical_angles(x, y, z)
+        angles, num_rings = ingest.discover_rings(alpha, valid, cfg.interval,
+                                                  dims.rings)
+        ring_id = ingest.assign_rings(alpha, valid, angles, cfg.interval)
+    ok = piece >= MIN_POINTS
+    return [_stages(x[b], y[b], z[b], valid[b],
+                    None if fk is None else (fk[b], r_key[b]), ok[b],
+                    ring_id[b], num_rings[b], cfg, dims)
+            for b in range(x.shape[0])]
+
+
+def _scan(pts, cfg: FilterConfig, dims: PipelineDims, layout: str):
+    """(ScanResult, packed uint8 plane) of one scan: a batch of one."""
+    x, y, z, _ = geometry.xyz_of(pts, layout)
+    return _lanes(x[None], y[None], z[None], cfg, dims)[0]
 
 
 def process_scan(pts: torch.Tensor, cfg: FilterConfig, dims: PipelineDims,
@@ -121,6 +142,22 @@ def packed_scan(pts: torch.Tensor, cfg: FilterConfig, dims: PipelineDims,
     overflow); unpack with unpack_planes."""
     res, packed = _scan(pts, cfg, dims, layout)
     return packed, res.markers, res.ok, res.num_rings, res.overflow
+
+
+def process_batch(pts: torch.Tensor, cfg: FilterConfig, dims: PipelineDims,
+                  layout: str = "rows") -> ScanResult:
+    """Label a batch of padded scans: ``layout="rows"`` for (B, N, >=3)
+    points, ``"planar"`` for (3, B, N) coordinate planes (planarize_batch).
+    The ingest (K1-K3) runs once over the (B, N) streams; the later stages
+    run per scan on views of them, and nothing reads a value back to the
+    host.  Returns a ScanResult with a leading B axis on every field (ok,
+    num_rings, overflow and star_overflow are (B,); markers (B, 361, 6)).
+    Lane b equals process_scan of scan b."""
+    x, y, z, _ = geometry.xyz_of(pts, layout, batched=True)
+    if x.shape[0] == 0:
+        raise ValueError(f"empty batch: {tuple(pts.shape)}")
+    lanes = [res for res, _ in _lanes(x, y, z, cfg, dims)]
+    return ScanResult(*(torch.stack(f) for f in zip(*lanes)))
 
 
 def unpack_planes(packed):
@@ -144,3 +181,10 @@ def pad_scan_planar(points, n: int) -> np.ndarray:
     m = min(len(points), n)
     pts[:, :m] = np.asarray(points, np.float32)[:m, :3].T
     return pts
+
+
+def planarize_batch(batch) -> np.ndarray:
+    """Host helper: (B, N, >=3) row-major batch -> contiguous (3, B, N)
+    float32 planes."""
+    return np.ascontiguousarray(
+        np.asarray(batch, np.float32)[..., :3].transpose(2, 0, 1))
