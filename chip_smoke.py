@@ -6,26 +6,31 @@
 1. Builds the port's CUDA kernels from urban_road_filter_torch/csrc with
    nvcc (sm_90a) and prints the build time and the card's name and power
    limit.
-2. Holds each kernel (the list is _build.KERNELS) against its plain
-   PyTorch twin on the card; every output must be bit-equal.  The batch
-   ingest (K1 ingest_prep, with and without the star keys, K2
+2. Holds each of the 14 kernels (the list is _build.KERNELS) against its
+   plain PyTorch twin on the card; every output must be bit-equal.  The
+   batch ingest (K1 ingest_prep, with and without the star keys, K2
    discover_rings, K3 assign_rings) runs on the phase-4 batch (128 planar
    scans of 131072 points, 64 rings), on its first 8 scans as rows and as
    planes, on 2 merged multi-LiDAR scans (262144 points, 128 rings), on an
    all-invalid scan and on a scan with a NaN vertical angle in the ROI.
    The per-scan kernels (K4 star walk, K5 rank, K6 place, K7 x/z-zero,
-   K8 + K9 flood fill, K10 markers, K11 gather+pack) run on one emulated
-   OS1-64 scan (131072 points, 64 rings x 4096 slots), and again at the
-   two shapes phase 4 gives them: a bench lane (64 rings x 2048 slots)
-   and a merged multi-LiDAR scan (262144 points, 128 rings x 2048 slots).
-   Prints median CUDA-event times of kernel and twin (the OS1-64 scan's
-   for K4-K11).
+   K8 + K9 flood fill, K10 markers, K11 gather+pack, K12 road mask, K13
+   marker keys, K14 marker state) run on one emulated OS1-64 scan (131072
+   points, 64 rings x 4096 slots), and again at the two shapes phase 4
+   gives them: a bench lane (64 rings x 2048 slots) and a merged
+   multi-LiDAR scan (262144 points, 128 rings x 2048 slots).  On the
+   OS1-64 scan the unfused path (blind_spots(want_marker_f=False), K8 +
+   K12, then marker_points(kf=None), K13 + K10) must equal the fused one
+   bit for bit.  Prints median CUDA-event times of kernel, twin and, where
+   one PyTorch call computes the same function, that call; and each
+   kernel's bound, the larger of its bytes over the HBM rate and its
+   operations over the FP32 rate, from this run's inputs.
 3. Drives the single-scan pipeline (packed_scan) on 9 full-size scans, the
    7 synthetic scenes at 64 rings x 2048 azimuths and 2 emulated OS1-64
    drive scans, in two configurations: the default (star search on) and
    star search off.  Launch counters are zeroed just before and read just
-   after: every kernel must have run.  Each result is gated against the
-   numpy oracle (agreement >= 0.999, 0 systematic flips).
+   after: every kernel of the path must have run.  Each result is gated
+   against the numpy oracle (agreement >= 0.999, 0 systematic flips).
 4. Drives the batch pipeline (process_batch, default configuration) on the
    replay benchmark's batch: 128 planar scans of 131072 points, 64 rings x
    2048 slots, two_curbs and blind_spot alternating (bench.py).  Launch
@@ -36,7 +41,18 @@
    of the first, are gated against the oracle as in phase 3; so is one
    lane of a batch of 4 merged multi-LiDAR scans (262144 points, 128
    rings, bench.py's rig).
-5. Prints one JSON line of per-kernel results and, last,
+5. Drives the azimuth-sharded path (make_azimuth_pipeline, 8 wedges on the
+   card) on two azimuth-sorted deployments: the emulated OS1-128 drive at
+   262144 points, 128 rings x 2048 slots (32768 points and 128 x 384 slots
+   per wedge), and the OS1-64 preset on an OS1-64 drive scan (64 x 768 per
+   wedge), each with the star search on and off.  Launch counters as in
+   phase 3.  Labels and markers must equal process_scan's of the same
+   scan, or differ only at an integer degree (the count is printed); the
+   oracle gate as in phase 3 (128 channels for the 128-ring scan); no
+   overflow.  Prints the SP scan latency p50 host to host.  K12, K13 and
+   K14 are held against their twins again at the per-wedge shapes, K14
+   with the run's own g_offset and f_init.
+6. Prints one JSON line of per-kernel results and, last,
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Any failure raises (exit code 1).  Without a CUDA device, or outside a
@@ -50,7 +66,6 @@ import statistics
 import subprocess
 import sys
 import time
-import types
 
 import numpy as np
 import torch
@@ -60,6 +75,40 @@ WALK_REPS = 5  # timed launches of the star walk's twin (one op per step)
 SCAN_REPS = 5  # timed pipeline runs per scan (after 1 warm-up run)
 BATCH_REPS = 3  # timed batch runs (after 1 warm-up run)
 BATCH = 128  # scans in the phase-4 batch (bench.py's replay batch)
+WEDGES = 8  # azimuth wedges of the phase-5 SP path
+HBM_BYTES_S = 3.35e12  # H100 SXM memory rate (NVIDIA data sheet)
+FP32_OPS_S = 67e12  # H100 SXM FP32 rate outside the tensor cores; integer
+# and compare operations are counted at the same rate
+
+# Kernels each path runs (launch-counter names, _build.KERNELS).
+SCAN_KERNELS = ("ingest_prep", "discover_rings", "assign_rings", "star_walk",
+                "group_rank", "group_place", "xz_zero", "flood_blocked",
+                "flood_labeled", "marker_points", "gather_pack")
+UNFUSED_KERNELS = ("flood_blocked", "flood_road", "marker_first_nonroad",
+                   "marker_points")
+SP_KERNELS = ("ingest_prep", "discover_rings", "assign_rings", "star_walk",
+              "group_rank", "group_place", "xz_zero", "flood_blocked",
+              "flood_road", "marker_state")
+
+
+def bound(nbytes: float, ops: float) -> dict:
+    """The least time the card could take: bytes (each input read once,
+    each output written once) over the HBM rate, or operations over the
+    FP32 rate, whichever is larger."""
+    tb, to = nbytes / HBM_BYTES_S, ops / FP32_OPS_S
+    return {"bound_ms": max(tb, to) * 1e3,
+            "bound_by": "bytes" if tb >= to else "operations"}
+
+
+def assert_launched(launches: dict, names, what: str) -> None:
+    missing = [k for k in names if launches.get(k, 0) <= 0]
+    assert not missing, f"kernels not launched by {what}: {missing}"
+
+
+def assert_no_jax() -> None:
+    bad = [m for m in sys.modules
+           if m.split(".")[0] in ("jax", "jaxlib", "urban_road_filter_tpu")]
+    assert not bad, f"the port must run without JAX: {bad[:5]}"
 
 
 def cuda_ms(fn, reps: int = REPS) -> float:
@@ -131,8 +180,12 @@ def multi_lidar_scans():
 
 def ingest_vs_twins(x, y, z, cfg, rings):
     """K1-K3 on (B, N) coordinate views against their twins, bit-equal.
-    Returns {kernel: (kernel call, twin call, max abs error)} and the ring
-    counts."""
+    Returns {kernel: (kernel call, twin call, max abs error, bound)} and
+    the ring counts.  The bounds count x, y, z read and valid, fk, r_key
+    written (K1), alpha and valid read and the table written (K2, K3);
+    K1's operations at ~40 per point (a float64 atan2, a root, the ROI
+    compares), K2's at 3 per ring test, each valid point tested against
+    half of its scan's table, K3's at 3 per test up to its first match."""
     from urban_road_filter_torch.ops import geometry, ingest
 
     k1 = lambda: ingest.ingest_prep(x, y, z, cfg)
@@ -153,9 +206,19 @@ def ingest_vs_twins(x, y, z, cfg, rings):
     e2 = max_abs_err((angles, count), p2())
     k3 = lambda: ingest.assign_rings(alpha, valid, angles, cfg.interval)
     p3 = lambda: ingest.assign_rings_plain(alpha, valid, angles, cfg.interval)
-    e3 = max_abs_err((k3(),), (p3(),))
-    calls = {"ingest_prep": (k1, p1, e1), "discover_rings": (k2, p2, e2),
-             "assign_rings": (k3, p3, e3)}
+    ring = k3()
+    e3 = max_abs_err((ring,), (p3(),))
+    b, n = x.shape
+    n_valid = valid.sum(1).double()
+    tests = torch.where(valid, torch.minimum(ring, count[:, None] - 1) + 1,
+                        0).sum().item()
+    calls = {"ingest_prep": (k1, p1, e1, bound(b * n * 21 + 4 * b,
+                                               40 * b * n)),
+             "discover_rings": (k2, p2, e2, bound(
+                 b * n * 5 + b * rings * 4 + 4 * b,
+                 1.5 * float((n_valid * count.double()).sum()))),
+             "assign_rings": (k3, p3, e3, bound(b * n * 9 + b * rings * 4,
+                                                3 * tests))}
     return calls, count
 
 
@@ -169,12 +232,14 @@ def phase_ingest(dev, cfg, planar, mrows):
     calls, count = ingest_vs_twins(x, y, z, cfg, 64)
     assert int(count.min()) > 20, "every scan must have rings"
     out = {}
-    for name, (kernel, plain, err) in calls.items():
+    for name, (kernel, plain, err, bnd) in calls.items():
         out[name] = {"max_abs_err": err, "ms": cuda_ms(kernel),
-                     "plain_ms": cuda_ms(plain, WALK_REPS)}
+                     "plain_ms": cuda_ms(plain, WALK_REPS), **bnd,
+                     "library_ms": None}
         print(f"  {name} (B={x.shape[0]}, N={x.shape[1]}): bit-equal, "
               f"kernel {out[name]['ms']:.4f} ms, plain "
-              f"{out[name]['plain_ms']:.4f} ms", flush=True)
+              f"{out[name]['plain_ms']:.4f} ms, bound "
+              f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']})", flush=True)
 
     rows = planar[:, :8].permute(1, 2, 0).contiguous()
     for layout, pts in (("rows", rows), ("planar", planar[:, :8])):
@@ -186,7 +251,7 @@ def phase_ingest(dev, cfg, planar, mrows):
     calls, count = ingest_vs_twins(mx, my, mz, cfg, 128)
     assert int(count.min()) > 64, "the merged rig must have > 64 rings"
     times = ", ".join(f"{k} {cuda_ms(kc):.4f} / {cuda_ms(pc, WALK_REPS):.4f}"
-                      for k, (kc, pc, _) in calls.items())
+                      for k, (kc, pc, _, _) in calls.items())
     print(f"  (2, 262144, 128 rings): bit-equal; kernel / plain ms: {times}",
           flush=True)
 
@@ -209,15 +274,19 @@ def phase_ingest(dev, cfg, planar, mrows):
 
 def phase_kernels(dev, dims, cfg, scan, what, timed=True):
     """Each per-scan kernel against its plain twin on one scan (a (M, >=3)
-    host array) padded to dims; timed, the CUDA-event times of kernel and
-    twin are taken and returned."""
-    from urban_road_filter_torch import pad_scan
+    host array) padded to dims, and the unfused flood/marker path against
+    the fused one.  Timed, the CUDA-event times of kernel, twin and library
+    call are taken and returned with each kernel's bound."""
+    from urban_road_filter_torch import launch_counts, pad_scan
+    from urban_road_filter_torch import reset_launch_counts
     from urban_road_filter_torch.ops import blind_spots as bs
     from urban_road_filter_torch.ops import geometry
     from urban_road_filter_torch.ops import markers as mk
     from urban_road_filter_torch.ops import star
     from urban_road_filter_torch.ops.gather import (
         gather_pack, gather_pack_plain)
+    from urban_road_filter_torch.ops.marker_state import (
+        marker_state, marker_state_plain)
     from urban_road_filter_torch.ops.place import (
         group_place, group_place_plain)
     from urban_road_filter_torch.ops.rank import (
@@ -238,15 +307,23 @@ def phase_kernels(dev, dims, cfg, scan, what, timed=True):
     ring_id = geometry.assign_rings(alpha, valid, angles, cfg.interval)
     out = {}
 
-    def record(name, got, want, kernel, plain, plain_reps=REPS):
+    def record(name, got, want, kernel, plain, plain_reps=REPS, nbytes=0,
+               ops=0, library=None):
         out[name] = {"max_abs_err": max_abs_err(got, want)}
         if not timed:
             print(f"    {name}: bit-equal", flush=True)
             return
         out[name].update(ms=cuda_ms(kernel),
-                         plain_ms=cuda_ms(plain, plain_reps))
+                         plain_ms=cuda_ms(plain, plain_reps),
+                         **bound(nbytes, ops),
+                         library_ms=None if library is None
+                         else cuda_ms(library))
+        lib = out[name]["library_ms"]
         print(f"    {name}: bit-equal, kernel {out[name]['ms']:.4f} ms, "
-              f"plain {out[name]['plain_ms']:.4f} ms", flush=True)
+              f"plain {out[name]['plain_ms']:.4f} ms, bound "
+              f"{out[name]['bound_ms']:.4f} ms ({out[name]['bound_by']}), "
+              f"library {'none' if lib is None else f'{lib:.4f} ms'}",
+              flush=True)
 
     # K4: the star walk over the beam-sorted streams; also with the beams
     # merged 60 to one, so that segments outgrow the kernel's staging chunk.
@@ -259,22 +336,34 @@ def phase_kernels(dev, dims, cfg, scan, what, timed=True):
     p4 = lambda: star.star_walk_plain(*streams, cfg)
     hits = k4()
     assert int((hits > 0).sum()) > 30, "the scan must trigger star hits"
-    record("star_walk", (hits,), (p4(),), k4, p4, WALK_REPS)
+    record("star_walk", (hits,), (p4(),), k4, p4, WALK_REPS,
+           nbytes=16 * n + 360 * 4, ops=20 * int((fk < 360).sum()))
 
     # K5: stable rank within ring, rings + 1 groups.
     k5 = lambda: group_positions(ring_id, r + 1)
     p5 = lambda: group_positions_plain(ring_id, r + 1)
     pos, counts = k5()
-    record("group_rank", (pos, counts), p5(), k5, p5)
+    record("group_rank", (pos, counts), p5(), k5, p5,
+           nbytes=8 * n + 4 * (r + 1), ops=4 * n)
 
     # K6: placement into (rings, slots); also at capacity 64, where points
-    # overflow and must be dropped and counted alike.
+    # overflow and must be dropped and counted alike.  The library call:
+    # index_put_ of the stacked x/y/z into a buffer with a dump ring and a
+    # dump slot (with the clamps and the stack it needs).
     k6 = lambda: group_place(ring_id, pos, x, y, z, r, p)
     p6 = lambda: group_place_plain(ring_id, pos, x, y, z, r, p)
     small = group_place(ring_id, pos, x, y, z, r, 64)
     max_abs_err(small, group_place_plain(ring_id, pos, x, y, z, r, 64))
     assert int(small[3]) > 0, "the capacity-64 case must overflow"
-    record("group_place", k6(), p6(), k6, p6)
+
+    def l6():
+        buf = torch.zeros((r + 1, p + 1, 3), dtype=torch.float32, device=dev)
+        return buf.index_put_((torch.clamp(ring_id, max=r).long(),
+                               torch.clamp(pos, max=p).long()),
+                              torch.stack([x, y, z], 1))
+
+    record("group_place", k6(), p6(), k6, p6, nbytes=20 * n + 12 * r * p + 4,
+           ops=2 * n, library=l6)
 
     # K7: both stencils on the placed layout, at window sizes 3, 10 and 5.
     layout, _ = geometry.tensorize(x, y, z, ring_id, p, rings=r)
@@ -286,17 +375,23 @@ def phase_kernels(dev, dims, cfg, scan, what, timed=True):
     p7 = lambda: z_zero(x_zero(layout, cfg), cfg).label
     marked = k7()
     assert int((marked == 2).sum()) > 0, "the scan must trigger curb marks"
-    record("xz_zero", (marked,), (p7(),), k7, p7)
+    record("xz_zero", (marked,), (p7(),), k7, p7, nbytes=20 * r * p + 4 * r,
+           ops=(60 + 8 * int(cfg.curb_points)) * r * p)
 
     # K8: the flood fill's blocked bits on the stenciled layout.
     stenciled = layout._replace(label=marked)
+    slot_ok = torch.arange(p, device=dev)[None, :] < layout.counts[:, None]
+    n_curb = int((slot_ok & (marked == 2)).sum())
+    a_ok = slot_ok & (layout.alpha >= 0) & (layout.alpha <= 360)
+    n_aok = int(a_ok.sum())
     bz = cfg.beam_zone
     w = bs.window_widths(geometry.max_distance(layout), bz)
     k8 = lambda: bs.flood_blocked(stenciled, w, bz)
     p8 = lambda: bs.flood_blocked_plain(stenciled, w, bz)
     blocked = k8()
     assert bool(blocked[0].any()), "the curbs must block some windows"
-    record("flood_blocked", blocked, p8(), k8, p8)
+    record("flood_blocked", blocked, p8(), k8, p8,
+           nbytes=8 * r * p + 8 * r + 2 * r * 362, ops=4 * 362 * n_curb)
 
     # K9: the road mask and the markers' first-pass keys.
     reach = bs.sweep_reach(stenciled, blocked, w, num_rings, cfg)
@@ -304,7 +399,16 @@ def phase_kernels(dev, dims, cfg, scan, what, timed=True):
     p9 = lambda: bs.flood_labeled_plain(stenciled, *reach, w, bz, num_rings)
     flooded, kf = k9()
     assert int((flooded == 1).sum()) > 0, "the flood must reach road"
-    record("flood_labeled", (flooded, kf), p9(), k9, p9)
+    record("flood_labeled", (flooded, kf), p9(), k9, p9,
+           nbytes=12 * r * p + 2 * r * 362 + 8 * r + 361 * 8,
+           ops=6 * 362 * n_aok)
+
+    # K12: the road mask alone.
+    k12 = lambda: bs.flood_road(stenciled, *reach, w, bz)
+    p12 = lambda: bs.flood_road_plain(stenciled, *reach, w, bz)
+    road_mask = k12()
+    record("flood_road", (road_mask,), (p12(),), k12, p12,
+           nbytes=5 * r * p + 2 * r * 362 + 8 * r, ops=6 * 362 * n_aok)
 
     # K10: the marker table on the flooded, unsorted layout.
     road = stenciled._replace(label=flooded)
@@ -312,15 +416,42 @@ def phase_kernels(dev, dims, cfg, scan, what, timed=True):
     p10 = lambda: mk.marker_points_plain(road, num_rings, kf)
     markers = k10()
     assert float(markers[:, 0].sum()) > 0, "the scan must yield markers"
-    record("marker_points", (markers,), (p10(),), k10, p10)
+    record("marker_points", (markers,), (p10(),), k10, p10,
+           nbytes=12 * r * p + 4 * r + 361 * 8 + 361 * 24, ops=10 * r * p)
+
+    # K13: the markers' first-pass keys on their own.
+    k13 = lambda: mk.marker_first_nonroad(road, num_rings)
+    p13 = lambda: mk.first_nonroad_keys(road, num_rings)
+    record("marker_first_nonroad", (k13(), k13()), (p13(), kf), k13, p13,
+           nbytes=8 * r * p + 4 * r + 361 * 8, ops=5 * r * p)
+
+    # K14: the marker state on the sorted layout, with the default offsets
+    # and, untimed, with offsets and a floor of the SP path's form.
+    srt = geometry.sort_by_azimuth(road)
+    k14 = lambda: marker_state(srt, num_rings)
+    p14 = lambda: marker_state_plain(srt, num_rings)
+    state = k14()
+    assert int((state[:, 1] > 0).sum()) > 10, "the scan must yield markers"
+    rng = np.random.default_rng(9)
+    goff = torch.from_numpy((np.arange(r) * (8 * p + 1) + rng.integers(
+        0, 7 * p, r)).astype(np.int32)).to(dev)
+    f_init = state[:, 0] + torch.from_numpy(rng.integers(
+        -5, 5, 361).astype(np.float32)).to(dev) * p
+    max_abs_err((marker_state(srt, num_rings, goff, f_init),),
+                (marker_state_plain(srt, num_rings, goff, f_init),))
+    record("marker_state", (state,), (p14(),), k14, p14,
+           nbytes=20 * r * p + 8 * r + 361 * 28, ops=15 * r * p)
 
     # K11: gather + gate + pack on the final label table; then indices
-    # outside the table, negative ones included, must read label 0.
+    # outside the table, negative ones included, must read label 0.  The
+    # library call: the indexed gather (with the clamps it needs).
     table = flooded
     ok = torch.sum(valid) >= 30
     prr = int(cfg.probably_road_ring)
     k11 = lambda: gather_pack(table, ring_id, pos, valid, ok, prr)
     p11 = lambda: gather_pack_plain(table, ring_id, pos, valid, ok, prr)
+    l11 = lambda: table[torch.clamp(ring_id, 0, r - 1).long(),
+                        torch.clamp(pos, 0, p - 1).long()]
     rng = np.random.default_rng(5)
     bad_ids = torch.from_numpy(
         rng.integers(-5, r + 5, n).astype(np.int32)).to(dev)
@@ -328,8 +459,26 @@ def phase_kernels(dev, dims, cfg, scan, what, timed=True):
         rng.integers(-5, p + 5, n).astype(np.int32)).to(dev)
     max_abs_err(gather_pack(table, bad_ids, bad_pos, valid, ok, prr),
                 gather_pack_plain(table, bad_ids, bad_pos, valid, ok, prr))
-    record("gather_pack", k11(), p11(), k11, p11)
-    return out
+    record("gather_pack", k11(), p11(), k11, p11,
+           nbytes=4 * r * p + 13 * n, ops=4 * n, library=l11)
+
+    # The unfused path: K8 + K12, then K13 + K10, equals K8 + K9, K10.
+    md = geometry.max_distance(layout)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    unfused = bs.blind_spots(stenciled, md, num_rings, cfg,
+                             want_marker_f=False)
+    u_table = mk.marker_points(unfused, num_rings)
+    torch.cuda.synchronize()
+    unfused_launches = launch_counts()
+    fused, f_kf = bs.blind_spots(stenciled, md, num_rings, cfg)
+    max_abs_err((unfused.label, u_table),
+                (fused.label, mk.marker_points(fused, num_rings, f_kf)))
+    assert_launched(unfused_launches, UNFUSED_KERNELS, "the unfused path")
+    print(f"    unfused path equals the fused one; launches "
+          f"{ {k: v for k, v in unfused_launches.items() if v} }",
+          flush=True)
+    return out, unfused_launches
 
 
 def scans_for_pipeline():
@@ -456,19 +605,135 @@ def phase_batch(dev, cfg, scans, merged, dims, mdims, smi,
     return launches
 
 
-def oracle_gate():
-    """The reference package's numpy oracle gate, utils.parity's
-    device_parity_gate.  It imports compact_markers from the JAX package's
-    ops.markers inside the function, and that module imports jax; so the
-    port's copy of compact_markers stands in for that module here, and
-    nothing of JAX is loaded."""
-    from urban_road_filter_tpu.utils.parity import device_parity_gate
+def sp_deployments():
+    """(name, dims, azimuth-sorted scan, oracle channels) of phase 5: the
+    JAX package's production SP test (the emulated OS1-128 drive, seed 31,
+    2048 firings, 262144 points) and the OS1-64 preset on a drive scan."""
+    from urban_road_filter_torch import PipelineDims
+    from urban_road_filter_torch.io import make_drive
+    from urban_road_filter_torch.parallel.azimuth_parallel import (
+        azimuth_sorted)
+
+    return [("os1_128_262k", PipelineDims(max_points=262144, rings=128,
+                                          ring_capacity=2048,
+                                          beam_capacity=1024),
+             azimuth_sorted(next(make_drive(1, sensor="os1_128", seed=31,
+                                            firings=2048))), 128),
+            ("os1_64_preset", PipelineDims.for_sensor("os1-64"),
+             azimuth_sorted(next(make_drive(1, sensor="os1_64", seed=41))),
+             None)]
+
+
+def boundary_flips(got, want, pts) -> int:
+    """Label flips between two runs of one scan; each must sit within 1e-4
+    degrees of an integer azimuth (a one-ulp bin edge).  Returns their
+    count."""
+    from urban_road_filter_torch.oracle.reference import azimuth_2d
+
+    flips = np.flatnonzero(got != want)
+    if flips.size:
+        _, aa = azimuth_2d(pts[flips, 0].astype(np.float32),
+                           pts[flips, 1].astype(np.float32))
+        aa = np.where(np.isnan(aa), 0.5, aa)
+        assert (np.abs(aa - np.round(aa)) <= 1e-4).all(), (
+            "SP labels differ from process_scan away from a bin edge")
+    return int(flips.size)
+
+
+def wedge_kernels(probe, rings: int, bz: float) -> None:
+    """K12, K13 and K14 against their twins on each wedge of a real SP run:
+    its sorted wedge layouts, reach, window widths, g_offset and f_init."""
+    from urban_road_filter_torch.ops import blind_spots as bs
+    from urban_road_filter_torch.ops import markers as mk
+    from urban_road_filter_torch.ops.marker_state import (
+        marker_state, marker_state_plain)
+    from urban_road_filter_torch.parallel.azimuth_parallel import _rows
+
+    nr = probe["num_rings"]
+    reach = (probe["reach_f"], probe["reach_b"])
+    for k in range(WEDGES):
+        lay = _rows(probe["layout"], k, rings)
+        goff, f_init = probe["g_offset"][k], probe["f_init"]
+        max_abs_err((bs.flood_road(lay, *reach, probe["w"], bz),
+                     mk.marker_first_nonroad(lay, nr),
+                     marker_state(lay, nr),
+                     marker_state(lay, nr, goff, f_init)),
+                    (bs.flood_road_plain(lay, *reach, probe["w"], bz),
+                     mk.first_nonroad_keys(lay, nr),
+                     marker_state_plain(lay, nr),
+                     marker_state_plain(lay, nr, goff, f_init)))
+
+
+def phase_sp(dev, configs, smi, device_parity_gate):
+    """make_azimuth_pipeline(8 wedges) on each deployment in each
+    configuration; returns the launch counts of all the runs."""
+    from urban_road_filter_torch import (
+        ScanResult, launch_counts, pad_scan, process_scan,
+        reset_launch_counts)
+    from urban_road_filter_torch.parallel.azimuth_parallel import (
+        make_azimuth_pipeline)
+    from urban_road_filter_torch.utils.parity import marker_rows_boundary_ok
     from urban_road_filter_torch.ops.markers import compact_markers
 
-    shim = types.ModuleType("urban_road_filter_tpu.ops.markers")
-    shim.compact_markers = compact_markers
-    sys.modules.setdefault(shim.__name__, shim)
-    return device_parity_gate
+    deployments = sp_deployments()
+    total = {}
+    for name, dims, scan, channels in deployments:
+        host = torch.from_numpy(pad_scan(scan, dims.max_points)).pin_memory()
+        per_wedge = dims.max_points // WEDGES
+        print(f"  {name}: {len(scan)} points, {WEDGES} wedges of "
+              f"{per_wedge} points, {dims.rings} rings", flush=True)
+        for cname, cfg in configs.items():
+            run = make_azimuth_pipeline(WEDGES, cfg, dims, device=dev)
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            times = []
+            for _ in range(1 + SCAN_REPS):
+                t0 = time.perf_counter()
+                res = run(host.to(dev, non_blocking=True))
+                fetched = ScanResult(*(t.cpu() for t in res))
+                times.append(time.perf_counter() - t0)
+            launches = launch_counts()
+            for k, v in launches.items():
+                total[k] = total.get(k, 0) + v
+            want = SP_KERNELS if cfg.star_shaped_method else tuple(
+                k for k in SP_KERNELS if k != "star_walk")
+            assert_launched(launches, want, f"the SP path ({name} {cname})")
+            assert int(fetched.overflow) == 0, "SP overflow"
+            assert bool(fetched.ok) and int(fetched.num_rings) > 0
+            labels = fetched.labels.numpy()
+            markers = fetched.markers.numpy()
+            assert np.isfinite(markers).all() and int(labels.max()) <= 2
+            one = ScanResult(*(t.cpu() for t in process_scan(
+                host.to(dev), cfg, dims, device=dev)))
+            n_flips = boundary_flips(labels, one.labels.numpy(),
+                                     host.numpy())
+            rows, bins = compact_markers(markers)
+            orows, obins = compact_markers(one.markers.numpy())
+            assert np.array_equal(bins, obins), "SP marker bins differ"
+            diff = ~np.all(rows == orows, axis=1)
+            assert marker_rows_boundary_ok(rows[diff, :3],
+                                           orows[diff, :3]).all()
+            agree, n_sys = device_parity_gate(scan, labels, markers, cfg,
+                                              name, channels=channels)
+            p50 = statistics.median(times[1:]) * 1e3
+            print(f"  {name} {cname}: SP latency p50 {p50:.3f} ms host to "
+                  f"host on {smi}; vs process_scan: {n_flips} boundary "
+                  f"label flips, {int(diff.sum())} marker rows differ; "
+                  f"parity {agree:.6f}, systematic {n_sys}, rings "
+                  f"{int(fetched.num_rings)}, overflow "
+                  f"{int(fetched.overflow)}", flush=True)
+            assert agree >= 0.999 and n_sys == 0, (name, cname, agree, n_sys)
+            print(f"    launches: "
+                  f"{ {k: v for k, v in launches.items() if v} }")
+        probe = {}
+        run = make_azimuth_pipeline(WEDGES, configs["default"], dims,
+                                    device=dev)
+        run(host.to(dev), probe=probe)
+        wedge_kernels(probe, dims.rings, configs["default"].beam_zone)
+        print(f"  {name}: K12, K13, K14 bit-equal to their twins on each "
+              f"wedge ({dims.rings} x "
+              f"{probe['layout'].x.shape[1]} slots)", flush=True)
+    return total
 
 
 def main() -> int:
@@ -478,7 +743,7 @@ def main() -> int:
     from urban_road_filter_torch import pad_scan, planarize_batch
     from urban_road_filter_torch import unpack_planes
     from urban_road_filter_torch.io import make_drive
-    device_parity_gate = oracle_gate()
+    from urban_road_filter_torch.utils.parity import device_parity_gate
 
     dev = torch.device("cuda", 0)
     dims = PipelineDims.for_sensor("os1-64")
@@ -513,9 +778,10 @@ def main() -> int:
         [pad_scan(p, mdims.max_points) for _, p in merged[:2]])).to(dev)
     kernels = phase_ingest(dev, cfg, planar, mrows)
     del planar, mrows
-    kernels.update(phase_kernels(
+    per_scan, unfused_launches = phase_kernels(
         dev, dims, cfg, next(make_drive(1, sensor="os1_64", seed=41)),
-        "OS1-64 drive scan"))
+        "OS1-64 drive scan")
+    kernels.update(per_scan)
     assert set(kernels) == set(_build.KERNELS), sorted(kernels)
     # The per-scan kernels again at the shapes the batch path gives them
     # in phase 4: a bench lane and a merged multi-LiDAR scan (128 rings).
@@ -530,8 +796,7 @@ def main() -> int:
     scans = scans_for_pipeline()
     runs, scan_launches = phase_pipeline(dev, dims, configs, scans)
     print(f"  launches: {scan_launches}")
-    missing = [k for k in _build.KERNELS if scan_launches.get(k, 0) <= 0]
-    assert not missing, f"kernels not launched by the scan path: {missing}"
+    assert_launched(scan_launches, SCAN_KERNELS, "the scan path")
     for cname, k, fetched, p50 in runs:
         name, pts = scans[k]
         packed, markers, ok, num_rings, overflow = (t.numpy()
@@ -547,7 +812,7 @@ def main() -> int:
               f"systematic {n_sys}, rings {int(num_rings)}, "
               f"overflow {int(overflow)}", flush=True)
         assert agree >= 0.999 and n_sys == 0, (cname, name, agree, n_sys)
-    assert "jax" not in sys.modules, "the port must run without JAX"
+    assert_no_jax()
     for cname in configs:
         lat = [p50 for c, _, _, p50 in runs if c == cname]
         print(f"  {cname}: scan latency p50 over scans "
@@ -559,13 +824,25 @@ def main() -> int:
     launches = phase_batch(dev, FilterConfig(), bench, merged, bench_dims,
                            mdims, smi, device_parity_gate)
     print(f"  launches: {launches}")
-    missing = [k for k in _build.KERNELS if launches.get(k, 0) <= 0]
-    assert not missing, f"kernels not launched by the batch path: {missing}"
-    assert "jax" not in sys.modules, "the port must run without JAX"
+    assert_launched(launches, SCAN_KERNELS, "the batch path")
+
+    print(f"phase 5: the azimuth-sharded path, {WEDGES} wedges on the card",
+          flush=True)
+    sp_launches = phase_sp(dev, configs, smi, device_parity_gate)
+    print(f"  launches: {sp_launches}")
+    assert_no_jax()
+    # Every kernel ran on some path: K1-K11 on the scan and batch paths,
+    # K12 and K14 on the SP path, K13 on the unfused one.
+    runs_of = {k: launches.get(k, 0) for k in SCAN_KERNELS}
+    runs_of["flood_road"] = sp_launches.get("flood_road", 0)
+    runs_of["marker_state"] = sp_launches.get("marker_state", 0)
+    runs_of["marker_first_nonroad"] = unfused_launches.get(
+        "marker_first_nonroad", 0)
+    assert_launched(runs_of, _build.KERNELS, "any path")
 
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": src, "replaces": tpu,
-         "launches": launches[k], **kernels[k]}
+         "launches": runs_of[k], **kernels[k]}
         for k, (src, tpu) in _build.KERNELS.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

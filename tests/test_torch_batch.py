@@ -53,7 +53,7 @@ def jax_batches(rows):
 def _batch(rows, layout, cfg):
     pts = rows if layout == "rows" else planarize_batch(rows)
     return to_numpy(process_batch(torch.from_numpy(pts), cfg, DIMS,
-                                  layout=layout))
+                                  layout=layout, device="cpu"))
 
 
 @pytest.mark.parametrize("layout", ["rows", "planar"])
@@ -68,7 +68,8 @@ def test_lanes_equal_process_scan(rows, layout, cname):
     for f in ("ok", "num_rings", "overflow", "star_overflow"):
         assert getattr(got, f).shape == (b,), f
     for k, pts in enumerate(rows):
-        one = to_numpy(process_scan(torch.from_numpy(pts), cfg, DIMS))
+        one = to_numpy(process_scan(torch.from_numpy(pts), cfg, DIMS,
+                                     device="cpu"))
         for f in ScanResult._fields:
             np.testing.assert_array_equal(getattr(got, f)[k], getattr(one, f),
                                           err_msg=f"lane {k} {f}")
@@ -105,14 +106,18 @@ def test_planarize_batch_matches_jax(rows):
 def test_layout_is_named_not_guessed(rows):
     pts = torch.from_numpy(rows)
     with pytest.raises(ValueError):
-        process_batch(pts, FilterConfig(), DIMS, layout="planar")
+        process_batch(pts, FilterConfig(), DIMS, layout="planar",
+                      device="cpu")
     with pytest.raises(ValueError):
-        process_batch(pts[0], FilterConfig(), DIMS)  # one scan, not a batch
+        process_batch(pts[0], FilterConfig(), DIMS,  # one scan, not a batch
+                      device="cpu")
     with pytest.raises(ValueError):
-        process_batch(pts, FilterConfig(), DIMS, layout="auto")
+        process_batch(pts, FilterConfig(), DIMS, layout="auto",
+                      device="cpu")
 
 
 def test_cpu_batch_launches_no_kernel(rows):
     reset_launch_counts()
-    process_batch(torch.from_numpy(rows[:2]), CONFIGS["star"], DIMS)
+    process_batch(torch.from_numpy(rows[:2]), CONFIGS["star"], DIMS,
+                  device="cpu")
     assert not any(launch_counts().values())

@@ -322,3 +322,90 @@ def test_batch_lanes_equal_process_scan(dev, cfg):
         one = process_scan(rows[b], cfg, dims)
         for g, w in zip(got, one):
             _assert_same((g[b],), (w,))
+
+
+@pytest.mark.parametrize("scene,cfg", [
+    ("two_curbs", FilterConfig()),
+    ("curb_gap", FilterConfig(x_direction=1, beam_zone=45.5)),
+])
+def test_flood_road_and_marker_keys_kernels(dev, scene, cfg):
+    """K12 and K13 against their twins; the unfused path (K8 + K12, then
+    K13 + K10) equals the fused one (K8 + K9, K10)."""
+    layout, num_rings, w = _stenciled(dev, scene, cfg)
+    bz = cfg.beam_zone
+    blocked = bs.flood_blocked(layout, w, bz)
+    reach = bs.sweep_reach(layout, blocked, w, num_rings, cfg)
+    road = bs.flood_road(layout, *reach, w, bz)
+    _assert_same((road,), (bs.flood_road_plain(layout, *reach, w, bz),))
+    assert bool(road.any())
+    md = geometry.max_distance(layout)
+    unfused = blind_spots(layout, md, num_rings, cfg, want_marker_f=False)
+    fused, kf = blind_spots(layout, md, num_rings, cfg)
+    _assert_same((unfused.label,), (fused.label,))
+    keys = mk.marker_first_nonroad(unfused, num_rings)
+    _assert_same((keys, keys), (mk.first_nonroad_keys(unfused, num_rings),
+                                kf))
+    _assert_same((mk.marker_points(unfused, num_rings),),
+                 (mk.marker_points(fused, num_rings, kf),))
+
+
+@pytest.mark.parametrize("sp", [False, True])
+def test_marker_state_kernel(dev, sp):
+    """K14 on the sorted layout, default and SP-style offsets and floor."""
+    from urban_road_filter_torch.ops.marker_state import (
+        marker_state, marker_state_plain)
+
+    cfg = FilterConfig()
+    layout, num_rings, w = _stenciled(dev, "two_curbs", cfg)
+    layout = blind_spots(layout, geometry.max_distance(layout), num_rings,
+                         cfg, want_marker_f=False)
+    srt = geometry.sort_by_azimuth(layout)
+    kw = {}
+    if sp:
+        rng = np.random.default_rng(6)
+        p_glob = 8 * CAP + 1
+        goff = np.arange(RINGS) * p_glob + rng.integers(0, 7 * CAP, RINGS)
+        f_init = np.where(rng.random(361) < 0.3, 3e38,
+                          rng.integers(0, RINGS * p_glob, 361))
+        kw = dict(g_offset=torch.from_numpy(goff.astype(np.int32)).to(dev),
+                  f_init=torch.from_numpy(f_init.astype(np.float32)).to(dev))
+    got = marker_state(srt, num_rings, **kw)
+    _assert_same((got,), (marker_state_plain(srt, num_rings, **kw),))
+    assert int((got[:, 1] > 0).sum()) > 10
+
+
+def test_xz_zero_ladder_kernel(dev):
+    """K7 with a per-ring newY ladder offset against its twin."""
+    from urban_road_filter_torch.ops.xzero import new_y_ladder
+
+    cfg = FilterConfig(curb_points=5, z_zero_method=False)
+    x, y, z, _, ring_id, _ = _rings(dev, "two_curbs", cfg=cfg)
+    layout, _ = geometry.tensorize(x, y, z, ring_id, CAP, rings=RINGS)
+    rng = np.random.default_rng(8)
+    length = 8 * CAP
+    off = torch.from_numpy(rng.integers(-10, length, RINGS).astype(
+        np.int32)).to(dev)
+    got = fused_xz_zero(layout, cfg, ladder_offset=off, ladder_len=length)
+    want = x_zero(layout, cfg, new_y_ladder(CAP, off, length))
+    _assert_same((got.label,), (want.label,))
+
+
+@pytest.mark.parametrize("cfg", [FilterConfig(),
+                                 FilterConfig(star_shaped_method=False)])
+def test_sp_equals_process_scan(dev, cfg):
+    """The 8-wedge SP path on an azimuth-sorted scan equals process_scan
+    on every field, and launched K12 and K14."""
+    from urban_road_filter_torch.parallel.azimuth_parallel import (
+        azimuth_sorted, make_azimuth_pipeline)
+
+    dims = PipelineDims(max_points=8192, rings=RINGS, ring_capacity=CAP)
+    scan = azimuth_sorted(make_scan(SCENES["two_curbs"](), n_rings=16,
+                                    n_azimuth=384, seed=11))
+    pts = torch.from_numpy(pad_scan(scan, dims.max_points)).to(dev)
+    _build.reset_launch_counts()
+    got = make_azimuth_pipeline(8, cfg, dims)(pts)
+    counts = _build.launch_counts()
+    assert counts["flood_road"] == 8 and counts["marker_state"] == 16
+    want = process_scan(pts, cfg, dims)
+    for g, w in zip(got, want):
+        _assert_same((g,), (w,))

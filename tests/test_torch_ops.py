@@ -15,6 +15,8 @@ JAX package's prefix-sum walk (at most 2 beams of 360).
 """
 
 import os
+import pathlib
+import re
 import subprocess
 import sys
 
@@ -512,11 +514,30 @@ class TestGather:
 
 
 def test_port_imports_no_jax():
+    """Importing the port, its oracle, its parity gate, its SP path and
+    chip_smoke loads neither JAX nor the JAX package."""
     code = ("import sys; import urban_road_filter_torch, "
-            "urban_road_filter_torch.convert; "
-            "assert 'jax' not in sys.modules, sorted("
-            "m for m in sys.modules if m.startswith('jax'))")
+            "urban_road_filter_torch.convert, urban_road_filter_torch.oracle, "
+            "urban_road_filter_torch.utils.parity, "
+            "urban_road_filter_torch.parallel.azimuth_parallel, chip_smoke; "
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'urban_road_filter_tpu')); "
+            "assert not bad, bad")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = REPO
     subprocess.run([sys.executable, "-c", code], check=True, env=env,
                    cwd=REPO, timeout=120)
+
+
+def test_port_sources_never_import_the_jax_package():
+    """No source file of the port, and not chip_smoke.py, imports the JAX
+    package, even a module of it that does not import JAX."""
+    pattern = re.compile(r"^\s*(import|from)\s+urban_road_filter_tpu\b",
+                         re.MULTILINE)
+    root = pathlib.Path(REPO)
+    files = sorted((root / "urban_road_filter_torch").rglob("*.py"))
+    files.append(root / "chip_smoke.py")
+    assert len(files) > 20
+    bad = [str(f.relative_to(root)) for f in files
+           if pattern.search(f.read_text())]
+    assert not bad, bad

@@ -105,7 +105,8 @@ def _assert_markers_vs_jax(got_table, want_table, orc, env_runs, what):
 
 def _check_slice(pts, cfg, what):
     raw = pad_scan(pts, DIMS.max_points)
-    port = to_numpy(process_scan(torch.from_numpy(raw), cfg, DIMS))
+    port = to_numpy(process_scan(torch.from_numpy(raw), cfg, DIMS,
+                                 device="cpu"))
     jx = process_scan_jit(raw, cfg, DIMS)
     orc = run_oracle(pts, cfg)
 
@@ -135,7 +136,8 @@ class TestSliceScenes:
         raw, port = _check_slice(scene_scans[scene], cfg, scene)
         # The packed wire plane round-trips to the three planes.
         packed, markers, ok, num_rings, overflow = (
-            t.numpy() for t in packed_scan(torch.from_numpy(raw), cfg, DIMS))
+            t.numpy() for t in packed_scan(torch.from_numpy(raw), cfg, DIMS,
+                                          device="cpu"))
         assert packed.dtype == np.uint8
         labels, roi, probably_road = unpack_planes(packed)
         np.testing.assert_array_equal(labels, port.labels)
@@ -174,7 +176,7 @@ class TestSliceStructure:
         cfg = FilterConfig(**STAR_FREE)
         pts = scene_scans["two_curbs"]
         port = process_scan(torch.from_numpy(pad_scan(pts, DIMS.max_points)),
-                            cfg, DIMS)
+                            cfg, DIMS, device="cpu")
         orc = run_oracle(pts, cfg)
         rows, bins = compact_markers(port.markers.numpy())
         np.testing.assert_array_equal(bins, orc.marker_bins)
@@ -184,10 +186,11 @@ class TestSliceStructure:
         cfg = FilterConfig(**STAR_FREE)
         pts = scene_scans["curb_gap"]
         rows = to_numpy(process_scan(
-            torch.from_numpy(pad_scan(pts, DIMS.max_points)), cfg, DIMS))
+            torch.from_numpy(pad_scan(pts, DIMS.max_points)), cfg, DIMS,
+            device="cpu"))
         planar = to_numpy(process_scan(
             torch.from_numpy(pad_scan_planar(pts, DIMS.max_points)), cfg,
-            DIMS, layout="planar"))
+            DIMS, layout="planar", device="cpu"))
         for f in rows._fields:
             np.testing.assert_array_equal(getattr(planar, f),
                                           getattr(rows, f), err_msg=f)
@@ -195,7 +198,7 @@ class TestSliceStructure:
     def test_under_30_points_gated(self):
         pts = np.tile(np.float32([[1, 0, -2, 0]]), (10, 1))
         out = process_scan(torch.from_numpy(pad_scan(pts, DIMS.max_points)),
-                           FilterConfig(**STAR_FREE), DIMS)
+                           FilterConfig(**STAR_FREE), DIMS, device="cpu")
         assert not bool(out.ok)
         assert not out.labels.any() and not out.roi.any()
         assert not out.markers.any()
@@ -204,7 +207,7 @@ class TestSliceStructure:
         cfg = FilterConfig(**STAR_FREE, probably_road_ring=3)
         pts = scene_scans["two_curbs"]
         out = process_scan(torch.from_numpy(pad_scan(pts, DIMS.max_points)),
-                           cfg, DIMS)
+                           cfg, DIMS, device="cpu")
         orc = run_oracle(pts, cfg)
         got = np.flatnonzero(out.probably_road.numpy()[:len(pts)][
             orc.roi_mask])
@@ -216,7 +219,7 @@ class TestSliceStructure:
         # On CPU tensors every kernel wrapper takes its plain twin.
         raw = torch.from_numpy(pad_scan(scene_scans["ramp"], DIMS.max_points))
         reset_launch_counts()
-        process_scan(raw, FilterConfig(**STAR_FREE), DIMS)
+        process_scan(raw, FilterConfig(**STAR_FREE), DIMS, device="cpu")
         counts = launch_counts()
         assert set(counts) == set(_build.KERNELS)
         assert not any(counts.values()), counts
@@ -228,8 +231,9 @@ class TestSliceStructure:
         pts = scene_scans[scene]
         raw = torch.from_numpy(pad_scan(pts, DIMS.max_points))
         kw = dict(x_zero_method=False, z_zero_method=False)
-        star = process_scan(raw, FilterConfig(**kw), DIMS)
-        free = process_scan(raw, FilterConfig(**kw, **STAR_FREE), DIMS)
+        star = process_scan(raw, FilterConfig(**kw), DIMS, device="cpu")
+        free = process_scan(raw, FilterConfig(**kw, **STAR_FREE), DIMS,
+                            device="cpu")
         curbs = (star.labels == 2).numpy()
         assert 0 < curbs.sum() <= 360 and not (free.labels == 2).any()
         assert star.roi.numpy()[curbs].all()

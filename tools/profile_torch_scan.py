@@ -2,7 +2,7 @@
 """Where a scan's time goes in the PyTorch port, on one CUDA card.
 
     python tools/profile_torch_scan.py [--star-off] [--reps 3] [--batch B]
-                                       [--out F.json]
+                                       [--sp D] [--out F.json]
 
 Runs urban_road_filter_torch.packed_scan (OS1-64 dims; the default
 configuration, or with ``--star-off`` the star search off) on the 7
@@ -12,6 +12,9 @@ time to enqueue it, p50), then under torch.profiler.  With ``--batch B``
 it runs process_batch instead, on bench.py's batch of B planar scans
 (131072 points, 64 rings x 2048 slots, two_curbs and blind_spot
 alternating), one call per pass, and reports per scan of the batch.
+With ``--sp D`` it runs the azimuth-sharded path (make_azimuth_pipeline,
+D wedges on the card) on the emulated OS1-128 drive scan at 262144 points,
+128 rings x 2048 slots, azimuth-sorted (chip_smoke.py phase 5).
 Prints the card's name and power limit; per stage (the pipeline's
 ``urf::<stage>`` ranges; a batch's ingest range covers K1-K3 over the
 whole batch) per scan the host ms, the device ms of its kernels and its
@@ -54,6 +57,8 @@ def main() -> int:
                     help="FilterConfig(star_shaped_method=False)")
     ap.add_argument("--batch", type=int, default=0,
                     help="profile process_batch on B scans instead")
+    ap.add_argument("--sp", type=int, default=0,
+                    help="profile the SP path with D wedges instead")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("profile_torch_scan: needs a CUDA device")
@@ -68,7 +73,19 @@ def main() -> int:
 
     dev = torch.device("cuda", 0)
     cfg = FilterConfig(star_shaped_method=not args.star_off)
-    if args.batch:
+    if args.sp:
+        from urban_road_filter_torch.parallel.azimuth_parallel import (
+            azimuth_sorted, make_azimuth_pipeline)
+
+        dims = PipelineDims(max_points=262144, rings=128, ring_capacity=2048,
+                            beam_capacity=1024)
+        scan = azimuth_sorted(next(make_drive(1, sensor="os1_128", seed=31,
+                                              firings=2048)))
+        hosts = [torch.from_numpy(pad_scan(scan, dims.max_points))
+                 .pin_memory()]
+        scans_per_call = 1
+        call = make_azimuth_pipeline(args.sp, cfg, dims)
+    elif args.batch:
         dims = PipelineDims(max_points=131072, rings=64, ring_capacity=2048,
                             beam_capacity=512)
         scans = [make_scan(SCENES["two_curbs" if i % 2 == 0
@@ -148,7 +165,8 @@ def main() -> int:
         check=True, timeout=60).stdout.strip().splitlines()[0]
     summary = {
         "card": smi, "star_shaped_method": cfg.star_shaped_method,
-        "batch": args.batch, "scans": len(hosts) * scans_per_call,
+        "batch": args.batch, "sp_wedges": args.sp,
+        "scans": len(hosts) * scans_per_call,
         "reps": args.reps,
         "wall_ms_p50": statistics.median(walls),
         "enqueue_ms_p50": statistics.median(enqueues),

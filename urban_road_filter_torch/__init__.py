@@ -2,21 +2,24 @@
 NVIDIA Hopper card (H100).
 
 A port of ``urban_road_filter_tpu`` (the JAX/Pallas package beside it,
-which stays the reference).  Plain functions on tensors; every function
-runs on the device of the tensor it is given.  The kernels that the JAX
-package wrote in Pallas for the TPU are CUDA C++ here (``csrc/*.cu``),
-built with ``nvcc`` for ``sm_90a`` on first use (``_build.py``).  On a CPU
-tensor each kernel wrapper runs its plain PyTorch twin; on a CUDA tensor it
-launches the kernel or raises.
+which stays the reference).  The kernels that the JAX package wrote in
+Pallas for the TPU are CUDA C++ here (``csrc/*.cu``), built with ``nvcc``
+for ``sm_90a`` on first use (``_build.py``).
 
-Imports no JAX: only the JAX-free modules of the reference package
-(``config``, ``constants``, ``io.synthetic``).
+Entry points run on the card: ``pipeline.process_scan`` /
+``pipeline.packed_scan`` for one scan, ``pipeline.process_batch`` for a
+batch, ``parallel.azimuth_parallel.make_azimuth_pipeline`` for one scan cut
+into azimuth wedges.  Each takes ``device=None`` ("cuda"); only an explicit
+``device="cpu"`` runs the kernels' plain PyTorch twins.  Below the entry
+points each kernel wrapper in ``ops/`` launches its kernel on a CUDA tensor
+and runs its twin on a CPU tensor.
 
-Entry points: ``pipeline.process_scan`` / ``pipeline.packed_scan`` for one
-scan, ``pipeline.process_batch`` for a batch.
+Imports neither JAX nor the JAX package: the port carries its own copies
+of the JAX-free modules it needs (``config``, ``constants``, ``io``,
+``oracle``, ``utils.parity``).
 """
 
-from urban_road_filter_tpu.config import FilterConfig, PipelineDims
+from urban_road_filter_torch.config import FilterConfig, PipelineDims
 
 from urban_road_filter_torch._build import launch_counts, reset_launch_counts
 from urban_road_filter_torch.pipeline import (

@@ -1,9 +1,9 @@
 """Build, load and launch the port's CUDA kernels; count their launches.
 
-The sources in ``csrc/*.cu`` are compiled with ``nvcc`` for ``sm_90a`` into
-one shared library with a plain C interface, at first use, under
-``_build/`` (named by a hash of the sources and flags, so an edited source
-is rebuilt).  The library is loaded with ``ctypes``: pointers and the
+The sources in ``csrc/*.cu`` are compiled with ``nvcc`` for ``sm_90a``, one
+``nvcc`` per source, all started together, and linked into one shared
+library with a plain C interface, at first use, under ``_build/`` (named by
+a hash of the sources and flags, so an edited source is rebuilt).  The library is loaded with ``ctypes``: pointers and the
 stream travel as ``c_void_p``.  Nothing here runs when the package is
 imported, so the CPU tests import every module without ``nvcc``.
 
@@ -27,8 +27,7 @@ _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-Xptxas=-v", "-shared",
-              "-Xcompiler", "-fPIC")
+              "-O3", "--fmad=false", "-Xptxas=-v", "-Xcompiler", "-fPIC")
 
 # Launch-counter name -> (its CUDA source, the TPU kernel it replaces).
 KERNELS = {
@@ -54,6 +53,12 @@ KERNELS = {
                       "urban_road_filter_tpu/ops/marker_scan.py:343"),
     "gather_pack": ("urban_road_filter_torch/csrc/gather_pack.cu",
                     "urban_road_filter_tpu/ops/gather.py:126"),
+    "flood_road": ("urban_road_filter_torch/csrc/flood.cu",
+                   "urban_road_filter_tpu/ops/flood_scan.py:470"),
+    "marker_first_nonroad": ("urban_road_filter_torch/csrc/markers.cu",
+                             "urban_road_filter_tpu/ops/marker_scan.py:187"),
+    "marker_state": ("urban_road_filter_torch/csrc/markers.cu",
+                     "urban_road_filter_tpu/ops/marker_scan.py:139"),
 }
 
 _P = ctypes.c_void_p
@@ -67,14 +72,18 @@ _SIGNATURES = {
     "urf_star_walk": (_P, _P, _P, _P, _I, _F, _F, _F, _I, _P, _P),
     "urf_group_rank": (_P, _I, _I, _P, _P, _P, _P),
     "urf_group_place": (_P, _P, _I, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P),
-    "urf_xz_zero": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F,
-                    _P),
+    "urf_xz_zero": (_P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _F,
+                    _F, _F, _P),
     "urf_flood_blocked": (_P, _P, _P, _P, _I, _I, _F, _P, _P, _P),
     "urf_flood_labeled": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _P, _P, _P),
     "urf_marker_points": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P,
                           _P, _P),
     "urf_gather_pack": (_P, _I, _I, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P,
                         _P),
+    "urf_flood_road": (_P, _P, _P, _P, _P, _I, _I, _F, _P, _P),
+    "urf_marker_first_nonroad": (_P, _P, _P, _P, _I, _I, _P, _P),
+    "urf_marker_state": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P,
+                         _P, _P, _P),
 }
 
 _launches = dict.fromkeys(KERNELS, 0)
@@ -113,9 +122,10 @@ def _nvcc() -> str:
 
 
 def build() -> Path:
-    """Compile csrc/*.cu into _build/ unless that exact build exists.
-    Returns the library's path; nvcc's register report lands beside it
-    as ``<library>.log``."""
+    """Compile csrc/*.cu into _build/ unless that exact build exists: one
+    nvcc process per source, run side by side, then one link.  Returns the
+    library's path; nvcc's register report lands beside it as
+    ``<library>.log``."""
     sources = sorted(CSRC.glob("*.cu"))
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in sources:
@@ -124,13 +134,37 @@ def build() -> Path:
     if out.is_file():
         return out
     BUILD_DIR.mkdir(exist_ok=True)
-    tmp = out.with_name(f".{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}): {' '.join(cmd)}"
-                           f"\n{res.stdout}{res.stderr}")
-    out.with_suffix(".log").write_text(res.stdout + res.stderr)
+    nvcc = _nvcc()
+    tag = f"{h.hexdigest()[:16]}.{os.getpid()}"
+    objs = [BUILD_DIR / f".{src.stem}.{tag}.o" for src in sources]
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            for src, obj in zip(sources, objs)]
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    log = []
+    try:
+        for cmd, proc in zip(cmds, procs):
+            text = proc.communicate()[0]
+            log.append(text)
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}): "
+                                   f"{' '.join(cmd)}\n{text}")
+        tmp = out.with_name(f".{out.name}.{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp),
+               *map(str, objs)]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({res.returncode}): "
+                               f"{' '.join(cmd)}\n{res.stdout}{res.stderr}")
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+    out.with_suffix(".log").write_text("".join(log) + res.stdout + res.stderr)
     os.replace(tmp, out)
     return out
 

@@ -6,7 +6,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from urban_road_filter_torch.config import FilterConfig
 from urban_road_filter_torch.ops.geometry import RingLayout
+
+
+def filter_config(cfg) -> FilterConfig:
+    """The port's FilterConfig from any object with ``to_dict()`` (the JAX
+    package's FilterConfig, or the port's own), every field kept."""
+    return FilterConfig.from_dict(cfg.to_dict())
 
 
 def layout_from_numpy(layout, device="cpu") -> RingLayout:

@@ -1,7 +1,7 @@
-// Blind-spot flood fill: blocked bits, then the road mask fused with the
-// marker stage's first pass.
+// Blind-spot flood fill: blocked bits, then the road mask, fused with the
+// marker stage's first pass or on its own.
 //
-// Replaces two TPU kernels of urban_road_filter_tpu/ops/flood_scan.py:
+// Replaces three TPU kernels of urban_road_filter_tpu/ops/flood_scan.py:
 //   * blocked_pallas (K8): per (ring k, sweep start i in 0..361), is any
 //     curb slot of ring k inside the forward window [i, i + w_k] or the
 //     backward window [i - w_k, i]?  The TPU streamed (ring, slot) blocks
@@ -12,6 +12,10 @@
 //     azimuth bin, the smallest (ring, alpha, slot) key over the slots that
 //     are NOT road afterwards (the marker stage's "first non-road point in
 //     scan order", lidar_segmentation.cpp:317-339).
+//   * labeled_pallas (K12): the same road mask without the marker pass, as
+//     an (R, P) bool mask; the azimuth-sharded path and the unfused
+//     blind_spots(want_marker_f=False) run it.  K9 and K12 are one template
+//     (labeled_kernel<kMarker>) behind two C entry points.
 // Between the two, the caller turns blocked bits into reach (a (rings, 362)
 // min-reduce over rings, ops/blind_spots.py:reach_of).
 //
@@ -27,12 +31,12 @@
 // by the number of curb slots per ring, which is small: one block per ring
 // compacts the ring's curb azimuths into shared memory (order does not
 // matter to "any"), then one thread per start scans that short list.  K9
-// gives each (ring, slot) thread a loop over the 362 starts against the
-// ring's reach bits in shared memory: ~190M predicated compares per
-// layout, a few tens of microseconds of issue.  The key minimum is a
-// 64-bit atomicMin per non-road slot into a shared per-bin table, flushed
-// to the global table once per touched bin per block, so global atomics
-// stay a few per bin.
+// and K12 give each (ring, slot) thread a loop over the 362 starts against
+// the ring's reach bits in shared memory: ~190M predicated compares per
+// layout, a few tens of microseconds of issue: compare-bound.  K9's key
+// minimum is a 64-bit atomicMin per non-road slot into a shared per-bin
+// table, flushed to the global table once per touched bin per block, so
+// global atomics stay a few per bin.  K12 writes one byte per slot.
 //
 // Marker key: (ring << 48) | (bits(alpha) << 16) | slot.  alpha is in
 // [0, 360] on this path, and a non-negative float's bits order like its
@@ -97,7 +101,9 @@ __global__ void blocked_kernel(const float* __restrict__ alpha,
   blocked_b[(size_t)r * kStarts + i] = bb;
 }
 
-// Grid: (slot tiles, rings).
+// Grid: (slot tiles, rings).  kMarker (K9): label_out and kf; without it
+// (K12): road_out only, and label_in, num_rings, label_out, kf are unused.
+template <bool kMarker>
 __global__ void labeled_kernel(const float* __restrict__ alpha,
                                const int* __restrict__ label_in,
                                const int* __restrict__ counts,
@@ -106,16 +112,18 @@ __global__ void labeled_kernel(const float* __restrict__ alpha,
                                const bool* __restrict__ reach_b,
                                const int* __restrict__ num_rings, int p,
                                float bz, int* __restrict__ label_out,
-                               unsigned long long* __restrict__ kf) {
+                               unsigned long long* __restrict__ kf,
+                               bool* __restrict__ road_out) {
   __shared__ bool rf[kStarts];
   __shared__ bool rb[kStarts];
-  __shared__ unsigned long long kf_blk[kBins];
+  __shared__ unsigned long long kf_blk[kMarker ? kBins : 1];
   const int r = blockIdx.y;
   for (int i = threadIdx.x; i < kStarts; i += blockDim.x) {
     rf[i] = reach_f[(size_t)r * kStarts + i];
     rb[i] = reach_b[(size_t)r * kStarts + i];
   }
-  for (int b = threadIdx.x; b < kBins; b += blockDim.x) kf_blk[b] = kNoKey;
+  if constexpr (kMarker)
+    for (int b = threadIdx.x; b < kBins; b += blockDim.x) kf_blk[b] = kNoKey;
   __syncthreads();
 
   const int s = blockIdx.x * blockDim.x + threadIdx.x;
@@ -135,15 +143,21 @@ __global__ void labeled_kernel(const float* __restrict__ alpha,
         road |= (rf[i] && a >= fi && a <= hi) || (rb[i] && a >= lo && a <= fi);
       }
     }
-    const int lab = label_in[at];
-    const int out = (road && lab != kCurb) ? kRoad : lab;
-    label_out[at] = out;
-    if (a_ok && out != kRoad && r < *num_rings)
-      atomicMin(&kf_blk[(int)floorf(a)], marker_key(r, a, s));
+    if constexpr (kMarker) {
+      const int lab = label_in[at];
+      const int out = (road && lab != kCurb) ? kRoad : lab;
+      label_out[at] = out;
+      if (a_ok && out != kRoad && r < *num_rings)
+        atomicMin(&kf_blk[(int)floorf(a)], marker_key(r, a, s));
+    } else {
+      road_out[at] = road;
+    }
   }
-  __syncthreads();
-  for (int b = threadIdx.x; b < kBins; b += blockDim.x)
-    if (kf_blk[b] != kNoKey) atomicMin(&kf[b], kf_blk[b]);
+  if constexpr (kMarker) {
+    __syncthreads();
+    for (int b = threadIdx.x; b < kBins; b += blockDim.x)
+      if (kf_blk[b] != kNoKey) atomicMin(&kf[b], kf_blk[b]);
+  }
 }
 
 }  // namespace
@@ -175,8 +189,22 @@ extern "C" int urf_flood_labeled(const float* alpha, const int* label_in,
                                  unsigned long long* kf, void* stream) {
   const dim3 grid((p + 255) / 256, rings);
   if (rings > 0 && p > 0)
-    labeled_kernel<<<grid, 256, 0, (cudaStream_t)stream>>>(
+    labeled_kernel<true><<<grid, 256, 0, (cudaStream_t)stream>>>(
         alpha, label_in, counts, w, reach_f, reach_b, num_rings, p, bz,
-        label_out, kf);
+        label_out, kf, nullptr);
+  return (int)cudaGetLastError();
+}
+
+// road (rings, p) bool: a slot with a valid azimuth (slot < counts, alpha
+// in [0, 360]) inside a reached window of either sweep (K12).
+extern "C" int urf_flood_road(const float* alpha, const int* counts,
+                              const float* w, const bool* reach_f,
+                              const bool* reach_b, int rings, int p, float bz,
+                              bool* road, void* stream) {
+  const dim3 grid((p + 255) / 256, rings);
+  if (rings > 0 && p > 0)
+    labeled_kernel<false><<<grid, 256, 0, (cudaStream_t)stream>>>(
+        alpha, nullptr, counts, w, reach_f, reach_b, nullptr, p, bz, nullptr,
+        nullptr, road);
   return (int)cudaGetLastError();
 }

@@ -19,15 +19,24 @@
 // tests window j = m - cp/2 and no two threads write one slot.  Only
 // windows with cp <= j <= counts-1-cp are valid; they never reach past the
 // ring's points, so the roll wrap-around of the TPU version never matters.
+//
+// The newY ladder is indexed by slot, or, with a per-ring ladder offset,
+// by (offset + slot) clipped to [0, ladder_len): the azimuth-sharded path
+// runs the stencils on halo-extended wedge rows whose column c holds the
+// ring's global position prefix + c - 2cp, and takes newY there
+// (urban_road_filter_tpu/parallel/azimuth_parallel.py:_x_zero_halo), so its
+// differences match the single-scan path bit for bit.
 
 #include <cuda_runtime.h>
 
 namespace {
 
-// newY[j] = j * 0.01 in float64, rounded to float32
-// (urban_road_filter_tpu/ops/xzero.py:_new_y_table).
-__device__ __forceinline__ float new_y(int j) {
-  return (float)((double)j * 0.01);
+// newY[k] = k * 0.01 in float64, rounded to float32
+// (urban_road_filter_tpu/ops/xzero.py:_new_y_table), at k = clip(j + off,
+// 0, len - 1).
+__device__ __forceinline__ float new_y(int j, int off, int len) {
+  const int k = min(max(j + off, 0), len - 1);
+  return (float)((double)k * 0.01);
 }
 
 // jnp.maximum / torch.maximum: NaN if either operand is NaN.
@@ -41,9 +50,10 @@ __global__ void xz_zero_kernel(const float* __restrict__ x,
                                const float* __restrict__ z,
                                const int* __restrict__ counts,
                                const int* __restrict__ label_in,
-                               int* __restrict__ label_out, int p, int cp,
-                               int do_x, int do_z, float cos_x, float cos_z,
-                               float ch) {
+                               const int* __restrict__ ladder_off,
+                               int ladder_len, int* __restrict__ label_out,
+                               int p, int cp, int do_x, int do_z, float cos_x,
+                               float cos_z, float ch) {
   const int r = blockIdx.y;
   const int m = blockIdx.x * blockDim.x + threadIdx.x;
   if (m >= p) return;
@@ -61,9 +71,13 @@ __global__ void xz_zero_kernel(const float* __restrict__ x,
       const float ddx = __ldg(xr + j + cp) - __ldg(xr + j);
       const float ddy = __ldg(yr + j + cp) - __ldg(yr + j);
       const float d = sqrtf(ddx * ddx + ddy * ddy);
-      const float dny1 = new_y(j + h) - new_y(j);
-      const float dny2 = new_y(j + cp) - new_y(j + h);
-      const float dny3 = new_y(j + cp) - new_y(j);
+      const int off = ladder_off ? ladder_off[r] : 0;
+      const float dny1 =
+          new_y(j + h, off, ladder_len) - new_y(j, off, ladder_len);
+      const float dny2 =
+          new_y(j + cp, off, ladder_len) - new_y(j + h, off, ladder_len);
+      const float dny3 =
+          new_y(j + cp, off, ladder_len) - new_y(j, off, ladder_len);
       const float zj = __ldg(zr + j);
       const float zh = __ldg(zr + j + h);
       const float zc = __ldg(zr + j + cp);
@@ -117,15 +131,18 @@ __global__ void xz_zero_kernel(const float* __restrict__ x,
 
 // label_out[r, m] = LABEL_CURB where either stencil marks slot m of ring r,
 // else label_in[r, m].  All (rings, p) arrays are contiguous row-major.
+// ladder_off: (rings,) int32 newY offsets, or NULL for none (then
+// ladder_len must be >= p).
 extern "C" int urf_xz_zero(const float* x, const float* y, const float* z,
                            const int* counts, const int* label_in,
+                           const int* ladder_off, int ladder_len,
                            int* label_out, int rings, int p, int cp, int do_x,
                            int do_z, float cos_x, float cos_z, float ch,
                            void* stream) {
   const dim3 grid((p + 255) / 256, rings);
   if (rings > 0 && p > 0)
     xz_zero_kernel<<<grid, 256, 0, (cudaStream_t)stream>>>(
-        x, y, z, counts, label_in, label_out, p, cp, do_x, do_z, cos_x, cos_z,
-        ch);
+        x, y, z, counts, label_in, ladder_off, ladder_len, label_out, p, cp,
+        do_x, do_z, cos_x, cos_z, ch);
   return (int)cudaGetLastError();
 }

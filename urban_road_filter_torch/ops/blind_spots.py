@@ -12,7 +12,10 @@ The two existential quantifiers are the kernels of csrc/flood.cu:
 ``flood_blocked`` (K8, replacing flood_scan.blocked_pallas) and
 ``flood_labeled`` (K9, replacing flood_scan.labeled_markerf_pallas), which
 also returns the marker stage's per-bin first non-road key ``kf``
-(ops/markers.py).  On a CPU layout each runs its plain twin: the JAX
+(ops/markers.py), or ``flood_road`` (K12, replacing
+flood_scan.labeled_pallas), the road mask alone, which the unfused path
+(``blind_spots(want_marker_f=False)``) and the azimuth-sharded path run.
+On a CPU layout each runs its plain twin: the JAX
 package's dense compare-reduces over the (ring, slot, start) cube (its
 non-TPU branch, :180-191), evaluated a few rings at a time so the cube
 never exceeds ~16M elements.
@@ -29,8 +32,8 @@ import math
 
 import torch
 
-from urban_road_filter_tpu.config import FilterConfig
-from urban_road_filter_tpu.constants import LABEL_CURB, LABEL_ROAD
+from urban_road_filter_torch.config import FilterConfig
+from urban_road_filter_torch.constants import LABEL_CURB, LABEL_ROAD
 from urban_road_filter_torch import _build
 from urban_road_filter_torch.ops.geometry import F32, I32, RingLayout, f32
 from urban_road_filter_torch.ops.markers import (
@@ -183,16 +186,47 @@ def flood_blocked(layout: RingLayout, w: torch.Tensor, beam_zone):
     return bf, bb
 
 
-def flood_labeled_plain(layout: RingLayout, reach_f, reach_b, w, beam_zone,
-                        num_rings):
-    alpha, label = layout.alpha, layout.label
+def flood_road_plain(layout: RingLayout, reach_f, reach_b, w, beam_zone):
+    alpha = layout.alpha
     a_ok = (_slot_valid(layout) & torch.isfinite(alpha) & (alpha >= 0)
             & (alpha <= 360.0))
-    road = (labeled_mask(alpha, a_ok, reach_f,
+    return (labeled_mask(alpha, a_ok, reach_f,
                          *sweep_bounds(w, beam_zone, +1)[1:])
             | labeled_mask(alpha, a_ok, reach_b,
                            *sweep_bounds(w, beam_zone, -1)[1:]))
-    label = torch.where(road & (label != LABEL_CURB), LABEL_ROAD, label)
+
+
+def flood_road(layout: RingLayout, reach_f, reach_b, w: torch.Tensor,
+               beam_zone) -> torch.Tensor:
+    """(R, P) bool road mask: a slot with a valid azimuth inside a reached
+    window of either sweep (K12).  reach_f/reach_b: (R, 362) bool, already
+    gated (reach_of); w: (R,) f32 window widths."""
+    if _build.on_cpu(layout.alpha):
+        return flood_road_plain(layout, reach_f, reach_b, w, beam_zone)
+    r, p = layout.alpha.shape
+    dev = layout.alpha.device
+    _build.check(layout.alpha, "alpha", F32, (r, p), dev)
+    _build.check(layout.counts, "counts", I32, (r,), dev)
+    _build.check(w, "w", F32, (r,), dev)
+    _build.check(reach_f, "reach_f", torch.bool, (r, _NI), dev)
+    _build.check(reach_b, "reach_b", torch.bool, (r, _NI), dev)
+    road = torch.empty((r, p), dtype=torch.bool, device=dev)
+    _build.launch("flood_road", "urf_flood_road", dev,
+                  _build.ptr(layout.alpha), _build.ptr(layout.counts),
+                  _build.ptr(w), _build.ptr(reach_f), _build.ptr(reach_b),
+                  r, p, f32(beam_zone), _build.ptr(road))
+    return road
+
+
+def road_labels(label: torch.Tensor, road: torch.Tensor) -> torch.Tensor:
+    """LABEL_ROAD on every road slot that is not a curb."""
+    return torch.where(road & (label != LABEL_CURB), LABEL_ROAD, label)
+
+
+def flood_labeled_plain(layout: RingLayout, reach_f, reach_b, w, beam_zone,
+                        num_rings):
+    label = road_labels(layout.label, flood_road_plain(
+        layout, reach_f, reach_b, w, beam_zone))
     return label, first_nonroad_keys(layout._replace(label=label), num_rings)
 
 
@@ -227,16 +261,20 @@ def flood_labeled(layout: RingLayout, reach_f, reach_b, w, beam_zone,
 
 
 def sweep_reach(layout: RingLayout, blocked, w: torch.Tensor,
-                num_rings: torch.Tensor, cfg: FilterConfig):
+                num_rings: torch.Tensor, cfg: FilterConfig, q=None):
     """(reach_f, reach_b), each (R, 362) bool, from flood_blocked's bits:
-    the blind-spot gate of ring 1's curbs and the ring-outward blocking."""
+    the blind-spot gate of ring 1's curbs and the ring-outward blocking.
+    ``q``: the four quadrant extremes when the caller combined them (the
+    azimuth-sharded path), else taken from this layout's ring 1."""
     alpha, label = layout.alpha, layout.label
     r = alpha.shape[0]
     dev = alpha.device
     ring_active = (torch.arange(r, device=dev) < num_rings)[:, None]
     gate = torch.zeros((_NI,), dtype=torch.bool, device=dev)
     if cfg.blind_spots:
-        q = _quadrant_extremes(alpha[1], label[1], _slot_valid(layout)[1])
+        if q is None:
+            q = _quadrant_extremes(alpha[1], label[1],
+                                   _slot_valid(layout)[1])
         gate = _gate(torch.arange(_NI, dtype=F32, device=dev), q,
                      int(cfg.x_direction))
     return tuple(
@@ -245,14 +283,19 @@ def sweep_reach(layout: RingLayout, blocked, w: torch.Tensor,
 
 
 def blind_spots(layout: RingLayout, max_dist: torch.Tensor,
-                num_rings: torch.Tensor, cfg: FilterConfig):
-    """(layout with road labels, kf) from the flood fill over the
-    (unsorted) layout.  Order-free: every window test compares a slot's own
-    azimuth against per-(ring, start) bounds.  kf feeds
-    ops.markers.marker_points."""
+                num_rings: torch.Tensor, cfg: FilterConfig,
+                want_marker_f: bool = True):
+    """The flood fill over the (unsorted) layout.  Order-free: every window
+    test compares a slot's own azimuth against per-(ring, start) bounds.
+    ``want_marker_f=True``: (layout with road labels, kf) through K8 + K9;
+    kf feeds ops.markers.marker_points.  ``False``: the layout alone,
+    through K8 + K12 (the JAX blind_spots' unfused branch)."""
     w = window_widths(max_dist, cfg.beam_zone)
     blocked = flood_blocked(layout, w, cfg.beam_zone)
     reach_f, reach_b = sweep_reach(layout, blocked, w, num_rings, cfg)
+    if not want_marker_f:
+        road = flood_road(layout, reach_f, reach_b, w, cfg.beam_zone)
+        return layout._replace(label=road_labels(layout.label, road))
     label, kf = flood_labeled(layout, reach_f, reach_b, w, cfg.beam_zone,
                               num_rings)
     return layout._replace(label=label), kf

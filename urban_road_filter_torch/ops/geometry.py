@@ -20,7 +20,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from urban_road_filter_tpu.constants import CHANNELS
+from urban_road_filter_torch.constants import CHANNELS
 from urban_road_filter_torch.ops import ingest
 from urban_road_filter_torch.ops.numerics import (  # noqa: F401 (re-exported)
     F32, I32, f32, roi_mask_xyz, sqrt_rn)
@@ -136,3 +136,27 @@ def _slot_valid(layout: RingLayout) -> torch.Tensor:
 def max_distance(layout: RingLayout) -> torch.Tensor:
     """Per-ring max 2-D radius (lidar_segmentation.cpp:271-274); 0 if empty."""
     return torch.amax(torch.where(_slot_valid(layout), layout.d2, 0.0), dim=1)
+
+
+def sort_by_azimuth(layout: RingLayout, carry_pid: bool = False) -> RingLayout:
+    """Per-ring stable sort by azimuth (lidar_segmentation.cpp:70-93,
+    289-291), the JAX package's geometry.sort_by_azimuth: the key is alpha
+    on the first ``counts`` slots (a NaN azimuth sorts as 1e30: after every
+    finite azimuth, before the +inf padding), x/y/z/label (and pid, with
+    ``carry_pid``; else -1) ride along, d2/alpha are recomputed from the
+    sorted x/y.  The JAX package leaves this sort to XLA; here it is one
+    stable torch.sort per call over the ring rows."""
+    key = torch.where(_slot_valid(layout),
+                      torch.where(torch.isnan(layout.alpha), 1e30,
+                                  layout.alpha), math.inf)
+    order = torch.sort(key, dim=1, stable=True).indices
+
+    def take(a):
+        return torch.gather(a, 1, order)
+
+    xs, ys = take(layout.x), take(layout.y)
+    d2s, als = azimuth_2d(xs, ys)
+    pid = (take(layout.pid) if carry_pid
+           else torch.full_like(layout.pid, -1))
+    return layout._replace(x=xs, y=ys, z=take(layout.z), d2=d2s, alpha=als,
+                           label=take(layout.label), pid=pid)

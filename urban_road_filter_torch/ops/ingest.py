@@ -30,8 +30,8 @@ import math
 
 import torch
 
-from urban_road_filter_tpu.config import FilterConfig
-from urban_road_filter_tpu.constants import CHANNELS, STAR_KFI, STAR_REP
+from urban_road_filter_torch.config import FilterConfig
+from urban_road_filter_torch.constants import CHANNELS, STAR_KFI, STAR_REP
 from urban_road_filter_torch import _build
 from urban_road_filter_torch.ops.numerics import (
     F32, I32, f32, roi_mask_xyz, sqrt_rn)

@@ -13,8 +13,10 @@ at its first non-road point (cpp:317-339).  Without sorting the layout,
 (a non-negative float's bits order like its value; equal azimuths keep
 input order, as the reference's stable sort does), so per bin:
 
-  kf[b]    = min key of a non-road point   (first_nonroad_keys; on CUDA
-             computed inside the flood fill, ops/blind_spots.py, K9)
+  kf[b]    = min key of a non-road point   (on CUDA computed inside the
+             flood fill, ops/blind_spots.py, K9, or by its own kernel
+             ``marker_first_nonroad``, K13, replacing
+             marker_scan._marker_f_kernel, when marker_points gets no kf)
   maxd[b]  = max d2 of road points with key < kf[b]
   winner   = min key among those at maxd[b]
 
@@ -27,7 +29,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from urban_road_filter_tpu.constants import LABEL_ROAD
+from urban_road_filter_torch.constants import LABEL_ROAD
 from urban_road_filter_torch import _build
 from urban_road_filter_torch.ops.geometry import F32, I32, RingLayout
 
@@ -69,12 +71,32 @@ def _reduce(mask, bin_of, src, how: str, init):
 
 def first_nonroad_keys(layout: RingLayout, num_rings) -> torch.Tensor:
     """(361,) int64 kf: per bin, the key of the first non-road point in
-    scan order, NO_KEY where the bin has none (the plain twin of the marker
-    pass fused into K9)."""
+    scan order, NO_KEY where the bin has none (the plain twin of K13 and of
+    the marker pass fused into K9)."""
     a_ok, bin_of = _bins(layout, num_rings)
     nonroad = a_ok & (layout.label != LABEL_ROAD)
     return _reduce(nonroad, bin_of, marker_keys(layout.alpha), "amin",
                    NO_KEY)[:N_BINS]
+
+
+def marker_first_nonroad(layout: RingLayout,
+                         num_rings: torch.Tensor) -> torch.Tensor:
+    """first_nonroad_keys through its kernel on a CUDA layout (K13)."""
+    if _build.on_cpu(layout.alpha):
+        return first_nonroad_keys(layout, num_rings)
+    r, p = layout.alpha.shape
+    dev = layout.alpha.device
+    _build.check_marker_dims(r, p)
+    _build.check(layout.alpha, "alpha", F32, (r, p), dev)
+    _build.check(layout.label, "label", I32, (r, p), dev)
+    _build.check(layout.counts, "counts", I32, (r,), dev)
+    _build.check(num_rings, "num_rings", I32, (), dev)
+    kf = torch.full((N_BINS,), NO_KEY, dtype=I64, device=dev)
+    _build.launch("marker_first_nonroad", "urf_marker_first_nonroad", dev,
+                  _build.ptr(layout.alpha), _build.ptr(layout.label),
+                  _build.ptr(layout.counts), _build.ptr(num_rings), r, p,
+                  _build.ptr(kf))
+    return kf
 
 
 def marker_points_plain(layout: RingLayout, num_rings, kf) -> torch.Tensor:
@@ -100,11 +122,13 @@ def marker_points_plain(layout: RingLayout, num_rings, kf) -> torch.Tensor:
 
 
 def marker_points(layout: RingLayout, num_rings: torch.Tensor,
-                  kf: torch.Tensor) -> torch.Tensor:
+                  kf: torch.Tensor | None = None) -> torch.Tensor:
     """Dense (361, 6) table [exists, x, y, z, red, bin] from the unsorted
     (tensorize-order) layout after the flood fill.  num_rings: 0-d int32;
-    kf: (361,) int64 from ops.blind_spots.blind_spots (or
-    first_nonroad_keys)."""
+    kf: (361,) int64 from ops.blind_spots.blind_spots, or None to compute
+    it here (K13, the JAX marker_points_unsorted_pallas(kf=None))."""
+    if kf is None:
+        kf = marker_first_nonroad(layout, num_rings)
     if _build.on_cpu(layout.alpha):
         return marker_points_plain(layout, num_rings, kf)
     r, p = layout.alpha.shape

@@ -7,7 +7,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from urban_road_filter_tpu.config import FilterConfig
+from urban_road_filter_torch.config import FilterConfig
 
 F32 = torch.float32
 I32 = torch.int32

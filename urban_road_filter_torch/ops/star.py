@@ -24,8 +24,8 @@ import math
 import numpy as np
 import torch
 
-from urban_road_filter_tpu.config import FilterConfig
-from urban_road_filter_tpu.constants import (
+from urban_road_filter_torch.config import FilterConfig
+from urban_road_filter_torch.constants import (
     LABEL_CURB, STAR_REP, beam_tables)
 from urban_road_filter_torch import _build
 from urban_road_filter_torch.ops.geometry import F32, I32, f32

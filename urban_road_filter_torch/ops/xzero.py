@@ -11,8 +11,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from urban_road_filter_tpu.config import FilterConfig
-from urban_road_filter_tpu.constants import LABEL_CURB
+from urban_road_filter_torch.config import FilterConfig
+from urban_road_filter_torch.constants import LABEL_CURB
 from urban_road_filter_torch.ops.geometry import RingLayout, f32, sqrt_rn
 
 
@@ -26,12 +26,28 @@ def _sh(a, k):  # a[j+k] along the slot axis (wrap garbage is masked out)
     return torch.roll(a, -k, dims=-1)
 
 
-def x_zero(layout: RingLayout, cfg: FilterConfig) -> RingLayout:
+def new_y_ladder(p: int, offset=None, length: int | None = None,
+                 device=None) -> torch.Tensor:
+    """newY values per slot: (p,) newY[j], or with a per-ring ``offset``
+    (R,) int32, (R, p) newY[clip(offset + j, 0, length - 1)] (the
+    azimuth-sharded path's global ring positions,
+    urban_road_filter_tpu/parallel/azimuth_parallel.py:_x_zero_halo)."""
+    if offset is None:
+        return torch.as_tensor(_new_y_table(p), device=device)
+    k = torch.clamp(offset.long()[:, None]
+                    + torch.arange(p, device=offset.device), 0, length - 1)
+    return (k.double() * 0.01).float()
+
+
+def x_zero(layout: RingLayout, cfg: FilterConfig, new_y=None) -> RingLayout:
+    """``new_y``: optional (P,) or (R, P) newY values per slot
+    (new_y_ladder), as the JAX x_zero's; default the 0-based ladder."""
     cp = int(cfg.curb_points)
     p = layout.x.shape[-1]
     if p < 2 * cp + 1:
         return layout
-    new_y = torch.as_tensor(_new_y_table(p), device=layout.x.device)
+    if new_y is None:
+        new_y = new_y_ladder(p, device=layout.x.device)
     sq = lambda v: v * v
 
     x, y, z = layout.x, layout.y, layout.z

@@ -12,8 +12,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from urban_road_filter_tpu.config import FilterConfig
-from urban_road_filter_tpu.constants import LABEL_CURB
+from urban_road_filter_torch.config import FilterConfig
+from urban_road_filter_torch.constants import LABEL_CURB
 from urban_road_filter_torch.ops.geometry import RingLayout, f32, sqrt_rn
 
 

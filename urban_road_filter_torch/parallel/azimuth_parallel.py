@@ -1,0 +1,488 @@
+"""Azimuth-sharded (sequence-parallel, "SP") pipeline for one scan.
+
+Port of urban_road_filter_tpu/parallel/azimuth_parallel.py.  One scan's
+points are cut into contiguous azimuth wedges, and every stage runs per
+wedge, with collectives where a dependency crosses wedges:
+
+  * ring discovery is global and input-order dependent;
+  * the per-ring max radius is a pmax;
+  * the x/z-zero windows cross wedge boundaries: every wedge's head and
+    tail blocks are gathered, and each wedge rebuilds its halo from them;
+  * the flood fill's blocked bits are OR-ed (psum > 0) over wedges, the
+    blind-spot quadrant extremes max/min-combined;
+  * the markers are two passes of K14 with the global scan position: each
+    wedge's first non-road position f is min-combined, and the second pass,
+    floored by that global f, gives each wedge's share of the farthest road
+    point, which max/min/sum combines finish.
+
+Here the wedges live on ONE card.  Their collectives are those of
+``LocalWedges``: every per-wedge value is stacked on a leading wedge axis
+and reduced over it.  The kernels run per wedge, on views of the stacked
+tensors, or once over all wedges where a kernel takes a batch (K3) or
+groups (K5, K6, K7): a ring of wedge w is group w * rings + ring.
+
+Semantics kept from the JAX SP path (not the single-device one): inside a
+ring the point order is (wedge, local input order), which equals input
+order on azimuth-ordered scans, as spinning sensors emit them; star beams
+never straddle wedges (a wedge is a whole number of 1-degree beam
+sectors, so 360 % n_wedges == 0); points beyond a wedge's capacity are
+dropped and counted in ``overflow``.
+
+The JAX path finds the rings with a 64-step loop that picks the globally
+first unmatched point through an all_gather.  That is the greedy of K2 over
+the scan in input order restricted to the points that fit in their wedge,
+so the port runs K2 once there (the tests pin num_rings and ring_id
+against the JAX path).
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+from urban_road_filter_torch.config import FilterConfig, PipelineDims
+from urban_road_filter_torch.constants import (
+    LABEL_CURB, MIN_POINTS, STAR_REP)
+from urban_road_filter_torch.ops import geometry, ingest
+from urban_road_filter_torch.ops import blind_spots as bs
+from urban_road_filter_torch.ops.geometry import F32, I32, RingLayout
+from urban_road_filter_torch.ops.marker_state import F_NONE, marker_state
+from urban_road_filter_torch.ops.markers import N_BINS
+from urban_road_filter_torch.ops.place import group_place
+from urban_road_filter_torch.ops.rank import group_positions
+from urban_road_filter_torch.ops.star import star_hits
+from urban_road_filter_torch.ops.stencil_kernels import fused_xz_zero
+from urban_road_filter_torch.pipeline import ScanResult, _stage, on_device
+
+
+class LocalWedges:
+    """The SP collectives for wedges that share one card: each takes a
+    tensor whose leading axis is the wedge and returns the combined value
+    that every wedge sees.  (A torch.distributed version over several
+    cards would reduce over ranks instead.)"""
+
+    def __init__(self, size: int):
+        self.size = size
+
+    def all_gather(self, t: torch.Tensor) -> torch.Tensor:
+        return t
+
+    def psum(self, t: torch.Tensor) -> torch.Tensor:
+        return t.sum(0, dtype=t.dtype)
+
+    def pmax(self, t: torch.Tensor) -> torch.Tensor:
+        return t.amax(0)
+
+    def pmin(self, t: torch.Tensor) -> torch.Tensor:
+        return t.amin(0)
+
+    def index(self, device=None) -> torch.Tensor:
+        """(size,) wedge index of each entry of the leading axis."""
+        return torch.arange(self.size, device=device)
+
+    def before(self, t: torch.Tensor) -> torch.Tensor:
+        """Per wedge, the sum of t over the wedges before it (t stacked on
+        the leading axis): an exclusive prefix sum."""
+        return torch.cumsum(t, 0, dtype=t.dtype) - t
+
+
+def azimuth_sorted(scan: np.ndarray) -> np.ndarray:
+    """Host helper: the (M, >=3) scan's rows in order of the pipeline's
+    2-D azimuth, NaN azimuths last, ties in input order: the order a
+    spinning sensor emits, which the SP path's ring order assumes."""
+    from urban_road_filter_torch.oracle.reference import azimuth_2d
+
+    _, aa = azimuth_2d(np.asarray(scan[:, 0], np.float32),
+                       np.asarray(scan[:, 1], np.float32))
+    return scan[np.argsort(np.where(np.isnan(aa), 1e30, aa), kind="stable")]
+
+
+def wedge_of(fk: torch.Tensor, valid: torch.Tensor, n_wedges: int):
+    """Wedge of each point from its star beam fk (ingest K1's sector), so a
+    beam never straddles wedges: the beam's sector of the 2-D azimuth,
+    (fk + 90) mod 360, cut into n_wedges equal arcs (the JAX _wedge_of);
+    n_wedges for a point outside the ROI.  A sector-360 point already has
+    beam 0 (ingest_prep)."""
+    w = ((fk + 90) % STAR_REP) // (STAR_REP // n_wedges)
+    return torch.where(valid, w, n_wedges).to(I32)
+
+
+def _rows(layout: RingLayout, w: int, rings: int) -> RingLayout:
+    """Wedge w's (rings, P) view of a stacked (D * rings, P) layout."""
+    sl = slice(w * rings, (w + 1) * rings)
+    return layout._replace(**{f: getattr(layout, f)[sl] for f in (
+        "x", "y", "z", "d2", "alpha", "label", "pid", "counts")})
+
+
+def _halo(lw: LocalWedges, layout: RingLayout, rings: int, cp: int):
+    """The cp points just before and just after each wedge's segment of
+    each ring, over any number of thin neighbouring wedges (the JAX
+    _halo_exchange): from every wedge's (rings, cp) tail and head blocks,
+    all gathered, wedge me keeps the last cp valid entries of the tails of
+    wedges < me (left, right-aligned) and the first cp of the heads of
+    wedges > me (right, left-aligned).  Returns (left, right) dicts of
+    (D, R, cp) blocks and their valid counts "n" (D, R)."""
+    d = lw.size
+    cap = layout.x.shape[1]
+    dev = layout.x.device
+    counts = layout.counts.view(d, rings, 1)
+    k = torch.arange(cp, device=dev)
+    tail_idx = torch.clamp(counts - cp + k, 0, cap - 1)
+    tail_valid = lw.all_gather(counts - cp + k >= 0)  # (D, R, cp)
+    head_valid = lw.all_gather(k < counts)
+    tails, heads = {}, {}
+    for name in ("x", "y", "z"):
+        a = getattr(layout, name).view(d, rings, cap)
+        tails[name] = lw.all_gather(torch.where(
+            tail_valid, torch.gather(a, 2, tail_idx), 0.0))
+        heads[name] = lw.all_gather(a[:, :, :cp])
+    me = lw.index(dev)
+    wedge = lw.index(dev)
+
+    def compact(tape_valid, tape, left: bool):
+        use = ((wedge[None, :] < me[:, None]) if left
+               else (wedge[None, :] > me[:, None]))  # (me, wedge)
+        valid = (tape_valid[None] & use[:, :, None, None]).permute(
+            0, 2, 1, 3).reshape(d, rings, d * cp)
+        cols = torch.arange(d * cp, device=dev)
+        order = torch.argsort(torch.where(valid, cols, d * cp), dim=-1,
+                              stable=True)
+        nv = valid.sum(-1, dtype=I32)[..., None]  # (me, R, 1)
+        if left:
+            sel = torch.clamp(nv - cp + k, 0, d * cp - 1)
+            out_valid = nv - cp + k >= 0
+        else:
+            sel = torch.clamp(k.expand(d, rings, cp), 0, d * cp - 1)
+            out_valid = k < nv
+        take = torch.gather(order, 2, sel.long())
+        out = {}
+        for name, t in tape.items():
+            flat = t.permute(1, 0, 2).reshape(1, rings, d * cp).expand(
+                d, rings, d * cp)
+            out[name] = torch.where(out_valid, torch.gather(flat, 2, take),
+                                    0.0)
+        out["n"] = torch.minimum(nv[..., 0], torch.tensor(cp, device=dev))
+        return out
+
+    return compact(tail_valid, tails, True), compact(head_valid, heads, False)
+
+
+def _halo_stencils(lw: LocalWedges, layout: RingLayout, rings: int,
+                   cfg: FilterConfig) -> torch.Tensor:
+    """Curb labels of the stacked layout after the x/z-zero stencils over
+    halo-extended rows [cp dummy | left halo | local P | right halo], with
+    the reference's j-range gate and the newY ladder at GLOBAL ring
+    positions (the JAX _extend_with_halo, _x_zero_halo, _z_zero_halo).  The
+    stencils themselves are K7, run once for x-zero and once for z-zero
+    over all wedges' extended rows; the halo gates are tensor code."""
+    d = lw.size
+    cp = int(cfg.curb_points)
+    cap = layout.x.shape[1]
+    p_ext = cap + 3 * cp
+    dev = layout.x.device
+    left, right = _halo(lw, layout, rings, cp)
+    counts = layout.counts.view(d, rings, 1)
+    col = torch.arange(p_ext, device=dev)
+    s = col - 2 * cp  # local slot; negative = left halo
+    kr = s - counts  # right-halo index of a column past the local points
+    in_right = (kr >= 0) & (kr < right["n"][..., None])
+    ext = {}
+    for name in ("x", "y", "z"):
+        loc = getattr(layout, name).view(d, rings, cap)
+        e = torch.cat([torch.zeros((d, rings, cp), dtype=F32, device=dev),
+                       left[name], loc,
+                       torch.zeros((d, rings, cp), dtype=F32, device=dev)],
+                      dim=2)
+        rv = torch.gather(right[name], 2,
+                          torch.clamp(kr, 0, cp - 1).expand(d, rings, p_ext))
+        ext[name] = torch.where(in_right, rv, e).reshape(d * rings, p_ext)
+    label = torch.nn.functional.pad(layout.label, (2 * cp, cp))
+    counts_g = lw.all_gather(layout.counts.view(d, rings))
+    prefix = lw.before(counts_g)  # (D, R) global position of local slot 0
+    total = lw.psum(counts_g)  # (R,)
+    ext_layout = layout._replace(
+        x=ext["x"], y=ext["y"], z=ext["z"],
+        label=torch.zeros_like(label),
+        counts=torch.full((d * rings,), p_ext, dtype=I32, device=dev))
+
+    g = prefix[..., None] + s  # (D, R, p_ext) global ring position
+    n_local = counts
+    exists = ((s >= -left["n"][..., None])
+              & (s < n_local + right["n"][..., None]))
+    g_gate = (g >= cp) & (g <= total[:, None] - 1 - cp)
+    in_row = s + 3 * cp < p_ext  # the window end col + cp stays in the row
+    local = (s >= 0) & (s < n_local)
+
+    def flat(m):
+        return m.reshape(d * rings, p_ext)
+
+    if cfg.x_zero_method:
+        marks = fused_xz_zero(
+            ext_layout, cfg.replace(z_zero_method=False),
+            ladder_offset=(prefix - 2 * cp).reshape(-1).to(I32),
+            ladder_len=cap * d).label == LABEL_CURB
+        src_ok = (g_gate & exists & torch.roll(exists, -cp, dims=-1)
+                  & in_row)
+        at_mark = torch.roll(src_ok, cp // 2, dims=-1)
+        label = torch.where(marks & (label != LABEL_CURB) & flat(at_mark)
+                            & flat(local), LABEL_CURB, label)
+    if cfg.z_zero_method:
+        marks = fused_xz_zero(ext_layout, cfg.replace(
+            x_zero_method=False)).label == LABEL_CURB
+        window_ok = (torch.roll(exists, cp, dims=-1)
+                     & torch.roll(exists, -cp, dims=-1) & in_row)
+        label = torch.where(marks & (label != LABEL_CURB)
+                            & flat(local & g_gate & window_ok),
+                            LABEL_CURB, label)
+    return label[:, 2 * cp:-cp]
+
+
+def _quadrants(lw: LocalWedges, layout: RingLayout, rings: int):
+    """The blind-spot quadrant extremes of ring 1's curbs, each wedge's
+    max/min combined (the JAX _blind_spots_sharded's pmax/pmin)."""
+    d = lw.size
+    cap = layout.alpha.shape[1]
+    a1 = layout.alpha.view(d, rings, cap)[:, 1]
+    counts1 = layout.counts.view(d, rings)[:, 1]
+    slot = torch.arange(cap, device=a1.device)
+    curb1 = ((slot < counts1[:, None])
+             & (layout.label.view(d, rings, cap)[:, 1] == LABEL_CURB))
+    r1 = (a1 >= 0) & (a1 < 90)
+    r2 = (a1 >= 90) & (a1 < 180)
+    r3 = (a1 >= 180) & (a1 < 270)
+    r4 = ~(r1 | r2 | r3) & ~torch.isnan(a1)
+
+    def mx(r):
+        return lw.pmax(torch.amax(torch.where(curb1 & r, a1, -math.inf), 1))
+
+    def mn(r):
+        return lw.pmin(torch.amin(torch.where(curb1 & r, a1, math.inf), 1))
+
+    mx1, mn2, mx3, mn4 = mx(r1), mn(r2), mx(r3), mn(r4)
+    return (torch.where(mx1 > 0, mx1, 0.0), torch.where(mn2 < 180, mn2, 180.0),
+            torch.where(mx3 > 180, mx3, 180.0),
+            torch.where(mn4 < 360, mn4, 360.0))
+
+
+def _blind_spots(lw: LocalWedges, layout: RingLayout, rings: int, max_dist,
+                 num_rings, cfg: FilterConfig, probe=None) -> torch.Tensor:
+    """Labels of the stacked layout after the flood fill: K8 per wedge, its
+    blocked bits OR-ed over wedges, the global quadrant gate, then K12 per
+    wedge (the JAX _blind_spots_sharded)."""
+    bz = cfg.beam_zone
+    w = bs.window_widths(max_dist, bz)
+    wedges = [_rows(layout, k, rings) for k in range(lw.size)]
+    blocked = [bs.flood_blocked(lay, w, bz) for lay in wedges]
+    blocked = tuple(lw.psum(torch.stack([b[i] for b in blocked]).to(I32)) > 0
+                    for i in (0, 1))
+    q = _quadrants(lw, layout, rings) if cfg.blind_spots else None
+    reach_f, reach_b = bs.sweep_reach(wedges[0], blocked, w, num_rings, cfg,
+                                      q=q)
+    road = torch.cat([bs.flood_road(lay, reach_f, reach_b, w, bz)
+                      for lay in wedges])
+    if probe is not None:
+        probe.update(w=w, reach_f=reach_f, reach_b=reach_b)
+    return bs.road_labels(layout.label, road)
+
+
+def _markers(lw: LocalWedges, layout: RingLayout, rings: int,
+             num_rings, probe=None) -> torch.Tensor:
+    """(361, 6) markers from the stacked sorted layout: K14 twice per wedge
+    with the global scan position g = ring * P_glob + wedge prefix + slot,
+    then the max/min/sum combines (the JAX _markers_sharded).  The f32
+    sentinel F_NONE (3e38) of K14 is not the int32 maximum the JAX XLA
+    branch uses for the same "no non-road point" (azimuth_parallel.py:
+    624-626)."""
+    d = lw.size
+    dev = layout.x.device
+    counts_g = lw.all_gather(layout.counts.view(d, rings))
+    prefix = lw.before(counts_g)
+    p_glob = torch.amax(lw.psum(counts_g)) + 1
+    goff = (torch.arange(rings, dtype=I32, device=dev) * p_glob
+            + prefix).to(I32)  # (D, R)
+    wedges = [_rows(layout, k, rings) for k in range(d)]
+    st1 = torch.stack([marker_state(lay, num_rings, goff[k])
+                       for k, lay in enumerate(wedges)])
+    f = lw.pmin(st1[..., 0])
+    st2 = torch.stack([marker_state(lay, num_rings, goff[k], f_init=f)
+                       for k, lay in enumerate(wedges)])
+    if probe is not None:
+        probe.update(layout=layout, num_rings=num_rings, g_offset=goff,
+                     f_init=f)
+    maxd_loc = st2[..., 1]
+    maxd = lw.pmax(maxd_loc)
+    at_max = (maxd_loc == maxd) & (maxd > 0)
+    gstar = lw.pmin(torch.where(at_max, st2[..., 2], F_NONE))
+    mine = at_max & (st2[..., 2] == gstar)
+
+    def pick(col):
+        return lw.psum(torch.where(mine, st2[..., col], 0.0))
+
+    bins = torch.arange(N_BINS, dtype=F32, device=dev)
+    return torch.stack([(maxd > 0).to(F32), pick(3), pick(4), pick(5),
+                        (f < F_NONE).to(F32), bins], dim=1)
+
+
+def _run(x, y, z, cfg: FilterConfig, dims: PipelineDims, lw: LocalWedges,
+         per_wedge: int, cap: int, probe=None) -> ScanResult:
+    d = lw.size
+    n = x.shape[0]
+    rings = dims.rings
+    dev = x.device
+    iota = torch.arange(n, dtype=I32, device=dev)
+
+    with _stage("sp_partition"):
+        # ROI, star keys (K1) and the wedge of each point, on the scan in
+        # input order; rank within wedge (K5); the wedge streams by gather.
+        valid0, fk0, rk0, _ = ingest.ingest_prep(x[None], y[None], z[None],
+                                                 cfg, want_star_keys=True)
+        valid0, fk0, rk0 = valid0[0], fk0[0], rk0[0]
+        wedge = wedge_of(fk0, valid0, d)
+        wpos, _ = group_positions(wedge, d + 1)
+        fits = (wedge < d) & (wpos < per_wedge)
+        part_overflow = torch.sum((wedge < d) & ~fits, dtype=I32)
+        dst = torch.where(fits, wedge * per_wedge + wpos, d * per_wedge).long()
+        idx_w = torch.full((d * per_wedge + 1,), -1, dtype=I32, device=dev)
+        idx_w[dst] = iota
+        idx_w = idx_w[:-1]
+        has = idx_w >= 0
+        take = torch.clamp(idx_w, min=0).long()
+        _, alpha0 = geometry.vertical_angles(x, y, z)
+
+        def wedged(a, fill):
+            return torch.where(has, a[take], fill).view(d, per_wedge)
+
+        xw, yw, zw = (wedged(a, 0.0).contiguous() for a in (x, y, z))
+        valid_w = wedged(valid0, False)
+        alpha_w = wedged(alpha0, 0.0)
+        fk_w = torch.where(valid_w, wedged(fk0, STAR_REP), STAR_REP)
+        rk_w = torch.where(valid_w, wedged(rk0, math.inf), math.inf)
+        piece = lw.psum(valid_w.sum(1, dtype=I32))
+        ok = piece >= MIN_POINTS
+
+    with _stage("sp_rings"):
+        # The global greedy over the points that fit (K2, input order),
+        # then every wedge's points binned against its table (K3).
+        angles, num_rings = ingest.discover_rings(
+            alpha0[None], (valid0 & fits)[None], cfg.interval, rings)
+        num_rings = num_rings[0]
+        ring_w = ingest.assign_rings(
+            alpha_w, valid_w, angles.expand(d, rings).contiguous(),
+            cfg.interval)
+
+    star = torch.zeros((d, per_wedge + 1), dtype=F32, device=dev)
+    if cfg.star_shaped_method:
+        with _stage("sp_star"):
+            for k in range(d):  # K4 per wedge: beams never straddle
+                hp = star_hits(xw[k], yw[k], zw[k], valid_w[k], cfg,
+                               keys=(fk_w[k], rk_w[k]))
+                star[k, torch.where(hp > 0, hp - 1, per_wedge).long()] = (
+                    float(LABEL_CURB))
+
+    with _stage("sp_tensorize"):
+        # Ring r of wedge w is group w * rings + r of one K5 + K6 pass; the
+        # local point index (+1) and the star marks ride a second K6 pass.
+        group = torch.where(ring_w < rings,
+                            lw.index(dev)[:, None] * rings + ring_w,
+                            d * rings).to(I32).reshape(-1)
+        pos, counts_all = group_positions(group, d * rings + 1)
+        lx, ly, lz, overflow = group_place(
+            group, pos, xw.reshape(-1), yw.reshape(-1), zw.reshape(-1),
+            d * rings, cap)
+        pid1 = (torch.arange(per_wedge, device=dev, dtype=F32) + 1).expand(
+            d, per_wedge).reshape(-1)
+        lab = star[:, :per_wedge].reshape(-1)
+        lpid, llab, _, _ = group_place(group, pos, pid1, lab, lab,
+                                       d * rings, cap)
+        d2, alpha = geometry.azimuth_2d(lx, ly)
+        layout = RingLayout(
+            x=lx, y=ly, z=lz, d2=d2, alpha=alpha, label=llab.to(I32),
+            pid=lpid.to(I32) - 1,
+            counts=torch.clamp(counts_all[:d * rings], max=cap),
+            overflow=overflow)
+        max_dist = lw.pmax(geometry.max_distance(layout).view(d, rings))
+
+    if cfg.x_zero_method or cfg.z_zero_method:
+        with _stage("sp_xz_zero"):
+            layout = layout._replace(
+                label=_halo_stencils(lw, layout, rings, cfg))
+
+    with _stage("sp_blind_spots"):
+        layout = geometry.sort_by_azimuth(layout, carry_pid=True)
+        layout = layout._replace(label=_blind_spots(
+            lw, layout, rings, max_dist, num_rings, cfg, probe))
+
+    with _stage("sp_markers"):
+        markers = _markers(lw, layout, rings, num_rings, probe)
+
+    with _stage("sp_gather"):
+        # Labels back to input order through each slot's point index.
+        row_wedge = torch.arange(d * rings, device=dev)[:, None] // rings
+        pid = layout.pid
+        src = torch.where(pid >= 0, idx_w[torch.clamp(
+            row_wedge * per_wedge + pid, 0, d * per_wedge - 1)], n).long()
+        labels = torch.zeros((n + 1,), dtype=I32, device=dev)
+        labels[src.reshape(-1)] = torch.where(pid >= 0, layout.label,
+                                              0).reshape(-1)
+        labels = labels[:n]
+        roi = valid0 & fits
+        ring_w_flat = ring_w.reshape(-1)
+        ring_id = torch.where(
+            roi, ring_w_flat[torch.clamp(dst, max=d * per_wedge - 1)], rings)
+        return ScanResult(
+            ok=ok, roi=roi & ok,
+            labels=torch.where(ok, labels, 0).to(torch.int8),
+            ring_id=ring_id.to(I32), num_rings=num_rings,
+            counts=lw.psum(layout.counts.view(d, rings)),
+            max_distance=max_dist,
+            markers=torch.where(ok, markers, 0.0),
+            overflow=part_overflow + overflow,
+            star_overflow=torch.zeros((), dtype=I32, device=dev),
+            probably_road=(ring_id == int(cfg.probably_road_ring)) & ok)
+
+
+def make_azimuth_pipeline(n_wedges: int, cfg: FilterConfig,
+                          dims: PipelineDims, wedge_slack: float = 1.5,
+                          device=None):
+    """``run(pts, cfg=None, layout="rows", probe=None)`` -> ScanResult for
+    ONE padded scan of dims.max_points points, cut into ``n_wedges``
+    azimuth wedges of max_points // n_wedges points each: (N, >=3) rows
+    or, with ``layout="planar"``, (3, N) planes.  The result has the JAX SP
+    path's fields and semantics, per input point.  ``cfg`` passed to run
+    replaces the configuration for that call.  ``device`` as for
+    pipeline.process_scan: "cuda" unless "cpu" is asked for.  A dict
+    passed as ``probe`` receives the kernels' wedge inputs of that call: the
+    stacked sorted layout after the flood fill ("layout", "num_rings"), the
+    window widths and reach of K12 ("w", "reach_f", "reach_b") and K14's
+    per-wedge offsets and global floor ("g_offset" (D, R), "f_init").
+
+    ``wedge_slack`` over-provisions each wedge's ring slots beyond the
+    uniform share ring_capacity / n_wedges (rounded up to 64, capped at
+    ring_capacity), for the azimuth-density skew of real sensors."""
+    if 360 % n_wedges != 0:
+        raise ValueError(f"{n_wedges} wedges must divide 360 (star beams "
+                         "may not straddle wedges)")
+    n = dims.max_points
+    per_wedge = n // n_wedges
+    cap = min(dims.ring_capacity,
+              -64 * (-int(dims.ring_capacity // n_wedges * wedge_slack)
+                     // 64))
+    if dims.rings > ingest.MAX_RINGS:
+        raise ValueError(f"at most {ingest.MAX_RINGS} rings, got "
+                         f"{dims.rings}")
+    lw = LocalWedges(n_wedges)
+
+    def run(pts, cfg_now: FilterConfig | None = None, layout: str = "rows",
+            probe: dict | None = None) -> ScanResult:
+        x, y, z, m = geometry.xyz_of(on_device(pts, device), layout)
+        if m != n:
+            raise ValueError(f"expected {n} points (dims.max_points), got "
+                             f"{m}")
+        if x.dtype != F32:
+            raise TypeError(f"points must be float32, got {x.dtype}")
+        return _run(x, y, z, cfg if cfg_now is None else cfg_now, dims, lw,
+                    per_wedge, cap, probe)
+
+    return run

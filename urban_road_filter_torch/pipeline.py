@@ -2,7 +2,7 @@
 
 Port of urban_road_filter_tpu/pipeline.py:99-212 (process_scan), :234-306
 (the batch path, process_batch_jit) and :271-296 (the packed wire plane).
-Dataflow, on the device of the input:
+Dataflow, on the card (or, for ``device="cpu"``, through the plain twins):
 
     points (one scan: rows (N, >=3) or planar (3, N); a batch: rows
     (B, N, >=3) or planar (3, B, N); named by ``layout``)
@@ -31,8 +31,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from urban_road_filter_tpu.config import FilterConfig, PipelineDims
-from urban_road_filter_tpu.constants import MIN_POINTS
+from urban_road_filter_torch.config import FilterConfig, PipelineDims
+from urban_road_filter_torch.constants import MIN_POINTS
 from urban_road_filter_torch.ops import geometry, ingest
 from urban_road_filter_torch.ops.blind_spots import blind_spots
 from urban_road_filter_torch.ops.gather import gather_pack
@@ -120,40 +120,57 @@ def _lanes(x, y, z, cfg: FilterConfig, dims: PipelineDims):
             for b in range(x.shape[0])]
 
 
-def _scan(pts, cfg: FilterConfig, dims: PipelineDims, layout: str):
+def on_device(pts, device=None) -> torch.Tensor:
+    """The entry points' input on the device they run on: ``device=None``
+    means "cuda".  Without a CUDA device that raises unless the caller asked
+    for the CPU (``device="cpu"``), the only way to run the plain twins.
+    ``pts`` may be a tensor or a host array."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass device='cpu' to run the "
+                           "plain PyTorch twins on the CPU")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev}")
+    return torch.as_tensor(pts).to(dev)
+
+
+def _scan(pts, cfg: FilterConfig, dims: PipelineDims, layout: str, device):
     """(ScanResult, packed uint8 plane) of one scan: a batch of one."""
-    x, y, z, _ = geometry.xyz_of(pts, layout)
+    x, y, z, _ = geometry.xyz_of(on_device(pts, device), layout)
     return _lanes(x[None], y[None], z[None], cfg, dims)[0]
 
 
-def process_scan(pts: torch.Tensor, cfg: FilterConfig, dims: PipelineDims,
-                 layout: str = "rows") -> ScanResult:
+def process_scan(pts, cfg: FilterConfig, dims: PipelineDims,
+                 layout: str = "rows", device=None) -> ScanResult:
     """Label one padded scan: ``layout="rows"`` for (N, >=3) points
     (pad_scan), ``"planar"`` for (3, N) coordinate planes
-    (pad_scan_planar).  The orientation is never guessed from the shape."""
-    return _scan(pts, cfg, dims, layout)[0]
+    (pad_scan_planar).  The orientation is never guessed from the shape.
+    Runs on ``device`` (default "cuda"; "cpu" for the plain twins), where
+    the points are moved first."""
+    return _scan(pts, cfg, dims, layout, device)[0]
 
 
-def packed_scan(pts: torch.Tensor, cfg: FilterConfig, dims: PipelineDims,
-                layout: str = "rows"):
+def packed_scan(pts, cfg: FilterConfig, dims: PipelineDims,
+                layout: str = "rows", device=None):
     """process_scan with the three per-point planes packed into ONE uint8
     plane: labels in bits 0-1, roi in bit 2, probably_road in bit 3 (the
     JAX package's wire format).  Returns (packed, markers, ok, num_rings,
     overflow); unpack with unpack_planes."""
-    res, packed = _scan(pts, cfg, dims, layout)
+    res, packed = _scan(pts, cfg, dims, layout, device)
     return packed, res.markers, res.ok, res.num_rings, res.overflow
 
 
-def process_batch(pts: torch.Tensor, cfg: FilterConfig, dims: PipelineDims,
-                  layout: str = "rows") -> ScanResult:
+def process_batch(pts, cfg: FilterConfig, dims: PipelineDims,
+                  layout: str = "rows", device=None) -> ScanResult:
     """Label a batch of padded scans: ``layout="rows"`` for (B, N, >=3)
     points, ``"planar"`` for (3, B, N) coordinate planes (planarize_batch).
     The ingest (K1-K3) runs once over the (B, N) streams; the later stages
     run per scan on views of them, and nothing reads a value back to the
     host.  Returns a ScanResult with a leading B axis on every field (ok,
     num_rings, overflow and star_overflow are (B,); markers (B, 361, 6)).
-    Lane b equals process_scan of scan b."""
-    x, y, z, _ = geometry.xyz_of(pts, layout, batched=True)
+    Lane b equals process_scan of scan b.  ``device`` as for process_scan."""
+    x, y, z, _ = geometry.xyz_of(on_device(pts, device), layout,
+                                 batched=True)
     if x.shape[0] == 0:
         raise ValueError(f"empty batch: {tuple(pts.shape)}")
     lanes = [res for res, _ in _lanes(x, y, z, cfg, dims)]
