@@ -9,10 +9,20 @@
 2. Holds each of the 14 kernels (the list is _build.KERNELS) against its
    plain PyTorch twin on the card; every output must be bit-equal.  The
    batch ingest (K1 ingest_prep, with and without the star keys, K2
-   discover_rings, K3 assign_rings) runs on the phase-4 batch (128 planar
-   scans of 131072 points, 64 rings), on its first 8 scans as rows and as
-   planes, on 2 merged multi-LiDAR scans (262144 points, 128 rings), on an
-   all-invalid scan and on a scan with a NaN vertical angle in the ROI.
+   discover_rings, K3 assign_rings) runs, timed, on the phase-4 batch (128
+   planar scans of 131072 points, 64 rings), at B = 1 on one OS1-64 drive
+   scan (as process_scan calls it), at the SP call's shape (the phase-5
+   OS1-128 scan, 262144 points, 128 rings, K2 on valid0 & fits) and, K2
+   and K3, on that OS1-64 scan reordered ring-major (K2's worst case),
+   printing the grid of each launch; then on the inputs that stress K2's
+   prefix/filter/finish design and K3's search: the ring cap (24) reached
+   in the prefix, n < 4096 and n not a multiple of 32 or 4, one valid
+   point at the last index, NaN angles inside and after the 4096-point
+   prefix, points exactly tol from a ring and one ulp either side over 128
+   rings, tol-exact, all-NaN and empty tables; on the batch's first 8
+   scans as rows and as planes, on 2 merged multi-LiDAR scans (262144
+   points, 128 rings), on an all-invalid scan and on a scan with a NaN
+   vertical angle in the ROI.
    The per-scan kernels (K4 star walk, K5 rank, K6 place, K7 x/z-zero,
    K8 + K9 flood fill, K10 markers, K11 gather+pack, K12 road mask, K13
    marker keys, K14 marker state) run on one emulated OS1-64 scan (131072
@@ -52,7 +62,9 @@
    overflow.  Prints the SP scan latency p50 host to host.  K12, K13 and
    K14 are held against their twins again at the per-wedge shapes, K14
    with the run's own g_offset and f_init.
-6. Prints one JSON line of per-kernel results and, last,
+6. Prints one JSON line of per-kernel results (K1-K3 with their grid and
+   their times at B = 1, "b1", at the SP call's shape, "sp", and, K2 and
+   K3, on the ring-major scan, "ring_major") and, last,
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Any failure raises (exit code 1).  Without a CUDA device, or outside a
@@ -178,14 +190,41 @@ def multi_lidar_scans():
             for i, sp in enumerate(specs)]
 
 
+def rings_vs_twins(alpha, valid, interval, rings):
+    """K2 and K3 on (B, N) vertical angles and ROI mask against their
+    twins, bit-equal.  Returns ({kernel: (kernel call, twin call, max abs
+    error, bound)}, angles, count).  The bounds count alpha and valid read
+    and the table written (K2, K3) and the ring ids written (K3); K2's
+    operations at 3 per ring test, each valid point tested against half of
+    its scan's table, K3's at 3 per test up to its first match."""
+    from urban_road_filter_torch.ops import ingest
+
+    k2 = lambda: ingest.discover_rings(alpha, valid, interval, rings)
+    p2 = lambda: ingest.discover_rings_plain(alpha, valid, interval, rings)
+    angles, count = k2()
+    e2 = max_abs_err((angles, count), p2())
+    k3 = lambda: ingest.assign_rings(alpha, valid, angles, interval)
+    p3 = lambda: ingest.assign_rings_plain(alpha, valid, angles, interval)
+    ring = k3()
+    e3 = max_abs_err((ring,), (p3(),))
+    b, n = alpha.shape
+    n_valid = valid.sum(1).double()
+    tests = torch.where(valid, torch.minimum(ring, count[:, None] - 1) + 1,
+                        0).sum().item()
+    calls = {"discover_rings": (k2, p2, e2, bound(
+                 b * n * 5 + b * rings * 4 + 4 * b,
+                 1.5 * float((n_valid * count.double()).sum()))),
+             "assign_rings": (k3, p3, e3, bound(b * n * 9 + b * rings * 4,
+                                                3 * tests))}
+    return calls, angles, count
+
+
 def ingest_vs_twins(x, y, z, cfg, rings):
     """K1-K3 on (B, N) coordinate views against their twins, bit-equal.
     Returns {kernel: (kernel call, twin call, max abs error, bound)} and
-    the ring counts.  The bounds count x, y, z read and valid, fk, r_key
-    written (K1), alpha and valid read and the table written (K2, K3);
-    K1's operations at ~40 per point (a float64 atan2, a root, the ROI
-    compares), K2's at 3 per ring test, each valid point tested against
-    half of its scan's table, K3's at 3 per test up to its first match."""
+    the ring counts.  K1's bound counts x, y, z read and valid, fk, r_key
+    written, and ~40 operations per point (a float64 atan2, a root, the
+    ROI compares)."""
     from urban_road_filter_torch.ops import geometry, ingest
 
     k1 = lambda: ingest.ingest_prep(x, y, z, cfg)
@@ -199,47 +238,167 @@ def ingest_vs_twins(x, y, z, cfg, rings):
     max_abs_err(lean[::3], ingest.ingest_prep_plain(
         x, y, z, cfg, want_star_keys=False)[::3])
     _, alpha = geometry.vertical_angles(x, y, z)
-    k2 = lambda: ingest.discover_rings(alpha, valid, cfg.interval, rings)
-    p2 = lambda: ingest.discover_rings_plain(alpha, valid, cfg.interval,
-                                             rings)
-    angles, count = k2()
-    e2 = max_abs_err((angles, count), p2())
-    k3 = lambda: ingest.assign_rings(alpha, valid, angles, cfg.interval)
-    p3 = lambda: ingest.assign_rings_plain(alpha, valid, angles, cfg.interval)
-    ring = k3()
-    e3 = max_abs_err((ring,), (p3(),))
+    calls, _, count = rings_vs_twins(alpha, valid, cfg.interval, rings)
     b, n = x.shape
-    n_valid = valid.sum(1).double()
-    tests = torch.where(valid, torch.minimum(ring, count[:, None] - 1) + 1,
-                        0).sum().item()
     calls = {"ingest_prep": (k1, p1, e1, bound(b * n * 21 + 4 * b,
-                                               40 * b * n)),
-             "discover_rings": (k2, p2, e2, bound(
-                 b * n * 5 + b * rings * 4 + 4 * b,
-                 1.5 * float((n_valid * count.double()).sum()))),
-             "assign_rings": (k3, p3, e3, bound(b * n * 9 + b * rings * 4,
-                                                3 * tests))}
+                                               40 * b * n)), **calls}
     return calls, count
+
+
+def time_calls(calls, what):
+    """CUDA-event times of each (kernel, twin) pair, with the bound and the
+    grid the kernel's launches used."""
+    from urban_road_filter_torch.ops import ingest
+
+    out = {}
+    for name, (kernel, plain, err, bnd) in calls.items():
+        ms = cuda_ms(kernel)
+        grid = list(ingest.last_grid[name])
+        out[name] = {"max_abs_err": err, "ms": ms,
+                     "plain_ms": cuda_ms(plain, WALK_REPS), **bnd,
+                     "library_ms": None, "grid": grid}
+        print(f"  {name} ({what}): bit-equal, grid {grid}, kernel {ms:.4f} "
+              f"ms, plain {out[name]['plain_ms']:.4f} ms, bound "
+              f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']})", flush=True)
+    return out
+
+
+def os1_64_scan():
+    """One emulated OS1-64 drive scan (make_drive seed 41): 1024 firings of
+    64 beams, 65536 returns, azimuth-major as the sensor emits them."""
+    from urban_road_filter_torch.io import make_drive
+
+    return next(make_drive(1, sensor="os1_64", seed=41))
+
+
+def ring_major(scan, beams=64):
+    """The scan's points reordered beam by beam: K2's worst case, whose
+    first 4096 points hold about two rings."""
+    c = scan.shape[1]
+    return np.ascontiguousarray(
+        scan.reshape(-1, beams, c).transpose(1, 0, 2).reshape(-1, c))
+
+
+def sp_ring_inputs(dev, cfg, host):
+    """K1-K3's inputs on the SP path of phase 5's OS1-128 scan ((N, 4)
+    padded rows on the host), as make_azimuth_pipeline(8) makes them: the
+    (1, N) coordinate views (K1); the vertical angles and valid0 & fits,
+    the points that fit their wedge (K2, and K3 here on the same points in
+    input order, where the SP call takes them as 8 wedges of N / 8)."""
+    from urban_road_filter_torch.ops import geometry, ingest
+    from urban_road_filter_torch.ops.rank import group_positions
+    from urban_road_filter_torch.parallel.azimuth_parallel import wedge_of
+
+    pts = torch.from_numpy(host).to(dev)
+    x, y, z, _ = geometry.xyz_of(pts, "rows")
+    valid0, fk0, _, _ = ingest.ingest_prep(x[None], y[None], z[None], cfg)
+    wedge = wedge_of(fk0[0], valid0[0], WEDGES)
+    wpos, _ = group_positions(wedge, WEDGES + 1)
+    fits = (wedge < WEDGES) & (wpos < pts.shape[0] // WEDGES)
+    _, alpha = geometry.vertical_angles(x, y, z)
+    return (x[None], y[None], z[None]), alpha[None], (valid0[0] & fits)[None]
+
+
+def ring_edges(dev, cfg, scan_rows):
+    """K2 and K3 against their twins on the inputs that stress their
+    designs (csrc/ingest.cu), on one 131072-point OS1-64 scan (rows on the
+    card): prefix, filter and finish at the cap, at ragged lengths, with
+    NaN angles inside and after the 4096-point prefix, with one valid point
+    at the end; tables with entries exactly tol away from points and one
+    ulp either side, all-NaN and empty tables."""
+    from urban_road_filter_torch.ops import geometry, ingest
+
+    x, y, z, _ = geometry.xyz_of(scan_rows, "rows")
+    valid = geometry.roi_mask_xyz(x, y, z, cfg)[None]
+    _, alpha = geometry.vertical_angles(x, y, z)
+    alpha = alpha[None].contiguous()
+    n = alpha.shape[1]
+    tol = cfg.interval
+    _, _, count = rings_vs_twins(alpha, valid, tol, 24)
+    assert int(count[0]) == 24  # the cap, reached in the prefix
+    for m in (1000, n - 3):  # n < 4096; n not a multiple of 32 or 4
+        rings_vs_twins(alpha[:, :m].contiguous(), valid[:, :m].contiguous(),
+                       tol, 64)
+    last = torch.zeros_like(valid)
+    last[0, -1] = True
+    a_last = alpha.clone()
+    a_last[0, -1] = alpha[0, 0]  # a padding row's angle is NaN
+    _, _, count = rings_vs_twins(a_last, last, tol, 64)
+    assert int(count[0]) == 1
+    nan_rows = scan_rows[None].repeat(3, 1, 1)
+    for b, where in enumerate(((5,), (70000,), (5, 70000))):
+        for i in where:
+            nan_rows[b, i, :3] = torch.tensor([1e-25, 0.0, 0.0], device=dev)
+    nx, ny, nz, _ = geometry.xyz_of(nan_rows, "rows", batched=True)
+    _, count = ingest_vs_twins(nx, ny, nz, cfg.replace(max_z=1.0), 64)
+    assert (count == 64).all()
+    # Points exactly tol from a ring and one ulp either side, 128 rings.
+    t32 = np.float32(tol)
+    centres = np.linspace(-20.0, 20.0, 97).astype(np.float32)
+    edges = np.concatenate([centres + t32, centres - t32]).astype(np.float32)
+    stream = np.resize(np.concatenate(
+        [centres, edges, np.nextafter(edges, np.inf),
+         np.nextafter(edges, -np.inf)]).astype(np.float32), n)
+    a_tol = torch.from_numpy(stream).to(dev)[None]
+    v_tol = torch.ones_like(a_tol, dtype=torch.bool)
+    rings_vs_twins(a_tol, v_tol, tol, 128)
+    tables = [torch.full((1, 128), float("inf"), device=dev),
+              torch.full((1, 128), float("nan"), device=dev)]
+    tables[0][0, :97] = torch.from_numpy(centres).to(dev)
+    for table in tables + [tables[0][:, 97:]]:
+        for a, v in ((a_tol, v_tol), (alpha, valid)):
+            got = ingest.assign_rings(a, v, table, tol)
+            max_abs_err((got,), (ingest.assign_rings_plain(a, v, table,
+                                                           tol),))
+    print("  K2/K3 edges: cap 24, n = 1000 and n - 3, one valid point at "
+          "the end, NaN angles at 5 / 70000 / both, tol-exact and 1-ulp "
+          "points over 128 rings, tol-exact, all-NaN and empty tables: "
+          "bit-equal", flush=True)
 
 
 def phase_ingest(dev, cfg, planar, mrows):
     """K1-K3 against their twins.  planar: the phase-4 batch (3, 128, N)
     on the card; mrows: merged multi-LiDAR scans (B, 262144, 4) on the
-    card.  Returns the per-kernel results timed at the phase-4 shapes."""
+    card.  Returns the per-kernel results timed at the phase-4 shapes, with
+    the times at B = 1 ("b1": one OS1-64 scan, as process_scan calls them)
+    and at the SP call's shape ("sp"), and K2's on the ring-major scan."""
+    from urban_road_filter_torch import PipelineDims, pad_scan
     from urban_road_filter_torch.ops import geometry
 
     x, y, z, _ = geometry.xyz_of(planar, "planar", batched=True)
     calls, count = ingest_vs_twins(x, y, z, cfg, 64)
     assert int(count.min()) > 20, "every scan must have rings"
-    out = {}
-    for name, (kernel, plain, err, bnd) in calls.items():
-        out[name] = {"max_abs_err": err, "ms": cuda_ms(kernel),
-                     "plain_ms": cuda_ms(plain, WALK_REPS), **bnd,
-                     "library_ms": None}
-        print(f"  {name} (B={x.shape[0]}, N={x.shape[1]}): bit-equal, "
-              f"kernel {out[name]['ms']:.4f} ms, plain "
-              f"{out[name]['plain_ms']:.4f} ms, bound "
-              f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']})", flush=True)
+    out = time_calls(calls, f"B={x.shape[0]}, N={x.shape[1]}")
+
+    n = PipelineDims.for_sensor("os1-64").max_points
+    scan = torch.from_numpy(pad_scan(os1_64_scan(), n)).to(dev)
+    sx, sy, sz, _ = geometry.xyz_of(scan, "rows")
+    calls, count = ingest_vs_twins(sx[None], sy[None], sz[None], cfg, 64)
+    assert int(count[0]) > 20
+    for name, res in time_calls(calls, f"B=1, N={n}, OS1-64 scan").items():
+        out[name]["b1"] = res
+
+    _, sp_dims, sp_scan, _ = sp_deployments()[0]
+    xyz, alpha, ring_valid = sp_ring_inputs(
+        dev, cfg, pad_scan(sp_scan, sp_dims.max_points))
+    calls, _ = ingest_vs_twins(*xyz, cfg, sp_dims.rings)
+    sp = {"ingest_prep": calls["ingest_prep"]}
+    sp.update(rings_vs_twins(alpha, ring_valid, cfg.interval,
+                             sp_dims.rings)[0])
+    for name, res in time_calls(sp, f"SP call, B=1, N={alpha.shape[1]}, "
+                                f"{sp_dims.rings} rings").items():
+        out[name]["sp"] = res
+
+    rm = torch.from_numpy(pad_scan(ring_major(os1_64_scan()), n)).to(dev)
+    rx, ry, rz, _ = geometry.xyz_of(rm, "rows")
+    valid = geometry.roi_mask_xyz(rx, ry, rz, cfg)[None]
+    _, alpha = geometry.vertical_angles(rx, ry, rz)
+    calls, _, count = rings_vs_twins(alpha[None].contiguous(), valid,
+                                     cfg.interval, 64)
+    assert int(count[0]) > 20
+    for name, res in time_calls(calls, "ring-major OS1-64 scan").items():
+        out[name]["ring_major"] = res
+    ring_edges(dev, cfg, scan)
 
     rows = planar[:, :8].permute(1, 2, 0).contiguous()
     for layout, pts in (("rows", rows), ("planar", planar[:, :8])):
@@ -250,10 +409,7 @@ def phase_ingest(dev, cfg, planar, mrows):
     mx, my, mz, _ = geometry.xyz_of(mrows[:2], "rows", batched=True)
     calls, count = ingest_vs_twins(mx, my, mz, cfg, 128)
     assert int(count.min()) > 64, "the merged rig must have > 64 rings"
-    times = ", ".join(f"{k} {cuda_ms(kc):.4f} / {cuda_ms(pc, WALK_REPS):.4f}"
-                      for k, (kc, pc, _, _) in calls.items())
-    print(f"  (2, 262144, 128 rings): bit-equal; kernel / plain ms: {times}",
-          flush=True)
+    time_calls(calls, "B=2, N=262144, 128 rings")
 
     empty = rows[:2].clone()
     empty[1] = 0
@@ -742,7 +898,6 @@ def main() -> int:
     from urban_road_filter_torch import FilterConfig, PipelineDims, _build
     from urban_road_filter_torch import pad_scan, planarize_batch
     from urban_road_filter_torch import unpack_planes
-    from urban_road_filter_torch.io import make_drive
     from urban_road_filter_torch.utils.parity import device_parity_gate
 
     dev = torch.device("cuda", 0)
@@ -778,9 +933,8 @@ def main() -> int:
         [pad_scan(p, mdims.max_points) for _, p in merged[:2]])).to(dev)
     kernels = phase_ingest(dev, cfg, planar, mrows)
     del planar, mrows
-    per_scan, unfused_launches = phase_kernels(
-        dev, dims, cfg, next(make_drive(1, sensor="os1_64", seed=41)),
-        "OS1-64 drive scan")
+    per_scan, unfused_launches = phase_kernels(dev, dims, cfg, os1_64_scan(),
+                                               "OS1-64 drive scan")
     kernels.update(per_scan)
     assert set(kernels) == set(_build.KERNELS), sorted(kernels)
     # The per-scan kernels again at the shapes the batch path gives them

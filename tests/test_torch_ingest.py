@@ -16,12 +16,19 @@ to its Pallas kernels in interpret mode, so exactness is a fair demand:
   * A valid point whose vertical angle is NaN: the oracle's and the XLA
     loop's ring table, which discover_rings_pallas does not give
     (ROADMAP queue 3, reference fault 5).
+  * The rules the CUDA kernels rest on (csrc/ingest.cu), as numpy models:
+    K2's prefix -> filter -> finish decomposition of the greedy (for a
+    prefix of 0, 1, 7, 4096 and all points) and K3's bisection of the
+    sorted table, exact against the twins and the eager JAX ops on the
+    inputs that stress them, and in property tests.
 """
 
 import math
 
 import numpy as np
 import pytest
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 import jax.numpy as jnp
 import torch
@@ -313,3 +320,330 @@ def test_cpu_ingest_launches_no_kernel():
     angles, _ = ingest.discover_rings(alpha, valid, cfg.interval)
     ingest.assign_rings(alpha, valid, angles, cfg.interval)
     assert not any(_build.launch_counts().values())
+
+
+# --- The rules K2 and K3 rest on (csrc/ingest.cu), as numpy models ---------
+
+CHUNK = 4096  # the kernel's prefix P and its chunk of 1024 threads x 4
+
+
+def _matches(a, t, tol):
+    """|fl(a - t)| <= tol in float32 (NaN matches nothing)."""
+    with np.errstate(invalid="ignore"):
+        return np.abs(np.float32(a) - np.float32(t)) <= tol
+
+
+def _first_match(alpha, table, tol):
+    """K3's search: over the sorted table padded with +inf to a power of
+    two above its size, lo = the number of leading entries with fl(a - t)
+    > tol; the first match is lo when |fl(a - t_lo)| <= tol, else none
+    (len(table))."""
+    rings = len(table)
+    size = 1
+    while size <= rings:
+        size <<= 1
+    t = np.full(size, np.inf, F32)
+    t[:rings] = table
+    lo = np.zeros(np.shape(alpha), np.int64)
+    step = size >> 1
+    with np.errstate(invalid="ignore"):
+        while step:
+            lo = np.where(alpha - t[lo + step - 1] > tol, lo + step, lo)
+            step >>= 1
+    hit = (lo < rings) & _matches(alpha, t[lo], tol)
+    return np.where(hit, lo, rings)
+
+
+def _greedy(alpha, open_, table, rings, tol, chunk, tested):
+    """A chunked greedy of the kernel's kind over alpha in input order,
+    extending ``table`` (a list) in place.  open_: the points open against
+    table[:tested].  Each round resolves the chunk's first 32 open points
+    in order, each a ring unless it matches a ring found before it, and
+    drops the chunk's points that match the round's rings; a ring that does
+    not match itself (NaN) fills the table."""
+    for base in range(0, len(alpha), chunk):
+        if len(table) >= rings:
+            return
+        a = alpha[base:base + chunk]
+        o = open_[base:base + chunk].copy()
+        for t in table[tested:]:
+            o &= ~_matches(a, t, tol)
+        while len(table) < rings and o.any():
+            k_round = len(table)
+            cand = np.flatnonzero(o)[:32]
+            todo = np.ones(len(cand), bool)
+            for c, r in enumerate(cand):
+                if not todo[c] or len(table) >= rings:
+                    continue
+                table.append(a[r])
+                if not _matches(a[r], a[r], tol):
+                    table.extend([a[r]] * (rings - len(table)))
+                    break
+                todo &= ~_matches(a[cand], a[r], tol)
+            for t in table[k_round:]:
+                o &= ~_matches(a, t, tol)
+
+
+def _sorted(values):
+    """torch.sort's order (NaN last), bit patterns kept (numpy's own sort
+    may canonicalise NaNs)."""
+    values = np.asarray(values, F32)
+    return values[np.argsort(values, kind="stable")]
+
+
+def _discover_model(alpha, valid, interval, rings, p, chunk=CHUNK):
+    """K2: the greedy over the first p points (the table T), the later
+    points that match no entry of sorted T (the filter, by K3's search),
+    then the greedy from T over those alone, in input order; the table
+    sorted as torch.sort sorts it (NaN last)."""
+    tol = F32(interval)
+    table = []
+    _greedy(alpha[:p], valid[:p], table, rings, tol, chunk, 0)
+    k_t = len(table)
+    if k_t < rings:
+        srt = _sorted(table)
+        open_ = valid[p:] & (_first_match(alpha[p:], srt, tol) == k_t)
+        _greedy(alpha[p:], open_, table, rings, tol, chunk, k_t)
+    k = len(table)
+    angles = np.concatenate([np.asarray(table, F32),
+                             np.full(rings - k, np.inf, F32)])
+    return _sorted(angles), k
+
+
+def _bits(a):
+    return np.asarray(a, F32).view(np.int32)
+
+
+def _check_discover(alpha, valid, interval, rings, chunks=(CHUNK,)):
+    """The twin, the eager JAX op and the model (every prefix) agree bit
+    for bit; returns the twin's (angles, count)."""
+    got_a, got_c = (t.numpy()[0] for t in ingest.discover_rings(
+        _t(alpha[None]), _t(valid[None]), interval, rings))
+    wa, wc = jgeo.discover_rings(jnp.asarray(alpha), jnp.asarray(valid),
+                                 interval, rings=rings)
+    np.testing.assert_array_equal(_bits(got_a), _bits(wa))
+    assert int(got_c) == int(wc)
+    for chunk in chunks:
+        for p in (0, 1, 7, CHUNK, len(alpha)):
+            ma, mc = _discover_model(alpha, valid, interval, rings, p, chunk)
+            np.testing.assert_array_equal(_bits(ma), _bits(got_a),
+                                          err_msg=f"prefix {p}")
+            assert mc == int(got_c), (p, chunk)
+    return got_a, int(got_c)
+
+
+def _check_assign(alpha, valid, table, interval):
+    """The twin, the eager JAX op and the bisection model agree."""
+    got = ingest.assign_rings(_t(alpha[None]), _t(valid[None]),
+                              _t(table[None]), interval).numpy()[0]
+    want = np.asarray(jgeo.assign_rings(jnp.asarray(alpha),
+                                        jnp.asarray(valid),
+                                        jnp.asarray(table), interval))
+    np.testing.assert_array_equal(got, want)
+    model = np.where(valid, _first_match(alpha, table, F32(interval)),
+                     len(table))
+    np.testing.assert_array_equal(model, got)
+    return got
+
+
+def _scan64(ring_major=False, n_azimuth=128, seed=3):
+    """(valid, alpha) of a 64-ring scan (azimuth-major as the sensor emits
+    it, or reordered ring-major: the kernel's worst case, whose prefix
+    holds about 2 rings)."""
+    pts = make_scan(SCENES["two_curbs"](), n_rings=64, n_azimuth=n_azimuth,
+                    seed=seed)
+    if ring_major:
+        pts = np.ascontiguousarray(
+            pts.reshape(n_azimuth, 64, 4).transpose(1, 0, 2).reshape(-1, 4))
+    return _jax_alpha(pts, FilterConfig())
+
+
+def _nan_scan(where):
+    """A 64-ring scan (12288 points) with valid NaN-angle points at the
+    given indices (FilterConfig(max_z=1.0) admits them)."""
+    cfg = FilterConfig(max_z=1.0)
+    pts = make_scan(SCENES["two_curbs"](), n_rings=64, n_azimuth=192, seed=4)
+    for i in where:
+        pts[i] = (1e-25, 0.0, 0.0, 0)
+    valid, alpha = _jax_alpha(pts, cfg)
+    assert all(valid[i] and np.isnan(alpha[i]) for i in where)
+    return valid, alpha, cfg
+
+
+def _tol_stream(tol, centres):
+    """Points exactly tol from each centre, and one ulp either side."""
+    tol = F32(tol)
+    pts = []
+    for c in np.asarray(centres, F32):
+        for edge in (c + tol, c - tol):
+            e = F32(edge)
+            pts += [c, e, np.nextafter(e, F32(np.inf)),
+                    np.nextafter(e, F32(-np.inf))]
+    return np.asarray(pts, F32)
+
+
+class TestDiscoverRule:
+    """K2's decomposition: prefix greedy, filter against its table T, the
+    greedy from T over the points left open."""
+
+    @pytest.mark.parametrize("ring_major", [False, True])
+    def test_scan_orders(self, ring_major):
+        # At 64 rings x 2048 azimuths (131072 points) the ring-major
+        # order's prefix holds its first two rings only.
+        valid, alpha = _scan64(ring_major, n_azimuth=2048)
+        _, count = _check_discover(alpha, valid, 0.18, 64)
+        assert count > 40
+        table = []
+        _greedy(alpha[:CHUNK], valid[:CHUNK], table, 64, F32(0.18), CHUNK, 0)
+        assert len(table) <= 2 if ring_major else len(table) == count
+
+    @pytest.mark.parametrize("where", [(5,), (5000,), (5, 5000)])
+    def test_nan_angles_inside_and_after_the_prefix(self, where):
+        valid, alpha, cfg = _nan_scan(where)
+        angles, count = _check_discover(alpha, valid, cfg.interval, 64)
+        assert count == 64 and np.isnan(angles[-1])
+        # The NaN point takes every round after it: the rings found before
+        # it are the only finite entries.
+        tol = F32(cfg.interval)
+        first = min(where)
+        before, _ = _discover_model(alpha[:first], valid[:first],
+                                    cfg.interval, 64, 0)
+        n_before = int(np.isfinite(before).sum())
+        assert int(np.isfinite(angles).sum()) == n_before
+        assert n_before < 64 and _matches(alpha[first], alpha[first],
+                                          tol) is np.False_
+
+    def test_cap_reached_in_the_prefix(self):
+        valid, alpha = _scan64()
+        angles, count = _check_discover(alpha, valid, 0.18, 24)
+        assert count == 24 and np.isfinite(angles).all()
+        table = []
+        _greedy(alpha[:CHUNK], valid[:CHUNK], table, 24, F32(0.18), CHUNK, 0)
+        assert len(table) == 24
+
+    @pytest.mark.parametrize("n", [1000, 8189, 8191])
+    def test_short_and_ragged_scans(self, n):
+        # n < P; n not a multiple of 32 or 4.
+        valid, alpha = _scan64()
+        _, count = _check_discover(alpha[:n], valid[:n], 0.18, 64)
+        assert count > 20
+
+    @pytest.mark.parametrize("n", [4097, 8189])
+    def test_one_valid_point_at_the_last_index(self, n):
+        _, alpha = _scan64()
+        valid = np.zeros(n, bool)
+        valid[-1] = True
+        angles, count = _check_discover(alpha[:n], valid, 0.18, 64)
+        assert count == 1 and angles[0] == alpha[n - 1]
+        assert np.isinf(angles[1:]).all()
+
+    def test_no_valid_point(self):
+        _, alpha = _scan64()
+        angles, count = _check_discover(alpha, np.zeros(len(alpha), bool),
+                                        0.18, 64)
+        assert count == 0 and np.isposinf(angles).all()
+
+    @pytest.mark.parametrize("tol", [0.18, 0.25])
+    def test_points_exactly_tol_apart(self, tol):
+        # A ring, then points exactly tol from it (matched) and one ulp
+        # further (new rings), past the prefix as well as inside it.
+        stream = _tol_stream(tol, [-10.0, 0.0, 10.0])
+        alpha = np.concatenate([stream, np.full(CHUNK, -30.0, F32), stream,
+                                -stream])
+        valid = np.ones(len(alpha), bool)
+        valid[len(stream):len(stream) + CHUNK:2] = False
+        _, count = _check_discover(alpha, valid, tol, 128,
+                                   chunks=(CHUNK, 32))
+        assert count > 8
+
+    def test_rule_is_the_greedy_at_any_chunk(self):
+        valid, alpha = _scan64(True)
+        for chunk in (32, 96, 1024):
+            got, _ = _discover_model(alpha, valid, 0.18, 64, 100, chunk)
+            want, _ = _discover_model(alpha, valid, 0.18, 64, 0, CHUNK)
+            np.testing.assert_array_equal(_bits(got), _bits(want))
+
+
+class TestAssignRule:
+    """K3's bisection of the sorted table equals the first match."""
+
+    @pytest.mark.parametrize("rings", [24, 64, 128])
+    def test_discovered_tables(self, rings):
+        valid, alpha, cfg = _alphas((rings, rings + 1), merged=rings > 64)
+        for k in range(2):
+            table = np.asarray(jgeo.discover_rings(
+                jnp.asarray(alpha[k]), jnp.asarray(valid[k]), cfg.interval,
+                rings=rings)[0])
+            got = _check_assign(alpha[k], valid[k], table, cfg.interval)
+            assert (got[valid[k]] < rings).any()
+
+    @pytest.mark.parametrize("tol", [0.18, 0.25])
+    def test_entries_exactly_tol_away(self, tol):
+        table = np.concatenate([np.asarray([-10.0, 0.0, 10.0], F32),
+                                np.full(61, np.inf, F32)])
+        alpha = _tol_stream(tol, [-10.0, 0.0, 10.0])
+        alpha = np.concatenate([alpha, -alpha, alpha + F32(0.5)])
+        got = _check_assign(alpha, np.ones(len(alpha), bool), table, tol)
+        assert (got < 3).any() and (got == 64).any()
+        # From the entry 0.0: exactly tol away matches, one ulp further
+        # does not, one ulp nearer does.
+        assert got[9] == 1 and got[10] == 64 and got[11] == 1
+
+    def test_nan_tables(self):
+        # A table whose later entries are NaN (a NaN-angle ring) and an
+        # all-NaN table; NaN alphas match nothing.
+        _, alpha = _scan64()
+        alpha = alpha.copy()
+        alpha[::97] = np.nan
+        valid = np.ones(len(alpha), bool)
+        part = _sorted(np.concatenate([alpha[1:6], np.full(59, np.nan, F32)]))
+        got = _check_assign(alpha, valid, part, 0.18)
+        assert (got < 5).any() and (got[::97] == 64).all()
+        got = _check_assign(alpha, valid, np.full(64, np.nan, F32), 0.18)
+        assert (got == 64).all()
+
+    @pytest.mark.parametrize("rings", [1, 24])
+    def test_empty_tables(self, rings):
+        _, alpha = _scan64()
+        got = _check_assign(alpha, np.ones(len(alpha), bool),
+                            np.full(rings, np.inf, F32), 0.18)
+        assert (got == rings).all()
+
+    def test_ragged_and_invalid(self):
+        valid, alpha = _scan64()
+        table, _ = _discover_model(alpha, valid, 0.18, 64, CHUNK)
+        got = _check_assign(alpha[:8189], valid[:8189], table, 0.18)
+        assert (got[~valid[:8189]] == 64).all()
+
+
+@st.composite
+def _clustered(draw):
+    """A small scan: a few angle clusters (ring angles with a little
+    spread), some NaN angles and invalid points, in a random order."""
+    n = draw(st.sampled_from([37, 64, 200]))
+    rng = np.random.default_rng(draw(st.integers(0, 2 ** 32 - 1)))
+    centres = rng.uniform(-25.0, 5.0, draw(st.integers(1, 6)))
+    spread = draw(st.sampled_from([0.0, 0.05, 0.2]))
+    alpha = (centres[rng.integers(0, len(centres), n)]
+             + rng.normal(0.0, spread, n)).astype(F32)
+    alpha[rng.random(n) < draw(st.sampled_from([0.0, 0.02]))] = np.nan
+    valid = rng.random(n) < draw(st.sampled_from([1.0, 0.7]))
+    return alpha, valid
+
+
+@settings(max_examples=40, deadline=None, database=None, derandomize=True)
+@given(_clustered(), st.sampled_from([0.18, 0.25, 0.0, -0.1]),
+       st.sampled_from([1, 4, 16]), st.sampled_from([32, 64, CHUNK]))
+def test_discover_rule_property(scan, interval, rings, chunk):
+    alpha, valid = scan
+    _check_discover(alpha, valid, interval, rings, chunks=(chunk,))
+
+
+@settings(max_examples=40, deadline=None, database=None, derandomize=True)
+@given(_clustered(), st.sampled_from([0.18, 0.25, 0.0]),
+       st.sampled_from([1, 4, 16]))
+def test_assign_rule_property(scan, interval, rings):
+    alpha, valid = scan
+    table = np.asarray(jgeo.discover_rings(
+        jnp.asarray(alpha), jnp.asarray(valid), interval, rings=rings)[0])
+    _check_assign(alpha, valid, table, interval)

@@ -2,7 +2,9 @@
 
 Needs a CUDA device (skips without one).  The same checks as phase 2 of
 chip_smoke.py at small shapes: every kernel output bit-equal to its twin's
-on the same CUDA tensors.  Run on a machine with the card (tests/conftest.py
+on the same CUDA tensors; ring discovery (K2) and assignment (K3) also at
+full size (131072 points at B = 1 and 128, 128 rings) on the inputs that
+stress their designs.  Run on a machine with the card (tests/conftest.py
 imports jax, which a GPU host without JAX skips with --noconftest):
 
     python -m pytest tests/test_torch_kernels_gpu.py -q -m gpu --noconftest
@@ -409,3 +411,167 @@ def test_sp_equals_process_scan(dev, cfg):
     want = process_scan(pts, cfg, dims)
     for g, w in zip(got, want):
         _assert_same((g,), (w,))
+
+
+# --- K2 and K3 on the inputs that stress their designs (csrc/ingest.cu) ---
+
+FULL = 131072  # an OS1-64 scan: 64 rings x 2048 azimuths
+
+
+def _scan_alpha(dev, ring_major=False, seed=0, n_az=2048, nan_at=()):
+    """(alpha, valid) of one 64-ring scan on the card, azimuth-major or
+    reordered ring-major (K2's worst case); NaN-angle points at nan_at
+    (FilterConfig(max_z=1.0) keeps them valid)."""
+    pts = make_scan(SCENES["two_curbs"](), n_rings=64, n_azimuth=n_az,
+                    seed=seed)
+    if ring_major:
+        pts = np.ascontiguousarray(
+            pts.reshape(n_az, 64, 4).transpose(1, 0, 2).reshape(-1, 4))
+    for i in nan_at:
+        pts[i] = (1e-25, 0.0, 0.0, 0.0)
+    x, y, z, _ = geometry.xyz_of(torch.from_numpy(pts).to(dev), "rows")
+    x, y, z = x.contiguous(), y.contiguous(), z.contiguous()
+    cfg = FilterConfig(max_z=1.0) if nan_at else FilterConfig()
+    _, alpha = geometry.vertical_angles(x, y, z)
+    return alpha, geometry.roi_mask_xyz(x, y, z, cfg)
+
+
+def _discover_vs_twin(alpha, valid, rings, interval=0.18):
+    """K2 against its twin: one launch, no torch.sort; returns (angles,
+    count, grid)."""
+    before = _build.launch_counts()["discover_rings"]
+    angles, count = ingest.discover_rings(alpha, valid, interval, rings)
+    assert _build.launch_counts()["discover_rings"] == before + 1
+    _assert_same((angles, count), ingest.discover_rings_plain(
+        alpha, valid, interval, rings))
+    return angles, count, ingest.last_grid["discover_rings"]
+
+
+def _assign_vs_twin(alpha, valid, angles, interval=0.18):
+    ring = ingest.assign_rings(alpha, valid, angles, interval)
+    _assert_same((ring,), (ingest.assign_rings_plain(
+        alpha, valid, angles, interval),))
+    return ring
+
+
+@pytest.mark.parametrize("ring_major", [False, True])
+def test_discover_b1_spreads_over_the_card(dev, ring_major, monkeypatch):
+    alpha, valid = _scan_alpha(dev, ring_major)
+
+    def no_sort(*a, **k):
+        raise AssertionError("discover_rings must not call torch.sort")
+
+    sort = torch.sort
+    monkeypatch.setattr(torch, "sort", no_sort)
+    angles, count = ingest.discover_rings(alpha[None], valid[None], 0.18, 64)
+    monkeypatch.setattr(torch, "sort", sort)
+    segs, b = ingest.last_grid["discover_rings"]
+    assert b == 1 and segs > 1  # more than one block for one scan
+    _assert_same((angles, count), ingest.discover_rings_plain(
+        alpha[None], valid[None], 0.18, 64))
+    assert int(count[0]) > 40
+    _assign_vs_twin(alpha[None], valid[None], angles)
+
+
+def test_discover_and_assign_b128(dev):
+    # 128 scans: azimuth-major and ring-major 64-ring scans, each rolled by
+    # its own offset so that every lane's greedy differs.
+    base = [_scan_alpha(dev, rm, seed=s) for s in (0, 1) for rm in (0, 1)]
+    alpha = torch.stack([torch.roll(base[k % 4][0], 997 * k)
+                         for k in range(128)])
+    valid = torch.stack([torch.roll(base[k % 4][1], 997 * k)
+                         for k in range(128)])
+    angles, count, grid = _discover_vs_twin(alpha, valid, 64)
+    assert grid[1] == 128 and int(count.min()) > 40
+    _assign_vs_twin(alpha, valid, angles)
+
+
+@pytest.mark.parametrize("nan_at", [(5,), (70000,), (5, 70000)])
+def test_discover_nan_inside_and_after_the_prefix(dev, nan_at):
+    alpha, valid = _scan_alpha(dev, nan_at=nan_at)
+    angles, count, _ = _discover_vs_twin(alpha[None], valid[None], 64)
+    assert int(count[0]) == 64 and bool(torch.isnan(angles[0, -1]))
+    ring = _assign_vs_twin(alpha[None], valid[None], angles)
+    assert all(int(ring[0, i]) == 64 for i in nan_at)
+
+
+@pytest.mark.parametrize("rings", [24, 64, 128])
+@pytest.mark.parametrize("n", [1000, FULL - 3, FULL])
+def test_discover_caps_and_ragged_lengths(dev, rings, n):
+    # rings = 24 reaches the cap in the prefix; n < P (1000) and n not a
+    # multiple of 32 or 4 (FULL - 3).
+    alpha, valid = _scan_alpha(dev)
+    a, v = alpha[None, :n].contiguous(), valid[None, :n].contiguous()
+    angles, count, _ = _discover_vs_twin(a, v, rings)
+    assert 10 < int(count[0]) <= rings
+    _assign_vs_twin(a, v, angles)
+    # The streams off K3's 16-byte alignment: one point in.
+    _assign_vs_twin(alpha[None, 1:n].contiguous(),
+                    valid[None, 1:n].contiguous(), angles)
+
+
+@pytest.mark.parametrize("n", [4097, FULL - 3, FULL])
+def test_discover_one_valid_point_at_the_end(dev, n):
+    alpha, _ = _scan_alpha(dev)
+    valid = torch.zeros((1, n), dtype=torch.bool, device=dev)
+    valid[0, -1] = True
+    angles, count, _ = _discover_vs_twin(alpha[None, :n].contiguous(),
+                                         valid, 64)
+    assert int(count[0]) == 1 and bool(torch.isinf(angles[0, 1:]).all())
+    angles, count, _ = _discover_vs_twin(alpha[None, :n].contiguous(),
+                                         valid & False, 64)
+    assert int(count[0]) == 0
+
+
+@pytest.mark.parametrize("tol", [0.18, 0.25])
+def test_tables_exactly_tol_away(dev, tol):
+    # Points exactly tol from an entry and one ulp either side; 128 rings.
+    t32 = np.float32(tol)
+    centres = np.linspace(-20.0, 20.0, 97).astype(np.float32)
+    centres[48] = 0.0
+    edges = np.concatenate([centres + t32, centres - t32]).astype(np.float32)
+    pts = np.concatenate([centres, edges, np.nextafter(edges, np.inf),
+                          np.nextafter(edges, -np.inf)]).astype(np.float32)
+    pts = np.resize(pts, FULL)
+    alpha = torch.from_numpy(pts).to(dev)[None]
+    valid = torch.ones_like(alpha, dtype=torch.bool)
+    angles, count, _ = _discover_vs_twin(alpha, valid, 128, tol)
+    assert int(count[0]) > 97
+    table = torch.full((1, 128), float("inf"), device=dev)
+    table[0, :97] = torch.from_numpy(centres).to(dev)
+    ring = _assign_vs_twin(alpha, valid, table, tol)
+    assert int((ring < 97).sum()) > 0 and int((ring == 128).sum()) > 0
+    _assign_vs_twin(alpha, valid, angles, tol)
+
+
+def test_assign_nan_and_empty_tables(dev):
+    alpha, valid = _scan_alpha(dev)
+    alpha = alpha.clone()
+    alpha[::97] = float("nan")
+    a, v = alpha[None], valid[None]
+    angles, _, _ = _discover_vs_twin(a, v, 64)
+    part = torch.sort(torch.cat([angles[0, :5], torch.full(
+        (59,), float("nan"), device=dev)])).values[None]
+    _assign_vs_twin(a, v, part)
+    ring = _assign_vs_twin(a, v, torch.full((1, 64), float("nan"),
+                                            device=dev))
+    assert bool((ring == 64).all())
+    ring = _assign_vs_twin(a, v, torch.full((1, 64), float("inf"),
+                                            device=dev))
+    assert bool((ring == 64).all())
+
+
+def test_assign_128_rings_b128(dev):
+    # K3 at 128 rings over a batch: the merged multi-LiDAR rig's tables.
+    cfg = FilterConfig()
+    rows = _merged_rows(dev, (70,))
+    x, y, z, _ = geometry.xyz_of(rows, "rows", batched=True)
+    valid = geometry.roi_mask_xyz(x, y, z, cfg)
+    _, alpha = geometry.vertical_angles(x, y, z)
+    angles, count, _ = _discover_vs_twin(alpha, valid, 128)
+    assert int(count[0]) > 64
+    k = torch.arange(128, device=dev)
+    ab = torch.stack([torch.roll(alpha[0], int(s)) for s in 4099 * k])
+    vb = torch.stack([torch.roll(valid[0], int(s)) for s in 4099 * k])
+    ring = _assign_vs_twin(ab, vb, angles.expand(128, 128).contiguous())
+    assert int(ring[vb].max()) >= 64

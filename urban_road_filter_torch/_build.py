@@ -66,9 +66,9 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
     "urf_ingest_prep": (_P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F,
-                        _F, _I, _P, _P, _P, _P, _P),
-    "urf_discover_rings": (_P, _P, _I, _I, _F, _I, _P, _P, _P),
-    "urf_assign_rings": (_P, _P, _P, _I, _I, _I, _F, _P, _P),
+                        _F, _I, _P, _P, _P, _P, _P, _P),
+    "urf_discover_rings": (_P, _P, _I, _I, _F, _I, _P, _P, _P, _P, _P),
+    "urf_assign_rings": (_P, _P, _P, _I, _I, _I, _F, _P, _P, _P),
     "urf_star_walk": (_P, _P, _P, _P, _I, _F, _F, _F, _I, _P, _P),
     "urf_group_rank": (_P, _I, _I, _P, _P, _P, _P),
     "urf_group_place": (_P, _P, _I, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P),

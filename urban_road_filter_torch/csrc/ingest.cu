@@ -7,19 +7,56 @@
 //     the float64 atan2 itself, rounded to f32 as the oracle bins.
 //   * discover_rings_pallas (K2).  On the TPU whole scans sat in VMEM
 //     (with a "wide" variant for 262k-point scans) and each of the <= 128
-//     rounds swept the scan.  A scan of 131072-262144 floats does not fit
-//     in shared memory, so here one block walks its scan in global memory
-//     once, in input order, keeping only the ring table in shared memory.
+//     rounds swept the scan.  Here the greedy is spread over every SM
+//     (below), with only the ring table in shared memory.
 //   * assign_rings_pallas (K3).  On the TPU an unrolled loop over the
-//     rings compared every point with every ring; here a thread stops at
-//     its point's first match.
+//     rings compared every point with every ring; here each point bisects
+//     the sorted table.
 //
-// What bounds them on Hopper.  K1 and K3 are memory streams: K1 reads 12
-// bytes and writes 9 per point, K3 reads 5 and writes 4, against a 512-byte
-// table in shared memory.  K2 is latency-bound: one block per scan walks
-// its points chunk by chunk, and a chunk that discovers a ring needs a
-// block-wide minimum before the next ring can be tested.  With B >= 128
-// scans the blocks fill the card's 132 SMs; at B = 1 one SM does the walk.
+// What bounds them on Hopper, and why the designs are exact.
+//   * K1 and K3 are memory streams: K1 reads 12 bytes and writes 9 per
+//     point; K3 reads 5 and writes 4 (per thread two float4s of alpha, 4
+//     valid bytes in one 32-bit load each, two int4 stores, with streaming
+//     cache hints), against a <= 1 KB table in shared memory.
+//   * K2, one launch with grid (S, B): S segments per scan, one wave of
+//     blocks (S = 124 for one 131072-point scan, 1 at B = 128).  Every
+//     block runs the greedy over its scan's first P = 4096 points (the
+//     prefix: the same table T in every block, no synchronisation between
+//     blocks), then marks the points of its own segment that match no
+//     entry of T in a bitmask (one ballot word per 32 points).  The last
+//     block of the scan to arrive (a __threadfence and an atomicAdd on a
+//     per-scan counter that the host entry point zeroes) compacts the
+//     marked points, chunk by chunk and in input order, into a list in
+//     shared memory, and continues the greedy from T over that list.
+//     Exact because a point that matches an entry of T never becomes a
+//     ring and never changes the table (the table only grows), so dropping
+//     it changes nothing; a valid NaN-angle point matches nothing, stays
+//     marked and fills the table as below.  The table is kept sorted
+//     throughout (the greedy's result does not depend on its order), so a
+//     point's test against it is K3's search and the output needs no sort.
+//     A round of the greedy lets warp 0 resolve the first 32 open points of
+//     the chunk in input order (each a ring unless it matches a ring found
+//     before it) and every thread drop its open points that match the
+//     round's new rings; once at most 256 points are open, warp 0 gathers
+//     them and resolves them alone.  Bound: the rounds, which are serial
+//     (a round costs ~2.5K cycles on the H100: two block barriers and warp
+//     0's scan, candidates and merge), and the prefix, which every block
+//     pays (~20K cycles for a scan in firing order).  A ring-major scan
+//     finds one ring a round, as the one-block walk did; scans whose rings
+//     first appear late (azimuth-sorted, merged sensors) leave many points
+//     marked, and the finishing block's list is most of the kernel's time.
+//   * K3: over a table sorted as K2 returns it (finite ascending, then
+//     +inf, then NaN), P(m) = !(fl(a - t_m) > tol) is false then true:
+//     rounding is monotone, so fl(a - t) does not grow with t, and +inf or
+//     NaN entries make P true.  Let lo be the first m with P true; every
+//     earlier entry has fl(a - t_m) > tol and does not match; if lo does
+//     not match, fl(a - t_lo) < -tol, or t_lo is +inf or NaN, or a is NaN,
+//     and no later entry can match either.  So the first match is lo if
+//     |fl(a - t_lo)| <= tol and there is none otherwise: at most 8 reads of
+//     the table instead of up to `rings`.  The table is padded with +inf to
+//     a power of two above `rings` (P stays monotone) and laid out with one
+//     skipped bank per 32 entries, so that the search's pivots of one level
+//     fall into different banks.  K2's tests use the same search.
 //
 // Semantics (held bit-equal against the plain twins in ops/ingest.py):
 //   * K1: the ROI compare chain of geometry.roi_mask_xyz with (x + y) + z
@@ -31,26 +68,40 @@
 //     that is valid and matches none of rings 0..k (|alpha - a| <= tol).
 //     A valid point whose alpha is NaN matches no ring, not even its own,
 //     so it is taken again in every later round: the table fills with NaN
-//     and the count becomes `rings`, as the oracle and the XLA loop give.
-//     The angles are written in discovery order, padded with +inf; the
-//     caller sorts the <= 128 of them.
+//     and the count becomes `rings`, as the oracle and the XLA loop give
+//     (likewise any point that does not match itself).  The angles are
+//     sorted as torch.sort sorts them: ascending, +inf padding, NaN last,
+//     bit patterns moved verbatim.
 //   * K3: the first ring, in ascending order, with |alpha - a| <= tol;
 //     `rings` for an invalid point or when nothing matches.
 
 #include <cuda_runtime.h>
-#include <limits.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace {
 
 constexpr int kStarRep = 360;
 constexpr int kMaxRings = 128;
+constexpr int kSearch = 2 * kMaxRings;            // padded table: a power
+constexpr int kSearchSlots = kSearch + kSearch / 32;  // of two > rings
 constexpr int kPrepThreads = 256;
 constexpr int kDiscoverThreads = 1024;
+constexpr int kWarps = kDiscoverThreads / 32;
 constexpr int kItems = 4;  // points per thread in a discovery chunk
-constexpr int kChunk = kDiscoverThreads * kItems;
+constexpr int kChunk = kDiscoverThreads * kItems;  // also the prefix, P
+constexpr int kFilterItems = 8;  // points per thread per filter step
+constexpr int kSmall = 256;  // open points one warp resolves on its own
+constexpr int kMinSegment = 1024;  // filter points per block, at least
+constexpr int kTileWords = kDiscoverThreads * 16;  // mask words per pass
+constexpr int kTileChunks = kTileWords * 32 / kChunk;
 constexpr int kAssignThreads = 256;
+constexpr int kAssignWaves = 2;
+constexpr unsigned kFull = 0xffffffffu;
 constexpr double kTwoPi = 6.283185307179586;
+
+static_assert(kWarps * kItems == 4 * 32, "4 segment words per lane");
+static_assert(kChunk % 32 == 0 && kMinSegment % 32 == 0, "whole words");
 
 struct Roi {
   float min_x, max_x, min_y, max_y, min_z, max_z;
@@ -100,103 +151,598 @@ __global__ void ingest_prep_kernel(const float* __restrict__ x,
   if (threadIdx.x == 0 && cnt > 0) atomicAdd(&piece[b], cnt);
 }
 
-// Block-wide minimum of v; every thread gets it.  Uses red[0..32].
-__device__ int block_min(int v, int* red) {
+__device__ __forceinline__ bool matches(float a, float t, float tol) {
+  return fabsf(__fsub_rn(a, t)) <= tol;
+}
+
+// The slot of sorted-table entry m: one bank skipped per 32 entries, so
+// that the pivots of one level of a search fall into different banks.
+__device__ __forceinline__ int slot(int m) { return m + (m >> 5); }
+
+// The smallest power of two above `rings`: the search's padded size.
+__device__ __forceinline__ int search_size(int rings) {
+  int p = 1;
+  while (p <= rings) p <<= 1;
+  return p;
+}
+
+// K3's search (header), for kN points at once: over the sorted table
+// padded with +inf to `size` entries, lo[j] = the number of leading
+// entries with fl(a - t) > tol; the first match is lo[j] if it matches.
+template <int kN>
+__device__ __forceinline__ void search(const float (&a)[kN], const float* t,
+                                       int size, float tol, int (&lo)[kN]) {
+#pragma unroll
+  for (int j = 0; j < kN; ++j) lo[j] = 0;
+  for (int step = size >> 1; step > 0; step >>= 1) {
+#pragma unroll
+    for (int j = 0; j < kN; ++j)
+      if (__fsub_rn(a[j], t[slot(lo[j] + step - 1)]) > tol) lo[j] += step;
+  }
+}
+
+__device__ __forceinline__ int first_match(float a, const float* t, int size,
+                                           int rings, float tol) {
+  float aa[1] = {a};
+  int lo[1];
+  search<1>(aa, t, size, tol, lo);
+  return (lo[0] < rings && matches(a, t[slot(lo[0])], tol)) ? lo[0] : rings;
+}
+
+// One block's ring table and round state, in shared memory.  The table
+// is kept sorted (search layout, +inf beyond its n entries): the greedy's
+// result does not depend on the order of its table, so every membership
+// test is one search and the output needs no sort.
+struct Rings {
+  // The chunk's alphas (prefix), or the finishing block's compacted open
+  // points (up to two chunks' worth), for the resolving warp.
+  float stage[2 * kChunk];
+  float s[kSearchSlots];
+  float fresh[32];  // the entries the last round added
+  float list[kSmall];  // a chunk's few open points, in input order
+  int cand[32];     // that round's candidates, by stage index
+  unsigned seg[kItems * 32];  // open points per (item, warp) segment
+  int off[kItems * 32];       // each segment's first slot in list/stage
+  unsigned chunks[kTileChunks / 32];  // chunks of a tile with open points
+  float fill;       // the ring that matched nothing, itself included
+  int n;            // entries in s
+  int nf;           // entries the last round added
+  int done;         // the table is full (the cap, or a fill)
+  int filled;       // fill took the table's remaining rounds
+  int last;         // this block finishes its scan
+  int small;        // the chunk's open count when warp 0 takes them all
+  int count;        // compacted points in stage
+};
+
+// Warp 0: the open counts of segment words 4 lane .. 4 lane + 3 (in
+// input order) and their exclusive prefix over the chunk; returns it and
+// sets total.
+__device__ __forceinline__ int word_prefix(const unsigned (&w)[kItems],
+                                           int& total) {
+  const int lane = threadIdx.x & 31;
+  int cnt = 0;
+#pragma unroll
+  for (int q = 0; q < kItems; ++q) cnt += __popc(w[q]);
+  int pre = cnt;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int v = __shfl_up_sync(kFull, pre, d);
+    if (lane >= d) pre += v;
+  }
+  total = __shfl_sync(kFull, pre, 31);
+  return pre - cnt;
+}
+
+// Warp 0: merges the new entries av of the lanes in acc (distinct, and
+// distinct from the table's) into the sorted table of n entries and
+// lists them in sh.fresh.  An old entry moves up by the new ones below
+// it; a new one lands after the old ones below it and the new ones below
+// it.  Returns the new count.
+__device__ int merge(Rings& sh, float av, unsigned acc, int n) {
+  const int lane = threadIdx.x & 31;
+  const int nf = __popc(acc);
+  const bool mine = (acc >> lane) & 1u;
+  float old[kMaxRings / 32];
+  int shift[kMaxRings / 32];
+#pragma unroll
+  for (int q = 0; q < kMaxRings / 32; ++q) {
+    old[q] = lane + 32 * q < n ? sh.s[slot(lane + 32 * q)] : 0.0f;
+    shift[q] = 0;
+  }
+  // A new entry's count of old entries below it: a warp sum per entry
+  // when one or two are new, else one search of the old table.
+  const bool few = nf <= 2;
+  int below = 0, pos = 0;
+  for (unsigned it = acc; it != 0u; it &= it - 1u) {
+    const int r = __ffs((int)it) - 1;
+    const float v = __shfl_sync(kFull, av, r);
+    below += v < av;
+    int under = 0;
+#pragma unroll
+    for (int q = 0; q < kMaxRings / 32; ++q) {
+      shift[q] += v < old[q];
+      under += lane + 32 * q < n && old[q] < v;
+    }
+    if (few) {
+      under = __reduce_add_sync(kFull, under);
+      if (lane == r) pos = under;
+    }
+  }
+  if (!few && mine)
+    for (int step = kSearch >> 1; step > 0; step >>= 1)
+      if (sh.s[slot(pos + step - 1)] < av) pos += step;
+  __syncwarp();
+#pragma unroll
+  for (int q = 0; q < kMaxRings / 32; ++q)
+    if (lane + 32 * q < n) sh.s[slot(lane + 32 * q + shift[q])] = old[q];
+  if (mine) {
+    sh.s[slot(pos + below)] = av;
+    sh.fresh[below] = av;
+  }
+  __syncwarp();
+  return n + nf;
+}
+
+// Warp 0's part of a round: the first 32 open points of the chunk in
+// input order (from the segment ballots) are resolved in order, each a
+// ring unless it matches a ring found before it; the new rings are merged
+// into the sorted table.  A ring that does not match itself (a NaN angle)
+// is the first open point of every later round: it fills the table.
+__device__ void resolve(Rings& sh, const float* stage, int rings,
+                        float tol) {
+  const int lane = threadIdx.x & 31;
+  // Segment word q = j * 32 + warp holds points j * kDiscoverThreads + warp
+  // * 32 + bit of the chunk, so the words in order are the points in order;
+  // lane l holds words 4l..4l+3.
+  unsigned w[kItems];
+#pragma unroll
+  for (int q = 0; q < kItems; ++q) w[q] = sh.seg[lane * kItems + q];
+  int total;
+  int pre = word_prefix(w, total);
+  if (total <= kSmall) {  // warp 0 takes them all: where each segment goes
+#pragma unroll
+    for (int q = 0; q < kItems; ++q) {
+      sh.off[lane * kItems + q] = pre;
+      pre += __popc(w[q]);
+    }
+    if (lane == 0) sh.small = total;
+    return;
+  }
+  if (lane == 0) sh.small = 0;
+  // The first 32 open points' positions (word * 32 + bit = j *
+  // kDiscoverThreads + warp * 32 + bit: their index in the stage), in
+  // order.
+#pragma unroll
+  for (int q = 0; q < kItems; ++q) {
+    const int word = lane * kItems + q;
+    for (unsigned x = w[q]; x != 0u && pre < 32; x &= x - 1u)
+      sh.cand[pre++] = word * 32 + __ffs((int)x) - 1;
+  }
+  __syncwarp();
+  const int nc = min(total, 32);
+  const float av = lane < nc ? stage[sh.cand[lane]] : 0.0f;
+  unsigned todo = nc == 32 ? kFull : (1u << nc) - 1u;
+  unsigned acc = 0u;
+  const int n = sh.n;
+  int nf = 0;
+  bool filled = false;
+  float fill = 0.0f;
+  while (todo != 0u && n + nf < rings) {
+    const int r = __ffs((int)todo) - 1;
+    const float v = __shfl_sync(kFull, av, r);
+    if (!matches(v, v, tol)) {
+      filled = true;
+      fill = v;
+      break;
+    }
+    acc |= 1u << r;
+    ++nf;
+    todo &= ~__ballot_sync(kFull, ((todo >> lane) & 1u) &&
+                                      matches(av, v, tol));
+  }
+  merge(sh, av, acc, n);
+  if (lane == 0) {
+    sh.n = n + nf;
+    sh.nf = nf;
+    sh.done = filled || n + nf >= rings;
+    if (filled) {
+      sh.filled = 1;
+      sh.fill = fill;
+    }
+  }
+}
+
+// Warp 0's greedy over the chunk's last few open points, gathered in input
+// order in sh.list: each is a ring unless it matches a ring found before
+// it.  Resolves the chunk.
+__device__ void resolve_small(Rings& sh, int total, int rings, float tol) {
+  constexpr int kPer = kSmall / 32;
+  const int lane = threadIdx.x & 31;
+  float a[kPer];
+  bool open[kPer];
+#pragma unroll
+  for (int m = 0; m < kPer; ++m) {
+    open[m] = m * 32 + lane < total;
+    a[m] = open[m] ? sh.list[m * 32 + lane] : 0.0f;
+  }
+  int n = sh.n, nb = 0;
+  unsigned acc = 0u;
+  float batch = 0.0f;  // lane c holds the batch's c-th new entry
+  bool filled = false;
+  float fill = 0.0f;
+  while (n + nb < rings) {
+    int r = -1;
+#pragma unroll
+    for (int m = kPer - 1; m >= 0; --m) {
+      const unsigned b = __ballot_sync(kFull, open[m]);
+      if (b != 0u) r = m * 32 + __ffs((int)b) - 1;
+    }
+    if (r < 0) break;
+    const float v = sh.list[r];
+    if (!matches(v, v, tol)) {
+      filled = true;
+      fill = v;
+      break;
+    }
+    if (lane == nb) batch = v;
+    acc |= 1u << nb;
+#pragma unroll
+    for (int m = 0; m < kPer; ++m) open[m] = open[m] && !matches(a[m], v, tol);
+    if (++nb == 32) {
+      n = merge(sh, batch, acc, n);
+      acc = 0u;
+      nb = 0;
+    }
+  }
+  if (nb > 0) n = merge(sh, batch, acc, n);
+  if (lane == 0) {
+    sh.n = n;
+    if (filled) {
+      sh.filled = 1;
+      sh.fill = fill;
+    }
+  }
+}
+
+// The greedy over one chunk of kChunk points, kItems per thread (item j of
+// thread t is point j * kDiscoverThreads + t of the chunk), whose alphas
+// are staged in stage and whose open flags already exclude every point
+// matching the table.  Round by round, warp 0 resolves the first 32 open
+// points and every thread drops its open points that match the round's
+// new rings.  Call only while the table is not full.
+__device__ __forceinline__ void greedy_chunk(const float (&a)[kItems],
+                                             bool (&open)[kItems], Rings& sh,
+                                             const float* stage, int size,
+                                             int rings, float tol) {
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  v = __reduce_min_sync(0xffffffffu, v);
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  if (warp == 0) {
-    int w = lane < (int)(blockDim.x >> 5) ? red[lane] : INT_MAX;
-    w = __reduce_min_sync(0xffffffffu, w);
-    if (lane == 0) red[32] = w;
-  }
-  __syncthreads();
-  const int out = red[32];
-  __syncthreads();  // red is reused by the next call
-  return out;
-}
-
-// One block of kDiscoverThreads per scan.  Each chunk of kChunk points is
-// held in registers (kItems per thread, neighbouring threads on
-// neighbouring points); a point is open while it is valid and matches no
-// ring found so far.  While the chunk has an open point, the first one in
-// input order becomes the next ring and the open points are tested against
-// it.  The table and the count k are the same in every thread.
-__global__ void discover_kernel(const float* __restrict__ alpha,
-                                const bool* __restrict__ valid, int n,
-                                float tol, int rings,
-                                float* __restrict__ angles,
-                                int* __restrict__ count) {
-  __shared__ float table[kMaxRings];
-  __shared__ int red[33];
-  const int b = blockIdx.x;
-  const float* a_scan = alpha + (size_t)b * n;
-  const bool* v_scan = valid + (size_t)b * n;
-  int k = 0;
-  for (int base = 0; base < n && k < rings; base += kChunk) {
-    float a[kItems];
-    bool open[kItems];
+  while (true) {
+    bool any = false;
 #pragma unroll
     for (int j = 0; j < kItems; ++j) {
-      const int i = base + j * kDiscoverThreads + threadIdx.x;
-      open[j] = i < n && v_scan[i];
-      a[j] = open[j] ? a_scan[i] : 0.0f;
-      for (int m = 0; m < k && open[j]; ++m)
-        if (fabsf(__fsub_rn(a[j], table[m])) <= tol) open[j] = false;
+      const unsigned word = __ballot_sync(kFull, open[j]);
+      if (lane == 0) sh.seg[j * 32 + warp] = word;
+      any |= open[j];
     }
-    while (k < rings) {
-      int mine = INT_MAX;
+    if (!__syncthreads_or(any)) return;
+    if (warp == 0) resolve(sh, stage, rings, tol);
+    __syncthreads();
+    if (const int small = sh.small) {  // gather them in order; warp 0 ends
 #pragma unroll
-      for (int j = kItems - 1; j >= 0; --j)
-        if (open[j]) mine = base + j * kDiscoverThreads + threadIdx.x;
-      if (!__syncthreads_or(mine != INT_MAX)) break;
-      const int first = block_min(mine, red);
-#pragma unroll
-      for (int j = 0; j < kItems; ++j)
-        if (base + j * kDiscoverThreads + threadIdx.x == first)
-          table[k] = a[j];
+      for (int j = 0; j < kItems; ++j) {
+        const unsigned word = __ballot_sync(kFull, open[j]);
+        if (open[j])
+          sh.list[sh.off[j * 32 + warp] +
+                  __popc(word & ((1u << lane) - 1u))] = a[j];
+      }
       __syncthreads();
-      const float na = table[k];
-      ++k;
+      if (warp == 0) resolve_small(sh, small, rings, tol);
+      __syncthreads();
+      return;
+    }
+    if (sh.done) return;
+    if (!__any_sync(kFull, any)) continue;
+    const int nf = sh.nf;
+    if (nf <= 8) {
+      for (int m = 0; m < nf; ++m) {
+        const float t = sh.fresh[m];
+#pragma unroll
+        for (int j = 0; j < kItems; ++j)
+          open[j] = open[j] && !matches(a[j], t, tol);
+      }
+    } else {  // the table now holds them: one search per point
+      int lo[kItems];
+      search<kItems>(a, sh.s, size, tol, lo);
 #pragma unroll
       for (int j = 0; j < kItems; ++j)
-        if (open[j] && fabsf(__fsub_rn(a[j], na)) <= tol) open[j] = false;
+        open[j] = open[j] && !matches(a[j], sh.s[slot(lo[j])], tol);
     }
   }
-  for (int m = threadIdx.x; m < rings; m += blockDim.x)
-    angles[(size_t)b * rings + m] = m < k ? table[m] : INFINITY;
-  if (threadIdx.x == 0) count[b] = k;
 }
 
-// One thread per point; grid (ceil(n / kAssignThreads), B).  The scan's
-// sorted table is staged in shared memory and read as a broadcast.
-__global__ void assign_kernel(const float* __restrict__ alpha,
-                              const bool* __restrict__ valid,
-                              const float* __restrict__ angles, int n,
-                              int rings, float tol, int* __restrict__ ring) {
-  __shared__ float table[kMaxRings];
-  const int b = blockIdx.y;
-  for (int m = threadIdx.x; m < rings; m += blockDim.x)
-    table[m] = angles[(size_t)b * rings + m];
-  __syncthreads();
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const size_t o = (size_t)b * n + i;
-  int r = rings;
-  if (valid[o]) {
-    const float a = alpha[o];
-    for (int m = 0; m < rings; ++m)
-      if (fabsf(__fsub_rn(a, table[m])) <= tol) {
-        r = m;
-        break;
-      }
+// The finishing block's greedy over the list of marked points compacted
+// in sh.stage (input order), a chunk at a time: each point is first
+// tested against the whole table (it matched none of T's entries).
+__device__ __forceinline__ void finish_list(Rings& sh, int list, int size,
+                                            int rings, float tol) {
+  for (int p0 = 0; p0 < list && !sh.filled && sh.n < rings; p0 += kChunk) {
+    float a[kItems];
+    bool open[kItems];
+    bool any = false;
+#pragma unroll
+    for (int j = 0; j < kItems; ++j) {
+      const int p = p0 + j * kDiscoverThreads + threadIdx.x;
+      open[j] = p < list;
+      a[j] = open[j] ? sh.stage[p] : 0.0f;
+      any |= open[j];
+    }
+    if (__any_sync(kFull, any)) {
+      int lo[kItems];
+      search<kItems>(a, sh.s, size, tol, lo);
+#pragma unroll
+      for (int j = 0; j < kItems; ++j)
+        open[j] = open[j] && !(lo[j] < sh.n &&
+                               matches(a[j], sh.s[slot(lo[j])], tol));
+    }
+    greedy_chunk(a, open, sh, sh.stage + p0, size, rings, tol);
   }
-  ring[o] = r;
+}
+
+// Grid (S, B): block (s, b) runs the prefix greedy over scan b's first
+// kChunk points, marks the open points of segment s (points kChunk + s *
+// seg_len onwards) in mask, and the last block of scan b to arrive walks
+// the marks and writes the sorted table and the count.  mask holds
+// ceil(n / 32) words per scan; arrive one zeroed counter per scan.
+__global__ void __launch_bounds__(kDiscoverThreads, 1)
+    discover_kernel(const float* __restrict__ alpha,
+                    const bool* __restrict__ valid, int n, float tol,
+                    int rings, int seg_len, unsigned* mask, int* arrive,
+                    float* __restrict__ angles, int* __restrict__ count) {
+  __shared__ Rings sh;
+  const int b = blockIdx.y;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const float* a_scan = alpha + (size_t)b * n;
+  const bool* v_scan = valid + (size_t)b * n;
+  const int words = (n + 31) >> 5;
+  unsigned* m_scan = mask + (size_t)b * words;
+  const int size = search_size(rings);
+  for (int m = threadIdx.x; m < kSearchSlots; m += blockDim.x)
+    sh.s[m] = INFINITY;
+  if (threadIdx.x == 0) {
+    sh.n = 0;
+    sh.filled = 0;
+  }
+
+  // 1. The prefix.
+  float a[kItems];
+  bool open[kItems];
+#pragma unroll
+  for (int j = 0; j < kItems; ++j) {
+    const int i = j * kDiscoverThreads + threadIdx.x;
+    open[j] = i < n && v_scan[i];
+    a[j] = i < n ? a_scan[i] : 0.0f;
+    sh.stage[i] = a[j];
+  }
+  __syncthreads();
+  if (rings > 0) greedy_chunk(a, open, sh, sh.stage, size, rings, tol);
+  const int k_prefix = sh.n;
+
+  // 2. The filter: segment s against the prefix's table T.
+  if (!sh.filled && k_prefix < rings) {
+    const long long lo = kChunk + (long long)blockIdx.x * seg_len;
+    const int hi = (int)min((long long)n, lo + seg_len);
+    for (int base = (int)min(lo, (long long)hi); base < hi;
+         base += kDiscoverThreads * kFilterItems) {
+      bool o[kFilterItems];
+      float av[kFilterItems];
+#pragma unroll
+      for (int j = 0; j < kFilterItems; ++j) {
+        const int i = base + j * kDiscoverThreads + threadIdx.x;
+        o[j] = i < hi && v_scan[i];
+        av[j] = i < hi ? a_scan[i] : 0.0f;
+      }
+      int at[kFilterItems];
+      search<kFilterItems>(av, sh.s, size, tol, at);
+#pragma unroll
+      for (int j = 0; j < kFilterItems; ++j) {
+        const int w0 = base + j * kDiscoverThreads + warp * 32;
+        const bool keep = o[j] && !(at[j] < k_prefix &&
+                                    matches(av[j], sh.s[slot(at[j])], tol));
+        const unsigned word = __ballot_sync(kFull, keep);
+        if (lane == 0 && w0 < hi) m_scan[w0 >> 5] = word;
+      }
+    }
+  }
+
+  // 3. The last block of the scan finishes it.
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0)
+    sh.last = atomicAdd(&arrive[b], 1) == (int)gridDim.x - 1;
+  __syncthreads();
+  if (!sh.last) return;
+  __threadfence();
+  int list = 0;  // marked points compacted into sh.stage, not yet resolved
+  for (int t0 = kChunk / 32; t0 < words && !sh.filled && sh.n < rings;
+       t0 += kTileWords) {
+    // Which chunks of this tile hold an open point (a warp's words of one
+    // load all lie in one chunk).
+    if (threadIdx.x < kTileChunks / 32) sh.chunks[threadIdx.x] = 0u;
+    __syncthreads();
+    unsigned tile[kTileWords / kDiscoverThreads];
+#pragma unroll
+    for (int q = 0; q < kTileWords / kDiscoverThreads; ++q) {
+      const int w = t0 + q * kDiscoverThreads + threadIdx.x;
+      tile[q] = __ldcg(m_scan + min(w, words - 1)) * (w < words);
+    }
+#pragma unroll
+    for (int q = 0; q < kTileWords / kDiscoverThreads; ++q) {
+      const int c = (q * kDiscoverThreads + threadIdx.x) / (kChunk / 32);
+      if (__any_sync(kFull, tile[q] != 0u) && lane == 0)
+        atomicOr(&sh.chunks[c >> 5], 1u << (c & 31));
+    }
+    __syncthreads();
+    for (int cw = 0; cw < kTileChunks / 32; ++cw) {
+      for (unsigned cbits = sh.chunks[cw]; cbits != 0u; cbits &= cbits - 1u) {
+        if (sh.filled || sh.n >= rings) break;
+        // Append the chunk's marked points to the list, in input order.
+        const int base =
+            (t0 + (cw * 32 + __ffs((int)cbits) - 1) * (kChunk / 32)) * 32;
+        unsigned word[kItems];
+#pragma unroll
+        for (int j = 0; j < kItems; ++j) {
+          const int i = base + j * kDiscoverThreads + threadIdx.x;
+          word[j] = i < n ? __ldcg(m_scan + (i >> 5)) : 0u;
+          a[j] = i < n ? a_scan[i] : 0.0f;
+          if (lane == 0) sh.seg[j * 32 + warp] = word[j];
+        }
+        __syncthreads();
+        if (warp == 0) {
+          unsigned w[kItems];
+#pragma unroll
+          for (int q = 0; q < kItems; ++q) w[q] = sh.seg[lane * kItems + q];
+          int total;
+          int pre = list + word_prefix(w, total);
+#pragma unroll
+          for (int q = 0; q < kItems; ++q) {
+            sh.off[lane * kItems + q] = pre;
+            pre += __popc(w[q]);
+          }
+          if (lane == 0) sh.count = list + total;
+        }
+        __syncthreads();
+#pragma unroll
+        for (int j = 0; j < kItems; ++j)
+          if ((word[j] >> lane) & 1u)
+            sh.stage[sh.off[j * 32 + warp] +
+                     __popc(word[j] & ((1u << lane) - 1u))] = a[j];
+        list = sh.count;
+        __syncthreads();
+        if (list >= kChunk) {
+          finish_list(sh, list, size, rings, tol);
+          list = 0;
+        }
+      }
+    }
+    __syncthreads();
+  }
+  if (list > 0 && !sh.filled && sh.n < rings)
+    finish_list(sh, list, size, rings, tol);
+
+  // The sorted table, with the fill's copies where they sort (NaN last,
+  // +inf after the finite entries, anything else first).
+  const int ns = sh.n;
+  const int nfill = sh.filled ? rings - ns : 0;
+  const float fv = sh.fill;
+  const int at = nfill > 0 && (isnan(fv) || fv > 0.0f) ? ns : 0;
+  for (int m = threadIdx.x; m < rings; m += blockDim.x)
+    angles[(size_t)b * rings + m] =
+        m < at ? sh.s[slot(m)]
+               : m < at + nfill ? fv
+                                : (m - nfill < ns ? sh.s[slot(m - nfill)]
+                                                  : INFINITY);
+  if (threadIdx.x == 0) count[b] = ns + nfill;
+}
+
+// Grid (X, B), a few waves of blocks striding over each scan.  The scan's
+// sorted table is staged in shared memory in the padded search layout.
+// Each thread takes 4 points at a time: a float4 of alpha, the 4 valid
+// bytes in one 32-bit load, an int4 store; a head before the first common
+// 16-byte boundary of the streams, and the tail, point by point (the whole
+// scan when the streams share no such boundary).
+__global__ void __launch_bounds__(kAssignThreads)
+    assign_kernel(const float* __restrict__ alpha,
+                  const bool* __restrict__ valid,
+                  const float* __restrict__ angles, int n, int rings,
+                  float tol, int* __restrict__ ring) {
+  __shared__ float table[kSearchSlots];
+  const int b = blockIdx.y;
+  const int size = search_size(rings);
+  for (int m = threadIdx.x; m < size; m += blockDim.x)
+    table[slot(m)] = m < rings ? angles[(size_t)b * rings + m] : INFINITY;
+  __syncthreads();
+  const float* a = alpha + (size_t)b * n;
+  const bool* v = valid + (size_t)b * n;
+  int* out = ring + (size_t)b * n;
+  const uintptr_t pa = (uintptr_t)a, pv = (uintptr_t)v, po = (uintptr_t)out;
+  const int head_a = (int)(((16u - (pa & 15u)) & 15u) >> 2);
+  const bool vec = (pa & 3u) == 0 && (po & 3u) == 0 &&
+                   head_a == (int)(((16u - (po & 15u)) & 15u) >> 2) &&
+                   head_a == (int)((4u - (pv & 3u)) & 3u);
+  const int head = vec ? min(head_a, n) : n;
+  const int nvec = (n - head) >> 2;
+  const int stride = gridDim.x * blockDim.x;
+  const int tid = blockIdx.x * blockDim.x + threadIdx.x;
+  // Two vectors a thread per step, their loads in flight together; the
+  // streams are read and written once (streaming cache hints).
+  for (int q = tid; q < nvec; q += 2 * stride) {
+    float4 a4[2];
+    unsigned v4[2];
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int i = head + 4 * min(q + u * stride, nvec - 1);
+      a4[u] = __ldcs(reinterpret_cast<const float4*>(a + i));
+      v4[u] = __ldcs(reinterpret_cast<const unsigned*>(v + i));
+    }
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      if (q + u * stride >= nvec) break;
+      const float pts[4] = {a4[u].x, a4[u].y, a4[u].z, a4[u].w};
+      int lo[4];
+      search<4>(pts, table, size, tol, lo);
+      int r[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        r[e] = ((v4[u] >> (8 * e)) & 0xffu) && lo[e] < rings &&
+                       matches(pts[e], table[slot(lo[e])], tol)
+                   ? lo[e]
+                   : rings;
+      __stcs(reinterpret_cast<int4*>(out + head + 4 * (q + u * stride)),
+             make_int4(r[0], r[1], r[2], r[3]));
+    }
+  }
+  // Point by point: [0, head), then [head + 4 nvec, n).
+  for (int s = tid; s < n - 4 * nvec; s += stride) {
+    const int i = s < head ? s : s + 4 * nvec;
+    out[i] = v[i] ? first_match(a[i], table, size, rings, tol) : rings;
+  }
+}
+
+// SM count and resident blocks per SM of the two kernels, per device.
+struct Fill {
+  int sms = 0, discover_per_sm = 1, assign_per_sm = 1;
+};
+
+Fill fill_of_current_device() {
+  static Fill cache[64];
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64)
+    return Fill{1, 1, 1};
+  Fill& f = cache[dev];
+  if (f.sms == 0) {
+    Fill g;
+    if (cudaDeviceGetAttribute(&g.sms, cudaDevAttrMultiProcessorCount,
+                               dev) != cudaSuccess || g.sms < 1)
+      g.sms = 1;
+    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &g.discover_per_sm, discover_kernel, kDiscoverThreads, 0) !=
+            cudaSuccess || g.discover_per_sm < 1)
+      g.discover_per_sm = 1;
+    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &g.assign_per_sm, assign_kernel, kAssignThreads, 0) !=
+            cudaSuccess || g.assign_per_sm < 1)
+      g.assign_per_sm = 1;
+    cudaGetLastError();  // a failed query must not fail the launch
+    f = g;
+  }
+  return f;
 }
 
 }  // namespace
+
+// Each entry point writes the grid it launched to grid[0..2) (x, y), or
+// zeros when it launched nothing.
 
 extern "C" int urf_ingest_prep(const float* x, const float* y, const float* z,
                                int b, int n, int scan_stride,
@@ -204,35 +750,70 @@ extern "C" int urf_ingest_prep(const float* x, const float* y, const float* z,
                                float min_y, float max_y, float min_z,
                                float max_z, float kfi, int want_keys,
                                bool* valid, int* fk, float* r_key, int* piece,
-                               void* stream) {
+                               int* grid_out, void* stream) {
+  grid_out[0] = grid_out[1] = 0;
   if (b > 0 && n > 0) {
     const Roi roi = {min_x, max_x, min_y, max_y, min_z, max_z};
     const dim3 grid((n + kPrepThreads - 1) / kPrepThreads, b);
     ingest_prep_kernel<<<grid, kPrepThreads, 0, (cudaStream_t)stream>>>(
         x, y, z, scan_stride, point_stride, n, roi, kfi, want_keys, valid, fk,
         r_key, piece);
+    grid_out[0] = (int)grid.x;
+    grid_out[1] = (int)grid.y;
   }
   return (int)cudaGetLastError();
 }
 
+// scratch: b arrival counters, then b * ceil(n / 32) mask words.  The
+// counters are zeroed here, on the launch's stream.
 extern "C" int urf_discover_rings(const float* alpha, const bool* valid,
                                   int b, int n, float tol, int rings,
-                                  float* angles, int* count, void* stream) {
+                                  float* angles, int* count, int* scratch,
+                                  int* grid_out, void* stream) {
+  grid_out[0] = grid_out[1] = 0;
   if (rings > kMaxRings) return (int)cudaErrorInvalidValue;
-  if (b > 0)
-    discover_kernel<<<b, kDiscoverThreads, 0, (cudaStream_t)stream>>>(
-        alpha, valid, n, tol, rings, angles, count);
+  if (b <= 0) return (int)cudaGetLastError();
+  const cudaStream_t s = (cudaStream_t)stream;
+  int segs = 1;
+  long long seg_len = kMinSegment;
+  if (n > kChunk && rings > 0) {
+    const long long rest = (long long)n - kChunk;
+    const Fill f = fill_of_current_device();
+    const long long resident = (long long)f.sms * f.discover_per_sm;
+    const long long want = resident / b > 1 ? resident / b : 1;
+    const long long most = (rest + kMinSegment - 1) / kMinSegment;
+    const long long s0 = want < most ? want : most;
+    seg_len = ((rest + s0 - 1) / s0 + 31) / 32 * 32;
+    segs = (int)((rest + seg_len - 1) / seg_len);
+  }
+  cudaError_t err = cudaMemsetAsync(scratch, 0, sizeof(int) * (size_t)b, s);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(segs, b);
+  discover_kernel<<<grid, kDiscoverThreads, 0, s>>>(
+      alpha, valid, n, tol, rings, (int)seg_len,
+      reinterpret_cast<unsigned*>(scratch + b), scratch, angles, count);
+  grid_out[0] = (int)grid.x;
+  grid_out[1] = (int)grid.y;
   return (int)cudaGetLastError();
 }
 
 extern "C" int urf_assign_rings(const float* alpha, const bool* valid,
                                 const float* angles, int b, int n, int rings,
-                                float tol, int* ring, void* stream) {
+                                float tol, int* ring, int* grid_out,
+                                void* stream) {
+  grid_out[0] = grid_out[1] = 0;
   if (rings > kMaxRings) return (int)cudaErrorInvalidValue;
   if (b > 0 && n > 0) {
-    const dim3 grid((n + kAssignThreads - 1) / kAssignThreads, b);
+    const Fill f = fill_of_current_device();
+    const long long per_scan = ((long long)n + 4 * kAssignThreads - 1) /
+                               (4 * kAssignThreads);
+    const long long waves =
+        ((long long)kAssignWaves * f.sms * f.assign_per_sm + b - 1) / b;
+    const dim3 grid((unsigned)(per_scan < waves ? per_scan : waves), b);
     assign_kernel<<<grid, kAssignThreads, 0, (cudaStream_t)stream>>>(
         alpha, valid, angles, n, rings, tol, ring);
+    grid_out[0] = (int)grid.x;
+    grid_out[1] = (int)grid.y;
   }
   return (int)cudaGetLastError();
 }

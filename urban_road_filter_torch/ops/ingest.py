@@ -6,13 +6,16 @@ package's batch path runs once over the (B, N) streams
 functions at B = 1.
 
     ingest_prep     (K1)  ROI mask, star sector + radius keys, in-ROI count
-    discover_rings  (K2)  greedy ring registration per scan
-    assign_rings    (K3)  first matching ring per point
+    discover_rings  (K2)  greedy ring registration per scan, sorted table
+    assign_rings    (K3)  first matching ring per point (bisects the table)
 
 Each function launches its hand-written kernel (csrc/ingest.cu) on a CUDA
 tensor, or raises; on a CPU tensor it runs its plain PyTorch twin
-(``*_plain``), which the tests hold against the JAX package.  Every
-threshold is rounded to float32 on the host first, as the JAX package does.
+(``*_plain``), which the tests hold against the JAX package.  Each launch
+is one kernel (K2 also zeroes its arrival counters with a memset, and sorts
+its table itself: no ``torch.sort``); ``last_grid`` keeps the grid of each
+kernel's latest launch.  Every threshold is rounded to float32 on the host
+first, as the JAX package does.
 
 The sector follows the oracle's binning, not the JAX package's: the float64
 atan2 rounded to float32 (the JAX package fed the kernel an f32 XLA atan2
@@ -37,6 +40,18 @@ from urban_road_filter_torch.ops.numerics import (
     F32, I32, f32, roi_mask_xyz, sqrt_rn)
 
 MAX_RINGS = 128  # the kernels' shared-memory ring table (csrc/ingest.cu)
+
+# Kernel name -> (grid.x, grid.y) of its latest launch.
+last_grid: dict = {}
+
+
+def _launch(kernel: str, fn: str, device, *args) -> None:
+    """_build.launch with the grid the entry point reports kept in
+    last_grid."""
+    grid = (ctypes.c_int * 2)()
+    _build.launch(kernel, fn, device, *args,
+                  ctypes.c_void_p(ctypes.addressof(grid)))
+    last_grid[kernel] = (grid[0], grid[1])
 
 
 def ingest_prep_plain(x, y, z, cfg: FilterConfig, want_star_keys=True):
@@ -84,11 +99,10 @@ def ingest_prep(x, y, z, cfg: FilterConfig, want_star_keys: bool = True):
         keys = (_build.ptr(fk), _build.ptr(r_key))
     bounds = (cfg.min_x, cfg.max_x, cfg.min_y, cfg.max_y, cfg.min_z,
               cfg.max_z)
-    _build.launch("ingest_prep", "urf_ingest_prep", dev, _build.ptr(x),
-                  _build.ptr(y), _build.ptr(z), b, n, x.stride(0),
-                  x.stride(1), *map(f32, bounds), f32(STAR_KFI),
-                  int(want_star_keys), _build.ptr(valid), *keys,
-                  _build.ptr(piece))
+    _launch("ingest_prep", "urf_ingest_prep", dev, _build.ptr(x),
+            _build.ptr(y), _build.ptr(z), b, n, x.stride(0), x.stride(1),
+            *map(f32, bounds), f32(STAR_KFI), int(want_star_keys),
+            _build.ptr(valid), *keys, _build.ptr(piece))
     return valid, fk, r_key, piece
 
 
@@ -125,8 +139,11 @@ def discover_rings_plain(alpha, valid, interval: float, rings: int):
 def discover_rings(alpha, valid, interval: float, rings: int = CHANNELS):
     """Greedy ring registration per scan (lidar_segmentation.cpp:168-197).
     alpha: (B, N) f32 vertical angles; valid: (B, N) bool ROI mask.
-    Returns (ascending ring angles (B, rings) padded with +inf, ring count
-    (B,) int32).  Nothing is read back to the host."""
+    Returns (ascending ring angles (B, rings) padded with +inf, NaN last,
+    ring count (B,) int32).  On the card: one kernel launch over (segments,
+    B) blocks, which sorts the table itself, after a memset of its B
+    arrival counters (the scratch also holds B x ceil(N / 32) mask words).
+    Nothing is read back to the host."""
     _check_rings(rings)
     if _build.on_cpu(alpha):
         return discover_rings_plain(alpha, valid, interval, rings)
@@ -136,12 +153,11 @@ def discover_rings(alpha, valid, interval: float, rings: int = CHANNELS):
     _build.check(valid, "valid", torch.bool, (b, n), dev)
     angles = torch.empty((b, rings), dtype=F32, device=dev)
     count = torch.empty((b,), dtype=I32, device=dev)
-    _build.launch("discover_rings", "urf_discover_rings", dev,
-                  _build.ptr(alpha), _build.ptr(valid), b, n, f32(interval),
-                  rings, _build.ptr(angles), _build.ptr(count))
-    # The <= 128 angles of each scan are sorted here, as the JAX package
-    # leaves that sort to XLA; NaN sorts last.
-    return torch.sort(angles, dim=-1).values, count
+    scratch = torch.empty((b * (1 + (n + 31) // 32),), dtype=I32, device=dev)
+    _launch("discover_rings", "urf_discover_rings", dev, _build.ptr(alpha),
+            _build.ptr(valid), b, n, f32(interval), rings, _build.ptr(angles),
+            _build.ptr(count), _build.ptr(scratch))
+    return angles, count
 
 
 def assign_rings_plain(alpha, valid, angles_sorted, interval: float):
@@ -157,7 +173,11 @@ def assign_rings(alpha, valid, angles_sorted, interval: float):
     """First matching ring in ascending-angle order per point
     (lidar_segmentation.cpp:226-233): (B, N) int32, ``rings`` (the table
     size) for a point outside the ROI or matching no ring.
-    angles_sorted: (B, rings) from discover_rings."""
+
+    angles_sorted: (B, rings) as discover_rings returns it, ascending with
+    +inf padding and NaN last.  The kernel bisects the table and relies on
+    that order (the plain twin scans any table); a table of one scan
+    expanded over B, as the SP path passes, meets it."""
     b, rings = angles_sorted.shape
     _check_rings(rings)
     if _build.on_cpu(alpha):
@@ -168,7 +188,7 @@ def assign_rings(alpha, valid, angles_sorted, interval: float):
     _build.check(valid, "valid", torch.bool, (b, n), dev)
     _build.check(angles_sorted, "angles_sorted", F32, (b, rings), dev)
     ring = torch.empty((b, n), dtype=I32, device=dev)
-    _build.launch("assign_rings", "urf_assign_rings", dev, _build.ptr(alpha),
-                  _build.ptr(valid), _build.ptr(angles_sorted), b, n, rings,
-                  f32(interval), _build.ptr(ring))
+    _launch("assign_rings", "urf_assign_rings", dev, _build.ptr(alpha),
+            _build.ptr(valid), _build.ptr(angles_sorted), b, n, rings,
+            f32(interval), _build.ptr(ring))
     return ring
