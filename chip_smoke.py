@@ -28,10 +28,14 @@
    marker keys, K14 marker state) run on one emulated OS1-64 scan (131072
    points, 64 rings x 4096 slots), and again at the two shapes phase 4
    gives them: a bench lane (64 rings x 2048 slots) and a merged
-   multi-LiDAR scan (262144 points, 128 rings x 2048 slots).  On the
-   OS1-64 scan the unfused path (blind_spots(want_marker_f=False), K8 +
-   K12, then marker_points(kf=None), K13 + K10) must equal the fused one
-   bit for bit.  Prints median CUDA-event times of kernel, twin and, where
+   multi-LiDAR scan (262144 points, 128 rings x 2048 slots).  At each
+   shape K6 also runs on the inputs of place_cases (strided x/y/z,
+   capacity 64, capacity 1023 with one and two fields) and K10 on those
+   of marker_cases (ties across every row-block, every candidate past
+   kf, num_rings 5, no counts), on the layout and again at capacity 1023.
+   On the OS1-64 scan the unfused path (blind_spots(want_marker_f=False),
+   K8 + K12, then marker_points(kf=None), K13 + K10) must equal the fused
+   one bit for bit.  Prints median CUDA-event times of kernel, twin and, where
    one PyTorch call computes the same function, that call; and each
    kernel's bound, the larger of its bytes over the HBM rate and its
    operations over the FP32 rate, from this run's inputs.
@@ -428,6 +432,47 @@ def phase_ingest(dev, cfg, planar, mrows):
     return out
 
 
+def place_cases(pts, ring_id, pos, rings, cap):
+    """(name, fields, capacity) of K6's inputs that stress its design
+    (csrc/group_place.cu): the scan's rows-layout x/y/z views (element
+    stride 4, as packed_scan gives them) at its capacity; capacity 64
+    (rings overflow: points dropped and counted from the group totals);
+    capacity 1023 (P % 4 != 0: rows straddle 16-byte quads) with one
+    field and with two, the second NaN on every dropped point."""
+    from urban_road_filter_torch.ops import geometry
+
+    x, y, z, _ = geometry.xyz_of(pts, "rows")
+    nan_x = torch.where((ring_id >= rings) | (pos >= 1023), float("nan"), x)
+    return [("strided x/y/z", (x, y, z), cap),
+            ("capacity 64", (x, y, z), 64),
+            ("capacity 1023, one field", (z,), 1023),
+            ("capacity 1023, two fields", (y, nan_x), 1023)]
+
+
+def marker_cases(road, num_rings, kf):
+    """(name, layout, num_rings, kf) of K10's inputs that stress its design
+    (csrc/markers.cu): the flooded layout; every valid slot road at one
+    distance and no kf ("ties": each bin's max is tied across all rings and
+    row-blocks, and the smallest key must win); the same with kf at each
+    bin's smallest key ("past kf": no candidate anywhere); num_rings 5; no
+    counts."""
+    from urban_road_filter_torch.ops import markers as mk
+
+    r, p = road.alpha.shape
+    valid = (torch.arange(p, device=road.alpha.device)[None, :]
+             < road.counts[:, None])
+    ties = road._replace(label=torch.where(valid, 1, road.label),
+                         d2=torch.where(valid, 7.0, road.d2))
+    first = mk.first_nonroad_keys(
+        road._replace(label=torch.zeros_like(road.label)), num_rings)
+    return [("flooded", road, num_rings, kf),
+            ("ties", ties, num_rings, torch.full_like(kf, mk.NO_KEY)),
+            ("past kf", ties, num_rings, first),
+            ("5 rings", road, torch.full_like(num_rings, 5), kf),
+            ("no counts", road._replace(counts=torch.zeros_like(
+                road.counts)), num_rings, kf)]
+
+
 def phase_kernels(dev, dims, cfg, scan, what, timed=True):
     """Each per-scan kernel against its plain twin on one scan (a (M, >=3)
     host array) padded to dims, and the unfused flood/marker path against
@@ -502,15 +547,21 @@ def phase_kernels(dev, dims, cfg, scan, what, timed=True):
     record("group_rank", (pos, counts), p5(), k5, p5,
            nbytes=8 * n + 4 * (r + 1), ops=4 * n)
 
-    # K6: placement into (rings, slots); also at capacity 64, where points
-    # overflow and must be dropped and counted alike.  The library call:
-    # index_put_ of the stacked x/y/z into a buffer with a dump ring and a
-    # dump slot (with the clamps and the stack it needs).
-    k6 = lambda: group_place(ring_id, pos, x, y, z, r, p)
-    p6 = lambda: group_place_plain(ring_id, pos, x, y, z, r, p)
-    small = group_place(ring_id, pos, x, y, z, r, 64)
-    max_abs_err(small, group_place_plain(ring_id, pos, x, y, z, r, 64))
-    assert int(small[3]) > 0, "the capacity-64 case must overflow"
+    # K6: placement into (rings, slots), given K5's group totals; also on
+    # the inputs of place_cases.  The library call: index_put_ of the
+    # stacked x/y/z into a buffer with a dump ring and a dump slot (with
+    # the clamps and the stack it needs).
+    k6 = lambda: group_place(ring_id, pos, counts, (x, y, z), r, p)
+    p6 = lambda: group_place_plain(ring_id, pos, counts, (x, y, z), r, p)
+    cases = place_cases(pts, ring_id, pos, r, p)
+    for case, fields, cap in cases:
+        got = group_place(ring_id, pos, counts, fields, r, cap)
+        max_abs_err(got, group_place_plain(ring_id, pos, counts, fields, r,
+                                           cap))
+        if cap == 64:
+            assert int(got[-1]) > 0, "the capacity-64 case must overflow"
+    print(f"    group_place on {[c for c, _, _ in cases]}: bit-equal",
+          flush=True)
 
     def l6():
         buf = torch.zeros((r + 1, p + 1, 3), dtype=torch.float32, device=dev)
@@ -518,8 +569,9 @@ def phase_kernels(dev, dims, cfg, scan, what, timed=True):
                                torch.clamp(pos, max=p).long()),
                               torch.stack([x, y, z], 1))
 
-    record("group_place", k6(), p6(), k6, p6, nbytes=20 * n + 12 * r * p + 4,
-           ops=2 * n, library=l6)
+    record("group_place", k6(), p6(), k6, p6,
+           nbytes=20 * n + 4 * (r + 1) + 12 * r * p + 4, ops=2 * n,
+           library=l6)
 
     # K7: both stencils on the placed layout, at window sizes 3, 10 and 5.
     layout, _ = geometry.tensorize(x, y, z, ring_id, p, rings=r)
@@ -566,14 +618,35 @@ def phase_kernels(dev, dims, cfg, scan, what, timed=True):
     record("flood_road", (road_mask,), (p12(),), k12, p12,
            nbytes=5 * r * p + 2 * r * 362 + 8 * r, ops=6 * 362 * n_aok)
 
-    # K10: the marker table on the flooded, unsorted layout.
+    # K10: the marker table on the flooded, unsorted layout; also on the
+    # inputs of marker_cases, here and on the layout at capacity 1023.
+    # The bound counts the slots the table depends on (r < num_rings,
+    # slot < counts) read once.
     road = stenciled._replace(label=flooded)
     k10 = lambda: mk.marker_points(road, num_rings, kf)
     p10 = lambda: mk.marker_points_plain(road, num_rings, kf)
     markers = k10()
     assert float(markers[:, 0].sum()) > 0, "the scan must yield markers"
+    ragged, _ = geometry.tensorize(x, y, z, ring_id, 1023, rings=r)
+    ragged = fused_xz_zero(ragged, cfg)
+    ragged, r_kf = bs.blind_spots(ragged, geometry.max_distance(ragged),
+                                  num_rings, cfg)
+    for lay, lkf in ((road, kf), (ragged, r_kf)):
+        cases = marker_cases(lay, num_rings, lkf)
+        for case, c_lay, c_nr, c_kf in cases:
+            table = mk.marker_points(c_lay, c_nr, c_kf)
+            max_abs_err((table,), (mk.marker_points_plain(c_lay, c_nr,
+                                                          c_kf),))
+            if case == "ties":
+                assert int(table[:, 0].sum()) > 0, "ties must yield markers"
+            if case == "past kf":
+                assert not bool(table[:, 0].any())
+    print(f"    marker_points on {[c for c, *_ in cases]} at {p} and 1023 "
+          f"slots: bit-equal", flush=True)
+    active = int(torch.where(torch.arange(r, device=dev) < num_rings,
+                             torch.clamp(layout.counts, max=p), 0).sum())
     record("marker_points", (markers,), (p10(),), k10, p10,
-           nbytes=12 * r * p + 4 * r + 361 * 8 + 361 * 24, ops=10 * r * p)
+           nbytes=12 * active + 4 * r + 361 * 8 + 361 * 24, ops=10 * active)
 
     # K13: the markers' first-pass keys on their own.
     k13 = lambda: mk.marker_first_nonroad(road, num_rings)

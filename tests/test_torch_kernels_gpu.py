@@ -3,12 +3,17 @@
 Needs a CUDA device (skips without one).  The same checks as phase 2 of
 chip_smoke.py at small shapes: every kernel output bit-equal to its twin's
 on the same CUDA tensors; ring discovery (K2) and assignment (K3) also at
-full size (131072 points at B = 1 and 128, 128 rings) on the inputs that
-stress their designs.  Run on a machine with the card (tests/conftest.py
+full size (131072 points at B = 1 and 128, 128 rings), placement (K6) and
+the marker table (K10) at 64 rings x 4096 and 1023 slots, on the inputs
+that stress their designs (K6 and K10 on chip_smoke.py's place_cases and
+marker_cases, one launch per call).  Run on a machine with the card (tests/conftest.py
 imports jax, which a GPU host without JAX skips with --noconftest):
 
     python -m pytest tests/test_torch_kernels_gpu.py -q -m gpu --noconftest
 """
+
+import importlib.util
+import pathlib
 
 import numpy as np
 import pytest
@@ -107,10 +112,77 @@ def test_rank_kernel(dev, n, groups, seed):
 @pytest.mark.parametrize("cap", [CAP, 64])
 def test_place_kernel(dev, cap):
     x, y, z, _, ring_id, _ = _rings(dev)
-    pos, _ = group_positions(ring_id, RINGS + 1)
-    got = group_place(ring_id, pos, x, y, z, RINGS, cap)
-    _assert_same(got, group_place_plain(ring_id, pos, x, y, z, RINGS, cap))
+    pos, counts = group_positions(ring_id, RINGS + 1)
+    before = _build.launch_counts()["group_place"]
+    got = group_place(ring_id, pos, counts, (x, y, z), RINGS, cap)
+    assert _build.launch_counts()["group_place"] == before + 1
+    _assert_same(got, group_place_plain(ring_id, pos, counts, (x, y, z),
+                                        RINGS, cap))
     assert (int(got[3]) > 0) == (cap == 64)
+
+
+def _smoke():
+    """chip_smoke.py as a module: its K6 and K10 input cases."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke_helpers", pathlib.Path(__file__).parents[1] /
+        "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.fixture(scope="module")
+def os1_64(dev):
+    """One emulated OS1-64 drive scan on the card as packed_scan sees it:
+    (chip_smoke module, rows (131072, 4), ring ids, num_rings), 64 rings."""
+    smoke = _smoke()
+    cfg = FilterConfig()
+    pts = torch.from_numpy(pad_scan(smoke.os1_64_scan(), 131072)).to(dev)
+    x, y, z, _ = geometry.xyz_of(pts, "rows")
+    valid = geometry.roi_mask_xyz(x, y, z, cfg)
+    _, alpha = geometry.vertical_angles(x, y, z)
+    angles, num_rings = geometry.discover_rings(alpha, valid, cfg.interval)
+    ring_id = geometry.assign_rings(alpha, valid, angles, cfg.interval)
+    return smoke, pts, ring_id, num_rings
+
+
+@pytest.mark.parametrize("case", range(4))
+def test_place_kernel_full_size(dev, os1_64, case):
+    """K6 at 131072 points, 64 rings, on chip_smoke's place_cases: one
+    launch per call, bit-equal to the twin."""
+    smoke, pts, ring_id, _ = os1_64
+    pos, counts = group_positions(ring_id, RINGS + 1)
+    name, fields, cap = smoke.place_cases(pts, ring_id, pos, RINGS,
+                                          4096)[case]
+    before = _build.launch_counts()["group_place"]
+    got = group_place(ring_id, pos, counts, fields, RINGS, cap)
+    assert _build.launch_counts()["group_place"] == before + 1, name
+    _assert_same(got, group_place_plain(ring_id, pos, counts, fields, RINGS,
+                                        cap))
+    assert len(got) == len(fields) + 1
+    if cap == 64:
+        assert int(got[-1]) > 0, name
+
+
+@pytest.mark.parametrize("cap", [4096, 1023])
+@pytest.mark.parametrize("case", range(5))
+def test_marker_kernel_full_size(dev, os1_64, case, cap):
+    """K10 at 64 rings x 4096 and 1023 slots on chip_smoke's marker_cases:
+    one launch per call, bit-equal to the twin."""
+    smoke, pts, ring_id, num_rings = os1_64
+    cfg = FilterConfig()
+    x, y, z, _ = geometry.xyz_of(pts, "rows")
+    layout, _ = geometry.tensorize(x, y, z, ring_id, cap, rings=RINGS)
+    layout = fused_xz_zero(layout, cfg)
+    road, kf = blind_spots(layout, geometry.max_distance(layout), num_rings,
+                           cfg)
+    name, lay, nr, c_kf = smoke.marker_cases(road, num_rings, kf)[case]
+    before = _build.launch_counts()["marker_points"]
+    table = mk.marker_points(lay, nr, c_kf)
+    assert _build.launch_counts()["marker_points"] == before + 1, name
+    _assert_same((table,), (mk.marker_points_plain(lay, nr, c_kf),))
+    if name == "ties":
+        assert int(table[:, 0].sum()) > 150  # every bin with points (180)
 
 
 @pytest.mark.parametrize("cp", [3, 5, 10])

@@ -202,13 +202,13 @@ class TestPlace:
         rng = np.random.default_rng(1)
         n, rings, cap = 1024, 8, 64
         ids = rng.integers(0, rings + 1, n).astype(I32)
-        pos, _ = group_positions(_t(ids), rings + 1)
+        pos, counts = group_positions(_t(ids), rings + 1)
         pos_np = pos.numpy()
         vals = [rng.standard_normal(n).astype(F32) for _ in range(3)]
         for v in vals:
             v[(ids == rings) | (pos_np >= cap)] = np.nan
-        ox, oy, oz, overflow = group_place(_t(ids), pos, *map(_t, vals),
-                                           rings, cap)
+        ox, oy, oz, overflow = group_place(_t(ids), pos, counts,
+                                           tuple(map(_t, vals)), rings, cap)
         want = [np.zeros((rings, cap), F32) for _ in range(3)]
         for i in range(n):
             if ids[i] < rings and pos_np[i] < cap:

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Trees against each other on one CUDA card: the ingest kernels K1-K3 and
-the end-to-end metrics of the PyTorch port.
+"""Trees against each other on one CUDA card: the ingest kernels K1-K3,
+placement (K6) and the marker table (K10), and the end-to-end metrics of
+the PyTorch port.
 
     python tools/ab_ingest_torch.py TREE [TREE ...] [--out F.json]
 
@@ -17,6 +18,12 @@ measures:
   scan (131072 points, 64 rings), at the SP call's shape (the OS1-128
   262144-point scan, 128 rings, valid0 & fits), on the ring-major OS1-64
   scan (K2's worst case) and at B = 128 (chip_smoke.py's phase-4 batch);
+- CUDA-event times, the same way, of K6 group_place, of the index_put_
+  call chip_smoke.py times beside it, and of K10 marker_points, at phase
+  2's three per-scan shapes: the OS1-64 scan (64 rings x 4096 slots), a
+  bench lane (64 x 2048) and a merged multi-LiDAR scan (128 x 2048)
+  (inputs from tools/profile_ring_kernels.py's scan_calls, which calls
+  each tree's K6 in the form that tree takes);
 - scan latency p50 (packed_scan on the 9 scans of phase 3, default and
   star off), scans/s at batch 128 (phase 4's timing) and SP latency p50
   (8 wedges on the OS1-128 scan, default and star off), host to host.
@@ -41,11 +48,11 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent.parent
 
 
-def _smoke():
-    """This checkout's chip_smoke.py as a module (its helpers import the
-    package lazily, so they use the tree on sys.path)."""
-    spec = importlib.util.spec_from_file_location("chip_smoke_helpers",
-                                                  ROOT / "chip_smoke.py")
+def _module(name: str, path: str):
+    """A file of this checkout as a module (chip_smoke.py's and
+    profile_ring_kernels.py's helpers import the package lazily, so they
+    use the tree on sys.path)."""
+    spec = importlib.util.spec_from_file_location(name, ROOT / path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
@@ -67,7 +74,7 @@ def measure(tree: str) -> dict:
     from urban_road_filter_torch.parallel.azimuth_parallel import (
         make_azimuth_pipeline)
 
-    c = _smoke()
+    c = _module("chip_smoke_helpers", "chip_smoke.py")
     _build.library()
     dev = torch.device("cuda", 0)
     cfg = FilterConfig(star_shaped_method=False)
@@ -106,6 +113,12 @@ def measure(tree: str) -> dict:
     out["b128"] = kernels(*geometry.xyz_of(planar, "planar",
                                            batched=True)[:3], 64)
     del planar
+
+    prof = _module("profile_ring_kernels", "tools/profile_ring_kernels.py")
+    for what, dims, scan in prof.scan_shapes(c):
+        calls = prof.scan_calls(dev, dims, cfg, scan)
+        out[what] = {k: c.cuda_ms(calls[k]) for k in
+                     ("group_place", "index_put", "marker_points")}
 
     configs = {"default": FilterConfig(), "star_off": cfg}
     runs, _ = c.phase_pipeline(dev, PipelineDims.for_sensor("os1-64"),

@@ -1,25 +1,35 @@
 #!/usr/bin/env python3
-"""Device time per launch of ring discovery (K2) and ring assignment (K3),
-and their wrappers' host time, on one CUDA card.
+"""Device time per launch of every kernel wrapper of the port, its count
+of device ops per call, and its host time, on one CUDA card.
 
     python tools/profile_ring_kernels.py [TREE] [--out F.json]
 
 TREE is a checkout of this repository (default: this one); its
 urban_road_filter_torch is imported and its kernels built.  The inputs are
-chip_smoke.py's: one OS1-64 drive scan at B = 1 (as process_scan calls
-the kernels) and reordered ring-major, the SP call's shape (262144 points,
-128 rings, valid0 & fits), two merged multi-LiDAR scans (262144 points,
-128 rings) and the phase-4 batch (B = 128).  For each: the
-device time of every kernel the wrapper launched, summed per call
+chip_smoke.py's phase 2:
+
+- ring discovery (K2) and ring assignment (K3) on one OS1-64 drive scan at
+  B = 1 (as process_scan calls them) and reordered ring-major, at the SP
+  call's shape (262144 points, 128 rings, valid0 & fits), on two merged
+  multi-LiDAR scans (262144 points, 128 rings) and on the phase-4 batch
+  (B = 128); the ingest prep (K1) at B = 1 and B = 128;
+- the per-scan kernels K4-K14 (star walk, rank, place, x/z-zero, flood
+  fill, markers, gather + pack, road mask, marker keys, marker state) on
+  the OS1-64 scan (64 rings x 4096 slots), a bench lane (64 x 2048) and a
+  merged multi-LiDAR scan (128 x 2048), as phase 2 calls them.
+
+For each wrapper call: the device time of every device op it enqueued
+(kernels, memsets, copies), summed per call, and their count per call
 (torch.profiler over 20 calls, after warm-up), and the wrapper's host time
-per call (perf_counter over 50 calls).  Prints the card's name and power
-limit and one JSON line.  Needs a CUDA device.
+per call (perf_counter over 50 calls, no synchronisation inside).  Prints
+the card's name and power limit and one JSON line.  Needs a CUDA device.
 """
 
 from __future__ import annotations
 
 import argparse
 import importlib.util
+import inspect
 import json
 import os
 import subprocess
@@ -29,6 +39,102 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
 CALLS = 20
+
+
+def smoke_module():
+    """This checkout's chip_smoke.py as a module (its helpers import the
+    package lazily, so they use the tree on sys.path)."""
+    spec = importlib.util.spec_from_file_location("chip_smoke_helpers",
+                                                  ROOT / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def scan_calls(dev, dims, cfg, scan) -> dict:
+    """{kernel: wrapper call} of K4-K14 on one scan (a (M, >=3) host array)
+    padded to dims, on the inputs chip_smoke.py's phase 2 gives them, plus
+    "index_put" (the PyTorch call phase 2 times beside K6).  K6 is called
+    as the tree's ops.place takes it: with K5's group totals and a tuple
+    of fields, or, in trees from before that argument, with x, y, z."""
+    import torch
+
+    from urban_road_filter_torch import pad_scan
+    from urban_road_filter_torch.ops import blind_spots as bs
+    from urban_road_filter_torch.ops import geometry
+    from urban_road_filter_torch.ops import markers as mk
+    from urban_road_filter_torch.ops import star
+    from urban_road_filter_torch.ops.gather import gather_pack
+    from urban_road_filter_torch.ops.marker_state import marker_state
+    from urban_road_filter_torch.ops.place import group_place
+    from urban_road_filter_torch.ops.rank import group_positions
+    from urban_road_filter_torch.ops.stencil_kernels import fused_xz_zero
+
+    r, p, n = dims.rings, dims.ring_capacity, dims.max_points
+    pts = torch.from_numpy(pad_scan(scan, n)).to(dev)
+    x, y, z, _ = geometry.xyz_of(pts, "rows")
+    x, y, z = x.contiguous(), y.contiguous(), z.contiguous()
+    valid = geometry.roi_mask_xyz(x, y, z, cfg)
+    _, alpha = geometry.vertical_angles(x, y, z)
+    angles, num_rings = geometry.discover_rings(alpha, valid, cfg.interval,
+                                                rings=r)
+    ring_id = geometry.assign_rings(alpha, valid, angles, cfg.interval)
+    streams = star.beam_streams(x, y, z, valid, cfg)
+    pos, counts = group_positions(ring_id, r + 1)
+    layout, _ = geometry.tensorize(x, y, z, ring_id, p, rings=r)
+    stenciled = layout._replace(label=fused_xz_zero(layout, cfg).label)
+    bz = cfg.beam_zone
+    w = bs.window_widths(geometry.max_distance(layout), bz)
+    blocked = bs.flood_blocked(stenciled, w, bz)
+    reach = bs.sweep_reach(stenciled, blocked, w, num_rings, cfg)
+    flooded, kf = bs.flood_labeled(stenciled, *reach, w, bz, num_rings)
+    road = stenciled._replace(label=flooded)
+    srt = geometry.sort_by_azimuth(road)
+    ok = torch.sum(valid) >= 30
+    prr = int(cfg.probably_road_ring)
+    if "counts" in inspect.signature(group_place).parameters:
+        place = lambda: group_place(ring_id, pos, counts, (x, y, z), r, p)
+    else:
+        place = lambda: group_place(ring_id, pos, x, y, z, r, p)
+
+    def index_put():
+        buf = torch.zeros((r + 1, p + 1, 3), dtype=torch.float32, device=dev)
+        return buf.index_put_((torch.clamp(ring_id, max=r).long(),
+                               torch.clamp(pos, max=p).long()),
+                              torch.stack([x, y, z], 1))
+
+    return {
+        "star_walk": lambda: star.star_walk(*streams, cfg),
+        "group_rank": lambda: group_positions(ring_id, r + 1),
+        "group_place": place,
+        "index_put": index_put,
+        "xz_zero": lambda: fused_xz_zero(layout, cfg),
+        "flood_blocked": lambda: bs.flood_blocked(stenciled, w, bz),
+        "flood_labeled": lambda: bs.flood_labeled(stenciled, *reach, w, bz,
+                                                  num_rings),
+        "marker_points": lambda: mk.marker_points(road, num_rings, kf),
+        "gather_pack": lambda: gather_pack(flooded, ring_id, pos, valid, ok,
+                                           prr),
+        "flood_road": lambda: bs.flood_road(stenciled, *reach, w, bz),
+        "marker_first_nonroad": lambda: mk.marker_first_nonroad(road,
+                                                                num_rings),
+        "marker_state": lambda: marker_state(srt, num_rings),
+    }
+
+
+def scan_shapes(c):
+    """(name, dims, host scan) of phase 2's three per-scan shapes."""
+    from urban_road_filter_torch import PipelineDims
+
+    return [("os1_64", PipelineDims.for_sensor("os1-64"), c.os1_64_scan()),
+            ("bench_lane", PipelineDims(max_points=131072, rings=64,
+                                        ring_capacity=2048,
+                                        beam_capacity=512),
+             c.bench_scans(1)[0]),
+            ("multi_lidar", PipelineDims(max_points=262144, rings=128,
+                                         ring_capacity=2048,
+                                         beam_capacity=1024),
+             c.multi_lidar_scans()[0])]
 
 
 def main() -> int:
@@ -48,10 +154,7 @@ def main() -> int:
         FilterConfig, PipelineDims, _build, pad_scan, planarize_batch)
     from urban_road_filter_torch.ops import geometry, ingest
 
-    spec = importlib.util.spec_from_file_location("chip_smoke_helpers",
-                                                  ROOT / "chip_smoke.py")
-    c = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(c)
+    c = smoke_module()
     _build.library()
     dev = torch.device("cuda", 0)
     cfg = FilterConfig(star_shaped_method=False)
@@ -65,11 +168,14 @@ def main() -> int:
         return alpha.contiguous(), valid.contiguous()
 
     inputs = {}
+    prep = {}  # K1's (x, y, z) views
     n64 = PipelineDims.for_sensor("os1-64").max_points
     scan = c.os1_64_scan()
     for name, s in (("b1", scan), ("ring_major", c.ring_major(scan))):
-        inputs[name] = (*rows_input(torch.from_numpy(pad_scan(s, n64))
-                                    .to(dev)), 64)
+        rows = torch.from_numpy(pad_scan(s, n64)).to(dev)
+        inputs[name] = (*rows_input(rows), 64)
+        if name == "b1":
+            prep[name] = [v[None] for v in geometry.xyz_of(rows, "rows")[:3]]
     _, sp_dims, sp_scan, _ = c.sp_deployments()[0]
     _, alpha, valid = c.sp_ring_inputs(
         dev, cfg, pad_scan(sp_scan, sp_dims.max_points))
@@ -80,11 +186,13 @@ def main() -> int:
     planar = torch.from_numpy(planarize_batch(np.stack(
         [pad_scan(s, 131072) for s in c.bench_scans(c.BATCH)]))).to(dev)
     x, y, z, _ = geometry.xyz_of(planar, "planar", batched=True)
+    prep["b128"] = (x, y, z)
     valid = geometry.roi_mask_xyz(x, y, z, cfg)
     _, alpha = geometry.vertical_angles(x, y, z)
     inputs["b128"] = (alpha, valid, 64)
 
     def device_ms(fn):
+        """(device ms per call, device ops per call, {op: ms per call})."""
         for _ in range(3):
             fn()
         torch.cuda.synchronize()
@@ -92,14 +200,15 @@ def main() -> int:
             for _ in range(CALLS):
                 fn()
             torch.cuda.synchronize()
-        per = {}
+        per, ops = {}, 0
         for e in prof.key_averages():
             if e.device_type == DeviceType.CUDA:
                 us = getattr(e, "self_device_time_total", None)
                 if us is None:
                     us = e.self_cuda_time_total
                 per[e.key[:60]] = us / CALLS / 1e3
-        return sum(per.values()), per
+                ops += e.count
+        return sum(per.values()), ops / CALLS, per
 
     def host_ms(fn):
         torch.cuda.synchronize()
@@ -110,20 +219,33 @@ def main() -> int:
         torch.cuda.synchronize()
         return (t1 - t0) / 50 * 1e3
 
+    def profiled(calls):
+        res = {}
+        for kname, fn in calls.items():
+            total, ops, per = device_ms(fn)
+            res[kname] = {"device_ms": total, "device_ops": ops,
+                          "host_ms": host_ms(fn), "kernels": per}
+        print(json.dumps({k: (round(v["device_ms"], 5), v["device_ops"],
+                              round(v["host_ms"], 5))
+                          for k, v in res.items()}), flush=True)
+        return res
+
     out = {"tree": args.tree}
     for name, (alpha, valid, rings) in inputs.items():
         k2 = lambda: ingest.discover_rings(alpha, valid, cfg.interval, rings)
         angles, _ = k2()
         k3 = lambda: ingest.assign_rings(alpha, valid, angles, cfg.interval)
-        res = {}
-        for kname, fn in (("discover_rings", k2), ("assign_rings", k3)):
-            total, per = device_ms(fn)
-            res[kname] = {"device_ms": total, "host_ms": host_ms(fn),
-                          "kernels": per}
-        out[name] = res
-        print(name, json.dumps({k: (round(v["device_ms"], 5),
-                                    round(v["host_ms"], 5))
-                                for k, v in res.items()}), flush=True)
+        calls = {"discover_rings": k2, "assign_rings": k3}
+        if name in prep:
+            calls["ingest_prep"] = lambda: ingest.ingest_prep(*prep[name],
+                                                              cfg)
+        print(name, end=" ")
+        out[name] = profiled(calls)
+    del planar, merged
+    out["per_scan"] = {}
+    for name, dims, host in scan_shapes(c):
+        print(f"{name} ({dims.rings} x {dims.ring_capacity})", end=" ")
+        out["per_scan"][name] = profiled(scan_calls(dev, dims, cfg, host))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

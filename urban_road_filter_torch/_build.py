@@ -64,6 +64,7 @@ KERNELS = {
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 _SIGNATURES = {
     "urf_ingest_prep": (_P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F,
                         _F, _I, _P, _P, _P, _P, _P, _P),
@@ -71,12 +72,13 @@ _SIGNATURES = {
     "urf_assign_rings": (_P, _P, _P, _I, _I, _I, _F, _P, _P, _P),
     "urf_star_walk": (_P, _P, _P, _P, _I, _F, _F, _F, _I, _P, _P),
     "urf_group_rank": (_P, _I, _I, _P, _P, _P, _P),
-    "urf_group_place": (_P, _P, _I, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P),
+    "urf_group_place": (_P, _P, _P, _I, _I, _P, _P, _P, _L, _L, _L, _I, _I,
+                        _P, _P, _P),
     "urf_xz_zero": (_P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _F,
                     _F, _F, _P),
     "urf_flood_blocked": (_P, _P, _P, _P, _I, _I, _F, _P, _P, _P),
     "urf_flood_labeled": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _P, _P, _P),
-    "urf_marker_points": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P,
+    "urf_marker_points": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _I,
                           _P, _P),
     "urf_gather_pack": (_P, _I, _I, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P,
                         _P),
@@ -184,9 +186,9 @@ def library() -> ctypes.CDLL:
 
 
 def check(t: torch.Tensor, what: str, dtype: torch.dtype, shape=None,
-          device=None) -> None:
-    """Raise unless ``t`` is a contiguous CUDA tensor of this dtype/shape
-    (on ``device`` when given)."""
+          device=None, contiguous: bool = True) -> None:
+    """Raise unless ``t`` is a CUDA tensor of this dtype/shape (on
+    ``device`` when given), contiguous unless ``contiguous`` is False."""
     if t.device.type != "cuda" or (device is not None and t.device != device):
         raise ValueError(f"{what}: expected a CUDA tensor on "
                          f"{device or 'cuda'}, got {t.device}")
@@ -195,7 +197,7 @@ def check(t: torch.Tensor, what: str, dtype: torch.dtype, shape=None,
     if shape is not None and tuple(t.shape) != tuple(shape):
         raise ValueError(f"{what}: expected shape {tuple(shape)}, "
                          f"got {tuple(t.shape)}")
-    if not t.is_contiguous():
+    if contiguous and not t.is_contiguous():
         raise ValueError(f"{what}: must be contiguous")
 
 

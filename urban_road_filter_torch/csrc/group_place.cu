@@ -9,12 +9,12 @@
 //     TPU placement was a one-hot s8 matmul over byte limbs, because the
 //     TPU's element scatter is slow.
 //
-// What bounds it on Hopper: memory traffic and launch latency.  At one
-// OS1-64 scan (131072 points, 65 groups) every pass reads or writes a few
-// bytes per point (~3 MB in all), far below a millisecond of HBM time, so
-// the four launches and the short serial scan over blocks dominate.
+// What bounds them on Hopper: launch latency and the wrapper's host time,
+// not bytes.  At one OS1-64 scan (131072 points, 64 rings x 4096 slots)
+// K5 reads and writes ~1.6 MB and K6 ~5.8 MB (each x/y/z read once, the
+// three (R, P) planes written once): 0.5 and 1.7 us of HBM time.
 //
-// Design.  Blocks run in no order, so the TPU's carried counter becomes
+// K5 design.  Blocks run in no order, so the TPU's carried counter becomes
 // three passes:
 //   1. hist_kernel: per-block group histograms (shared-memory atomics;
 //      counts do not depend on order);
@@ -24,9 +24,33 @@
 //      (the x/z-zero stencils read slot order, so atomics would be wrong):
 //      __match_any_sync + __popc(mask & lanemask_lt) inside a warp, then an
 //      exclusive scan of per-warp group counts across the block's warps.
-// place_kernel is a plain indexed store: one thread per point writes its
-// x/y/z to (ring, pos) when it fits, and counts the points that do not.
-// Empty slots keep the zeros the caller allocated.
+//
+// K6 design: one launch, nothing pre-filled, every slot written once.  It
+// takes K5's group totals (``counts``, the dump group last) under the
+// dense-ranked contract of group_place_pallas(counts=...): pos comes from
+// group_positions over the same ids, so ring r holds exactly slots
+// 0 .. min(counts[r], cap) - 1.  Then the layout needs no fill:
+//   * point blocks: each point with ids < rings and pos < cap stores its
+//     1-3 fields (read through their element stride, so row-major (N, 4)
+//     coordinate views need no copy) at (field, ring, pos);
+//   * zero blocks: one warp per (field, ring, 1024-slot segment) stores
+//     0.0 to every slot s >= min(counts[r], cap), 16 bytes at a time where
+//     a whole aligned quad of the flat output is empty, 4 bytes where a
+//     quad straddles the occupied part or a row edge (P % 4 != 0);
+//   * warp 0 of block 0 writes overflow = sum over r < rings of
+//     max(counts[r] - cap, 0) (the dump group counts[rings] is not in a
+//     ring), with no atomic and no zeroed scalar.
+// Together these write every slot of the (fields, R, P) output once and
+// read none: one device op per call, where a zero-filled output costs
+// four fills (three planes and the overflow scalar) before the scatter.
+// Firing-order input sends neighbouring points to different rings, so the
+// point stores scatter 4-byte sectors; at 64 x 4096 the 3 MB output sits
+// in the 50 MB L2, where those partial sectors merge before HBM.
+// The sector waste shows, modestly: on an H100 (tools/profile_ring_kernels.py)
+// the launch takes 3.1 us at one OS1-64 scan (65536 returns, 64 x 4096,
+// bound 1.7 us) but 4.5 us on a bench lane of 131072 returns into a
+// layout half that size (64 x 2048): the point stores, not the zero
+// stores, set the time beyond the launch.
 
 #include <cuda_runtime.h>
 
@@ -100,32 +124,65 @@ __global__ void rank_kernel(const int* __restrict__ ids, int n, int groups,
                       : -1;
 }
 
-__global__ void place_kernel(const int* __restrict__ ids,
-                             const int* __restrict__ pos, int n,
-                             const float* __restrict__ x,
-                             const float* __restrict__ y,
-                             const float* __restrict__ z, int rings, int cap,
-                             float* __restrict__ ox, float* __restrict__ oy,
-                             float* __restrict__ oz,
-                             int* __restrict__ overflow) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  int dropped = 0;
-  if (i < n) {
-    const int r = ids[i];
-    const int s = pos[i];
-    if (r >= 0 && r < rings && s >= 0) {
-      if (s < cap) {
-        const size_t o = (size_t)r * cap + s;
-        ox[o] = x[i];
-        oy[o] = y[i];
-        oz[o] = z[i];
-      } else {
-        dropped = 1;
-      }
+constexpr int kPlaceThreads = 256;
+constexpr int kZeroQuads = 256;  // 4-slot quads per zero unit (one warp)
+
+struct PlaceArgs {
+  const int* ids;
+  const int* pos;
+  const int* counts;  // (>= rings,) K5's group totals
+  const float* field[3];
+  long long stride[3];  // element stride of each field
+  float* out;           // (nf, rings, cap)
+  int* overflow;
+  int n, nf, rings, cap;
+  int point_blocks;   // blocks [0, point_blocks) store points
+  int units_per_row;  // zero units of kZeroQuads quads per (field, ring)
+};
+
+__global__ void __launch_bounds__(kPlaceThreads) place_kernel(PlaceArgs a) {
+  const int lane = threadIdx.x & 31;
+  if (blockIdx.x == 0 && threadIdx.x < 32) {
+    int over = 0;
+    for (int r = lane; r < a.rings; r += 32)
+      over += max(a.counts[r] - a.cap, 0);
+    for (int o = 16; o > 0; o >>= 1) over += __shfl_xor_sync(~0u, over, o);
+    if (lane == 0) *a.overflow = over;
+  }
+  const size_t plane = (size_t)a.rings * a.cap;
+  if ((int)blockIdx.x < a.point_blocks) {
+    const int i = blockIdx.x * kPlaceThreads + threadIdx.x;
+    if (i >= a.n) return;
+    const int r = a.ids[i];
+    const int s = a.pos[i];
+    if (r < 0 || r >= a.rings || s < 0 || s >= a.cap) return;
+    const size_t o = (size_t)r * a.cap + s;
+#pragma unroll
+    for (int f = 0; f < 3; ++f)
+      if (f < a.nf) a.out[f * plane + o] = a.field[f][(size_t)i * a.stride[f]];
+    return;
+  }
+  const int unit = (blockIdx.x - a.point_blocks) * (kPlaceThreads / 32) +
+                   (threadIdx.x >> 5);
+  const int row = unit / a.units_per_row;  // field * rings + ring
+  if (row >= a.nf * a.rings) return;
+  const int lim = min(max(a.counts[row % a.rings], 0), a.cap);
+  const size_t lo = (size_t)row * a.cap + lim;     // zero flat [lo, hi)
+  const size_t hi = (size_t)row * a.cap + a.cap;
+  const size_t q_first =
+      lo / 4 + (size_t)(unit % a.units_per_row) * kZeroQuads;
+  const size_t q_stop = q_first + kZeroQuads;
+  const size_t q_end = (hi + 3) / 4 < q_stop ? (hi + 3) / 4 : q_stop;
+  for (size_t q = q_first + lane; q < q_end; q += 32) {
+    const size_t e = 4 * q;
+    if (e >= lo && e + 4 <= hi) {
+      reinterpret_cast<float4*>(a.out)[q] = make_float4(0.f, 0.f, 0.f, 0.f);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (e + j >= lo && e + j < hi) a.out[e + j] = 0.0f;
     }
   }
-  const int block_dropped = __syncthreads_count(dropped);
-  if (threadIdx.x == 0 && block_dropped) atomicAdd(overflow, block_dropped);
 }
 
 cudaError_t set_smem(const void* fn, size_t bytes) {
@@ -161,14 +218,28 @@ extern "C" int urf_group_rank(const int* ids, int n, int groups, int* pos,
   return (int)cudaGetLastError();
 }
 
-// ox/oy/oz: (rings, cap) zero-filled by the caller; overflow: one int,
-// zeroed by the caller, gains the in-ring points with pos >= cap.
-extern "C" int urf_group_place(const int* ids, const int* pos, int n,
-                               const float* x, const float* y, const float* z,
-                               int rings, int cap, float* ox, float* oy,
-                               float* oz, int* overflow, void* stream) {
-  if (n > 0)
-    place_kernel<<<(n + 255) / 256, 256, 0, (cudaStream_t)stream>>>(
-        ids, pos, n, x, y, z, rings, cap, ox, oy, oz, overflow);
+// K6.  out (nf, rings, cap) f32 and overflow (one int) are written in full
+// (allocated, not filled, by the caller; out 16-byte aligned).  counts
+// (>= rings entries) and pos come from urf_group_rank over the same ids;
+// fields f0..f2 (the first nf used) are (n,) f32 with element strides
+// s0..s2.  One launch.
+extern "C" int urf_group_place(const int* ids, const int* pos,
+                               const int* counts, int n, int nf,
+                               const float* f0, const float* f1,
+                               const float* f2, long long s0, long long s1,
+                               long long s2, int rings, int cap, float* out,
+                               int* overflow, void* stream) {
+  if (nf < 1 || nf > 3 || n < 0 || rings < 0 || cap < 0)
+    return (int)cudaErrorInvalidValue;
+  PlaceArgs a{ids, pos, counts, {f0, f1, f2}, {s0, s1, s2}, out, overflow,
+              n, nf, rings, cap, (n + kPlaceThreads - 1) / kPlaceThreads,
+              (cap / 4 + 2 + kZeroQuads - 1) / kZeroQuads};
+  const long long units = (long long)nf * rings * a.units_per_row;
+  const long long zero_blocks = (units + kPlaceThreads / 32 - 1) /
+                                (kPlaceThreads / 32);
+  const long long grid = a.point_blocks + zero_blocks;
+  if (grid > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  place_kernel<<<grid > 0 ? (unsigned)grid : 1u, kPlaceThreads, 0,
+                 (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }

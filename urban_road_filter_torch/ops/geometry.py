@@ -117,7 +117,8 @@ def tensorize(x, y, z, ring_id, ring_capacity: int, rings: int = CHANNELS):
     p = ring_capacity
     pos, counts_all = group_positions(ring_id, rings + 1)
     counts = torch.clamp(counts_all[:rings], max=p)
-    lx, ly, lz, overflow = group_place(ring_id, pos, x, y, z, rings, p)
+    lx, ly, lz, overflow = group_place(ring_id, pos, counts_all, (x, y, z),
+                                       rings, p)
     ld2, lalpha = azimuth_2d(lx, ly)
     layout = RingLayout(
         x=lx, y=ly, z=lz, d2=ld2, alpha=lalpha,

@@ -20,8 +20,11 @@ input order, as the reference's stable sort does), so per bin:
   maxd[b]  = max d2 of road points with key < kf[b]
   winner   = min key among those at maxd[b]
 
-A CUDA layout goes through the hand-written kernel csrc/markers.cu; a CPU
-layout through the plain twin below (``scatter_reduce`` over the bins).
+A CUDA layout goes through the hand-written kernel csrc/markers.cu (one
+cooperative launch: per-block partials of (maxd, winner key) per bin, a
+grid barrier, then a merge that keeps the larger d and, at equal d, the
+smaller key); a CPU layout through the plain twin below
+(``scatter_reduce`` over the bins).
 """
 
 from __future__ import annotations
@@ -140,14 +143,17 @@ def marker_points(layout: RingLayout, num_rings: torch.Tensor,
     _build.check(layout.counts, "counts", I32, (r,), dev)
     _build.check(num_rings, "num_rings", I32, (), dev)
     _build.check(kf, "kf", I64, (N_BINS,), dev)
-    maxd = torch.zeros((N_BINS,), dtype=I32, device=dev)
-    win = torch.full((N_BINS,), NO_KEY, dtype=I64, device=dev)
+    # Per-block partials: (361, blocks) uint64 keys then uint32 distances,
+    # every entry written by the kernel, which runs at most max(r, 1)
+    # blocks.
+    blocks = max(r, 1)
+    scratch = torch.empty((3 * N_BINS * blocks,), dtype=I32, device=dev)
     table = torch.empty((N_BINS, 6), dtype=F32, device=dev)
     _build.launch("marker_points", "urf_marker_points", dev,
                   *(_build.ptr(getattr(layout, f)) for f in
                     ("x", "y", "z", "alpha", "d2", "label", "counts")),
                   _build.ptr(num_rings), _build.ptr(kf), r, p,
-                  _build.ptr(maxd), _build.ptr(win), _build.ptr(table))
+                  _build.ptr(scratch), blocks, _build.ptr(table))
     return table
 
 

@@ -1,14 +1,21 @@
-"""Placement of x/y/z into the padded (rings, capacity) layout.
+"""Placement of 1-3 per-point fields into the padded (rings, capacity) layout.
 
-    out[ids[i], pos[i]] = field[i]   when ids[i] < rings and pos[i] < capacity
+    out[f][ids[i], pos[i]] = fields[f][i]  where ids[i] < rings
+                                           and pos[i] < capacity
 
-Port of the placement inside urban_road_filter_tpu/ops/geometry.py:tensorize.
-A CUDA tensor goes through the hand-written kernel csrc/group_place.cu (K6,
-replacing the TPU's one-hot matmul ``place.group_place_pallas``: on Hopper a
-placement is an indexed store); a CPU tensor through the plain twin below,
-the JAX package's unique-indices scatter (geometry.py:211-224).  Empty slots
-are 0.0; in-ring points past capacity are dropped and counted in
-``overflow``.
+Port of the placement inside urban_road_filter_tpu/ops/geometry.py:tensorize
+and of ``place.group_place_pallas(ids, pos, fields, ..., counts=...)``.  A
+CUDA tensor goes through the hand-written kernel csrc/group_place.cu (K6,
+replacing the TPU's one-hot matmul: on Hopper a placement is an indexed
+store); a CPU tensor through the plain twin below, the JAX package's
+unique-indices scatter (geometry.py:211-224).  Empty slots are 0.0;
+in-ring points past capacity are dropped and counted in ``overflow``.
+
+``pos`` and ``counts`` come from ops.rank.group_positions over the same
+``ids`` (the dense-ranked contract): ring r then holds exactly slots
+0 .. min(counts[r], capacity) - 1, so the kernel writes the empty slots
+from ``counts`` instead of filling the layout first, and overflow is
+sum over r < rings of max(counts[r] - capacity, 0).
 """
 
 from __future__ import annotations
@@ -21,8 +28,9 @@ F32 = torch.float32
 I32 = torch.int32
 
 
-def group_place_plain(ids, pos, x, y, z, rings: int, capacity: int):
-    """Scatter with a unique dump slot per dropped point."""
+def group_place_plain(ids, pos, counts, fields, rings: int, capacity: int):
+    """Scatter with a unique dump slot per dropped point.  ``counts`` is
+    the kernel's input; the scatter does not need it."""
     n = ids.shape[0]
     p = capacity
     in_ring = ids < rings
@@ -30,32 +38,39 @@ def group_place_plain(ids, pos, x, y, z, rings: int, capacity: int):
     iota = torch.arange(n, dtype=I32, device=ids.device)
     dst = torch.where(fits, ids * p + pos, rings * p + iota).long()
     outs = []
-    for v in (x, y, z):
+    for v in fields:
         buf = torch.zeros((rings * p + n,), dtype=F32, device=ids.device)
         buf[dst] = v.to(F32)
         outs.append(buf[:rings * p].reshape(rings, p))
     overflow = torch.sum(in_ring & (pos >= p)).to(I32)
-    return outs[0], outs[1], outs[2], overflow
+    return (*outs, overflow)
 
 
-def group_place(ids, pos, x, y, z, rings: int, capacity: int):
-    """(out_x, out_y, out_z, overflow): (rings, capacity) f32 fields and the
+def group_place(ids, pos, counts, fields, rings: int, capacity: int):
+    """(*outs, overflow): one (rings, capacity) f32 plane per field and the
     0-d int32 count of in-ring points dropped for capacity.  ids/pos: (N,)
-    int32 with pos >= 0; x/y/z: (N,) f32."""
+    int32 with pos >= 0; counts: (>= rings,) int32 group totals; fields: a
+    sequence of 1-3 (N,) f32 tensors, any element stride."""
     if _build.on_cpu(ids):
-        return group_place_plain(ids, pos, x, y, z, rings, capacity)
+        return group_place_plain(ids, pos, counts, fields, rings, capacity)
     n = ids.shape[0]
     dev = ids.device
+    nf = len(fields)
+    if not 1 <= nf <= 3:
+        raise ValueError(f"group_place takes 1-3 fields, got {nf}")
     _build.check(ids, "ids", I32, (n,))
     _build.check(pos, "pos", I32, (n,), dev)
-    fields = [v.contiguous() for v in (x, y, z)]
-    for name, v in zip("xyz", fields):
-        _build.check(v, name, F32, (n,), dev)
-    outs = [torch.zeros((rings, capacity), dtype=F32, device=dev)
-            for _ in range(3)]
-    overflow = torch.zeros((), dtype=I32, device=dev)
+    _build.check(counts, "counts", I32, None, dev)
+    if counts.ndim != 1 or counts.shape[0] < rings:
+        raise ValueError(f"counts: expected ({rings} or more,), got "
+                         f"{tuple(counts.shape)}")
+    for k, v in enumerate(fields):
+        _build.check(v, f"fields[{k}]", F32, (n,), dev, contiguous=False)
+    out = torch.empty((nf, rings, capacity), dtype=F32, device=dev)
+    overflow = torch.empty((), dtype=I32, device=dev)
+    padded = [*fields, *fields[:1] * (3 - nf)]
     _build.launch("group_place", "urf_group_place", dev,
-                  _build.ptr(ids), _build.ptr(pos), n,
-                  *map(_build.ptr, fields), rings, capacity,
-                  *map(_build.ptr, outs), _build.ptr(overflow))
-    return outs[0], outs[1], outs[2], overflow
+                  _build.ptr(ids), _build.ptr(pos), _build.ptr(counts), n, nf,
+                  *map(_build.ptr, padded), *(v.stride(0) for v in padded),
+                  rings, capacity, _build.ptr(out), _build.ptr(overflow))
+    return (*out.unbind(0), overflow)

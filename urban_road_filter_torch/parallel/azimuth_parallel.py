@@ -389,13 +389,13 @@ def _run(x, y, z, cfg: FilterConfig, dims: PipelineDims, lw: LocalWedges,
                             d * rings).to(I32).reshape(-1)
         pos, counts_all = group_positions(group, d * rings + 1)
         lx, ly, lz, overflow = group_place(
-            group, pos, xw.reshape(-1), yw.reshape(-1), zw.reshape(-1),
-            d * rings, cap)
+            group, pos, counts_all,
+            (xw.reshape(-1), yw.reshape(-1), zw.reshape(-1)), d * rings, cap)
         pid1 = (torch.arange(per_wedge, device=dev, dtype=F32) + 1).expand(
             d, per_wedge).reshape(-1)
         lab = star[:, :per_wedge].reshape(-1)
-        lpid, llab, _, _ = group_place(group, pos, pid1, lab, lab,
-                                       d * rings, cap)
+        lpid, llab, _ = group_place(group, pos, counts_all, (pid1, lab),
+                                    d * rings, cap)
         d2, alpha = geometry.azimuth_2d(lx, ly)
         layout = RingLayout(
             x=lx, y=ly, z=lz, d2=d2, alpha=alpha, label=llab.to(I32),
