@@ -32,7 +32,12 @@
    shape K6 also runs on the inputs of place_cases (strided x/y/z,
    capacity 64, capacity 1023 with one and two fields) and K10 on those
    of marker_cases (ties across every row-block, every candidate past
-   kf, num_rings 5, no counts), on the layout and again at capacity 1023.
+   kf, num_rings 5, no counts), on the layout and again at capacity 1023;
+   K9 and K12 on those of flood_cases (window widths 0 to inf and NaN,
+   azimuths on and one ulp beside the window ends and the integer starts,
+   reach bits all, none, alternating, only the special or the last start,
+   two beam zones, num_rings 5) and K11 with probably_road_ring equal to
+   the ring count (no point may be flagged).
    On the OS1-64 scan the unfused path (blind_spots(want_marker_f=False),
    K8 + K12, then marker_points(kf=None), K13 + K10) must equal the fused
    one bit for bit.  Prints median CUDA-event times of kernel, twin and, where
@@ -473,6 +478,67 @@ def marker_cases(road, num_rings, kf):
                 road.counts)), num_rings, kf)]
 
 
+FLOOD_W = (0.0, 1e-30, 1.0, 37.5, 361.0, 1e30, float("inf"), float("nan"))
+
+
+def flood_cases(layout, num_rings):
+    """(name, layout, reach_f, reach_b, w, beam zone, num_rings) of K9's and
+    K12's inputs that stress their design (csrc/flood.cu: the interval of
+    covering starts, its two bisections, the special starts), at the
+    layout's shape, made from a seed: window widths cycling through 0,
+    1e-30, 1, 37.5, 361, 1e30, inf and NaN over the rings; azimuths at
+    integer starts, at fl(i + w) and fl(i - w) and one ulp either side,
+    -0.0, 360.0, NaN, just outside [0, 360] and uniform; counts from 0 to
+    the capacity; labels 0-2.  The reach bits all set, none, alternating,
+    only the special starts (the starts at 360 - bz and bz), only start 361
+    and random, each at a beam zone where 360 - bz and bz are integers (30)
+    and one where they are not (45.5); then with num_rings 5."""
+    dev = layout.alpha.device
+    r, p = layout.alpha.shape
+    f32 = np.float32
+    rng = np.random.default_rng(11)
+    w = np.array([FLOOD_W[k % len(FLOOD_W)] for k in range(r)], f32)
+    start = rng.integers(0, 362, (r, p)).astype(f32)
+    with np.errstate(invalid="ignore", over="ignore"):
+        fwd, bwd = start + w[:, None], start - w[:, None]
+    odd = rng.choice(np.array([-0.0, 360.0, np.nan, -1e-3,
+                               np.nextafter(f32(360), f32(400))], f32),
+                     (r, p))
+    choices = [start, fwd, np.nextafter(fwd, f32(np.inf)),
+               np.nextafter(fwd, f32(-np.inf)), bwd,
+               np.nextafter(bwd, f32(np.inf)),
+               np.nextafter(bwd, f32(-np.inf)), odd,
+               rng.uniform(0.0, 360.0, (r, p)).astype(f32)]
+    alpha = np.choose(rng.integers(0, len(choices), (r, p)), choices)
+    counts = rng.integers(0, p + 1, r).astype(np.int32)
+    counts[:2] = p
+    label = rng.integers(0, 3, (r, p)).astype(np.int32)
+    lay = layout._replace(alpha=torch.from_numpy(alpha.astype(f32)).to(dev),
+                          label=torch.from_numpy(label).to(dev),
+                          counts=torch.from_numpy(counts).to(dev))
+    wt = torch.from_numpy(w).to(dev)
+    i = np.arange(362)
+    cases = []
+    for bz in (30.0, 45.5):
+        only = lambda at: np.broadcast_to(i == at, (r, 362))
+        patterns = {
+            "all": (np.ones((r, 362), bool),) * 2,
+            "none": (np.zeros((r, 362), bool),) * 2,
+            "alternating": ((i[None] + np.arange(r)[:, None]) % 2 == 0,
+                            (i[None] + np.arange(r)[:, None]) % 2 == 1),
+            "special only": (only(int(360 - bz)), only(int(bz))),
+            "only 361": (only(361),) * 2,
+            "random": tuple(rng.random((2, r, 362)) < 0.3)}
+        for name, (rf, rb) in patterns.items():
+            cases.append((f"{name}, bz {bz}", lay,
+                          torch.from_numpy(np.ascontiguousarray(rf)).to(dev),
+                          torch.from_numpy(np.ascontiguousarray(rb)).to(dev),
+                          wt, bz, num_rings))
+    cases.append(("random, num_rings 5", *cases[-1][1:6],
+                  torch.full_like(num_rings, 5)))
+    return cases
+
+
 def phase_kernels(dev, dims, cfg, scan, what, timed=True):
     """Each per-scan kernel against its plain twin on one scan (a (M, >=3)
     host array) padded to dims, and the unfused flood/marker path against
@@ -601,7 +667,9 @@ def phase_kernels(dev, dims, cfg, scan, what, timed=True):
     record("flood_blocked", blocked, p8(), k8, p8,
            nbytes=8 * r * p + 8 * r + 2 * r * 362, ops=4 * 362 * n_curb)
 
-    # K9: the road mask and the markers' first-pass keys.
+    # K9: the road mask and the markers' first-pass keys.  K9's and K12's
+    # operations: per valid slot two 9-step bisections (an f32 add and a
+    # compare each) and the reach-bit counts, ~48.
     reach = bs.sweep_reach(stenciled, blocked, w, num_rings, cfg)
     k9 = lambda: bs.flood_labeled(stenciled, *reach, w, bz, num_rings)
     p9 = lambda: bs.flood_labeled_plain(stenciled, *reach, w, bz, num_rings)
@@ -609,14 +677,23 @@ def phase_kernels(dev, dims, cfg, scan, what, timed=True):
     assert int((flooded == 1).sum()) > 0, "the flood must reach road"
     record("flood_labeled", (flooded, kf), p9(), k9, p9,
            nbytes=12 * r * p + 2 * r * 362 + 8 * r + 361 * 8,
-           ops=6 * 362 * n_aok)
+           ops=48 * n_aok)
 
     # K12: the road mask alone.
     k12 = lambda: bs.flood_road(stenciled, *reach, w, bz)
     p12 = lambda: bs.flood_road_plain(stenciled, *reach, w, bz)
     road_mask = k12()
     record("flood_road", (road_mask,), (p12(),), k12, p12,
-           nbytes=5 * r * p + 2 * r * 362 + 8 * r, ops=6 * 362 * n_aok)
+           nbytes=5 * r * p + 2 * r * 362 + 8 * r, ops=48 * n_aok)
+    # K9 and K12 again on the inputs of flood_cases.
+    cases = flood_cases(stenciled, num_rings)
+    for _, lay, rf, rb, cw, cbz, cnr in cases:
+        max_abs_err(bs.flood_labeled(lay, rf, rb, cw, cbz, cnr),
+                    bs.flood_labeled_plain(lay, rf, rb, cw, cbz, cnr))
+        max_abs_err((bs.flood_road(lay, rf, rb, cw, cbz),),
+                    (bs.flood_road_plain(lay, rf, rb, cw, cbz),))
+    print(f"    flood_labeled and flood_road on {len(cases)} flood_cases: "
+          f"bit-equal", flush=True)
 
     # K10: the marker table on the flooded, unsorted layout; also on the
     # inputs of marker_cases, here and on the layout at capacity 1023.
@@ -688,6 +765,11 @@ def phase_kernels(dev, dims, cfg, scan, what, timed=True):
         rng.integers(-5, p + 5, n).astype(np.int32)).to(dev)
     max_abs_err(gather_pack(table, bad_ids, bad_pos, valid, ok, prr),
                 gather_pack_plain(table, bad_ids, bad_pos, valid, ok, prr))
+    # probably_road_ring equal to the ring count, the ring id of every
+    # point without a ring: no point may be flagged.
+    no_ring = gather_pack(table, ring_id, pos, valid, ok, r)
+    max_abs_err(no_ring, gather_pack_plain(table, ring_id, pos, valid, ok, r))
+    assert int((ring_id == r).sum()) > 0 and not bool(no_ring[2].any())
     record("gather_pack", k11(), p11(), k11, p11,
            nbytes=4 * r * p + 13 * n, ops=4 * n, library=l11)
 

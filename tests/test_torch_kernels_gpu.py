@@ -6,7 +6,8 @@ on the same CUDA tensors; ring discovery (K2) and assignment (K3) also at
 full size (131072 points at B = 1 and 128, 128 rings), placement (K6) and
 the marker table (K10) at 64 rings x 4096 and 1023 slots, on the inputs
 that stress their designs (K6 and K10 on chip_smoke.py's place_cases and
-marker_cases, one launch per call).  Run on a machine with the card (tests/conftest.py
+marker_cases, K9 and K12 on its flood_cases at 64 x 4096 and 128 x 2048,
+one launch per call).  Run on a machine with the card (tests/conftest.py
 imports jax, which a GPU host without JAX skips with --noconftest):
 
     python -m pytest tests/test_torch_kernels_gpu.py -q -m gpu --noconftest
@@ -274,6 +275,62 @@ def test_gather_pack_kernel(dev, ok):
         np.int32)).to(dev)
     _assert_same(gather_pack(table, ids, slots, valid, gate, 10),
                  gather_pack_plain(table, ids, slots, valid, gate, 10))
+
+
+def test_gather_pack_probably_road_ring_is_rings(dev):
+    """probably_road_ring == rings, the ring id of every point without a
+    ring: K11 flags no point, as its twin."""
+    x, y, z, valid, ring_id, num_rings = _rings(dev, "curb_gap")
+    layout, pos = geometry.tensorize(x, y, z, ring_id, CAP, rings=RINGS)
+    gate = torch.tensor(True, device=dev)
+    got = gather_pack(layout.label, ring_id, pos, valid, gate, RINGS)
+    _assert_same(got, gather_pack_plain(layout.label, ring_id, pos, valid,
+                                        gate, RINGS))
+    assert int((ring_id == RINGS).sum()) > 0 and not bool(got[2].any())
+    assert not bool((got[3] & 8).any())
+
+
+@pytest.fixture(scope="module")
+def flood_layouts(dev):
+    """{shape: stenciled layout, num_rings} at 64 rings x 4096 slots (an
+    OS1-64 drive scan) and 128 x 2048 (a merged multi-LiDAR scan), with
+    chip_smoke's flood_cases on each."""
+    smoke = _smoke()
+    cfg = FilterConfig()
+    out = {}
+    for name, scan, n, rings, cap in (
+            ("64x4096", smoke.os1_64_scan(), 131072, 64, 4096),
+            ("128x2048", smoke.multi_lidar_scans()[0], 262144, 128, 2048)):
+        pts = torch.from_numpy(pad_scan(scan, n)).to(dev)
+        x, y, z, _ = geometry.xyz_of(pts, "rows")
+        valid = geometry.roi_mask_xyz(x, y, z, cfg)
+        _, alpha = geometry.vertical_angles(x, y, z)
+        angles, num_rings = geometry.discover_rings(alpha, valid,
+                                                    cfg.interval, rings=rings)
+        ring_id = geometry.assign_rings(alpha, valid, angles, cfg.interval)
+        layout, _ = geometry.tensorize(x, y, z, ring_id, cap, rings=rings)
+        layout = fused_xz_zero(layout, cfg)
+        out[name] = smoke.flood_cases(layout, num_rings)
+    return out
+
+
+@pytest.mark.parametrize("case", range(13))
+@pytest.mark.parametrize("shape", ["64x4096", "128x2048"])
+def test_flood_kernels_on_flood_cases(dev, flood_layouts, shape, case):
+    """K9 and K12 at full size on chip_smoke's flood_cases: one launch per
+    call, bit-equal to their twins (K9's kf with no pre-fill, call after
+    call)."""
+    name, lay, rf, rb, w, bz, nr = flood_layouts[shape][case]
+    before = _build.launch_counts()
+    got = bs.flood_labeled(lay, rf, rb, w, bz, nr)
+    road = bs.flood_road(lay, rf, rb, w, bz)
+    after = _build.launch_counts()
+    assert after["flood_labeled"] == before["flood_labeled"] + 1, name
+    assert after["flood_road"] == before["flood_road"] + 1, name
+    _assert_same(got, bs.flood_labeled_plain(lay, rf, rb, w, bz, nr))
+    _assert_same((road,), (bs.flood_road_plain(lay, rf, rb, w, bz),))
+    if name.startswith("none"):
+        assert not bool(road.any()), name
 
 
 def test_wrappers_refuse_bad_inputs(dev):

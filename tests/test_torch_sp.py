@@ -216,3 +216,23 @@ def test_run_defaults_to_the_card():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         make_azimuth_pipeline(8, cfg, DIMS)(pts)
     assert bool(make_azimuth_pipeline(8, cfg, DIMS, device="cpu")(pts).ok)
+
+
+@pytest.mark.parametrize("slack,raises", [(8.0, True), (7.96875, False)])
+def test_marker_positions_must_stay_f32_exact(slack, raises):
+    """K14 carries the global scan position g < rings x P_glob in f32, with
+    P_glob <= min(N, wedges x slots per wedge) + 1.  At 128 rings, 262144
+    points and 16384 ring slots, wedge_slack 8 gives 16384 slots per wedge:
+    128 x (131072 + 1) passes 2^24, and make_azimuth_pipeline refuses it;
+    7.96875 gives 16320: 128 x (130560 + 1) stays below, and it builds."""
+    dims = PipelineDims(max_points=262144, rings=128, ring_capacity=16384,
+                        beam_capacity=1024)
+    cfg = filter_config(JaxConfig())
+    if raises:
+        with pytest.raises(ValueError, match="f32-exact"):
+            make_azimuth_pipeline(8, cfg, dims, wedge_slack=slack,
+                                  device="cpu")
+    else:
+        assert callable(make_azimuth_pipeline(8, cfg, dims,
+                                              wedge_slack=slack,
+                                              device="cpu"))

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Trees against each other on one CUDA card: the ingest kernels K1-K3,
-placement (K6) and the marker table (K10), and the end-to-end metrics of
-the PyTorch port.
+placement (K6), the flood fill (K9, K12) and the marker table (K10), and
+the end-to-end metrics of the PyTorch port.
 
     python tools/ab_ingest_torch.py TREE [TREE ...] [--out F.json]
 
@@ -19,8 +19,8 @@ measures:
   262144-point scan, 128 rings, valid0 & fits), on the ring-major OS1-64
   scan (K2's worst case) and at B = 128 (chip_smoke.py's phase-4 batch);
 - CUDA-event times, the same way, of K6 group_place, of the index_put_
-  call chip_smoke.py times beside it, and of K10 marker_points, at phase
-  2's three per-scan shapes: the OS1-64 scan (64 rings x 4096 slots), a
+  call chip_smoke.py times beside it, of K9 flood_labeled, K10
+  marker_points and K12 flood_road, at phase 2's three per-scan shapes: the OS1-64 scan (64 rings x 4096 slots), a
   bench lane (64 x 2048) and a merged multi-LiDAR scan (128 x 2048)
   (inputs from tools/profile_ring_kernels.py's scan_calls, which calls
   each tree's K6 in the form that tree takes);
@@ -118,7 +118,8 @@ def measure(tree: str) -> dict:
     for what, dims, scan in prof.scan_shapes(c):
         calls = prof.scan_calls(dev, dims, cfg, scan)
         out[what] = {k: c.cuda_ms(calls[k]) for k in
-                     ("group_place", "index_put", "marker_points")}
+                     ("group_place", "index_put", "flood_labeled",
+                      "marker_points", "flood_road")}
 
     configs = {"default": FilterConfig(), "star_off": cfg}
     runs, _ = c.phase_pipeline(dev, PipelineDims.for_sensor("os1-64"),

@@ -16,7 +16,12 @@ chip_smoke.py's phase 2:
 - the per-scan kernels K4-K14 (star walk, rank, place, x/z-zero, flood
   fill, markers, gather + pack, road mask, marker keys, marker state) on
   the OS1-64 scan (64 rings x 4096 slots), a bench lane (64 x 2048) and a
-  merged multi-LiDAR scan (128 x 2048), as phase 2 calls them.
+  merged multi-LiDAR scan (128 x 2048), as phase 2 calls them, with the
+  PyTorch calls phase 2 times beside K6 (index_put_) and K11 (the indexed
+  gather);
+- the road mask (K12) over the 8 wedges of the SP run of phase 5's OS1-128
+  scan (128 rings x 384 slots each), 8 launches per call, as the SP path
+  calls it.
 
 For each wrapper call: the device time of every device op it enqueued
 (kernels, memsets, copies), summed per call, and their count per call
@@ -54,7 +59,8 @@ def smoke_module():
 def scan_calls(dev, dims, cfg, scan) -> dict:
     """{kernel: wrapper call} of K4-K14 on one scan (a (M, >=3) host array)
     padded to dims, on the inputs chip_smoke.py's phase 2 gives them, plus
-    "index_put" (the PyTorch call phase 2 times beside K6).  K6 is called
+    "index_put" and "gather" (the PyTorch calls phase 2 times beside K6 and
+    K11).  K6 is called
     as the tree's ops.place takes it: with K5's group totals and a tuple
     of fields, or, in trees from before that argument, with x, y, z."""
     import torch
@@ -103,6 +109,10 @@ def scan_calls(dev, dims, cfg, scan) -> dict:
                                torch.clamp(pos, max=p).long()),
                               torch.stack([x, y, z], 1))
 
+    def gather():
+        return flooded[torch.clamp(ring_id, 0, r - 1).long(),
+                       torch.clamp(pos, 0, p - 1).long()]
+
     return {
         "star_walk": lambda: star.star_walk(*streams, cfg),
         "group_rank": lambda: group_positions(ring_id, r + 1),
@@ -115,11 +125,33 @@ def scan_calls(dev, dims, cfg, scan) -> dict:
         "marker_points": lambda: mk.marker_points(road, num_rings, kf),
         "gather_pack": lambda: gather_pack(flooded, ring_id, pos, valid, ok,
                                            prr),
+        "gather": gather,
         "flood_road": lambda: bs.flood_road(stenciled, *reach, w, bz),
         "marker_first_nonroad": lambda: mk.marker_first_nonroad(road,
                                                                 num_rings),
         "marker_state": lambda: marker_state(srt, num_rings),
     }
+
+
+def sp_wedge_calls(dev, c, cfg) -> dict:
+    """{"flood_road": K12 over the wedges of one SP run of phase 5's OS1-128
+    scan, as the SP path calls it (one launch per wedge)}."""
+    import torch
+
+    from urban_road_filter_torch import pad_scan
+    from urban_road_filter_torch.ops import blind_spots as bs
+    from urban_road_filter_torch.parallel.azimuth_parallel import (
+        _rows, make_azimuth_pipeline)
+
+    _, dims, scan, _ = c.sp_deployments()[0]
+    host = torch.from_numpy(pad_scan(scan, dims.max_points)).to(dev)
+    probe = {}
+    make_azimuth_pipeline(c.WEDGES, cfg, dims, device=dev)(host, probe=probe)
+    wedges = [_rows(probe["layout"], k, dims.rings) for k in range(c.WEDGES)]
+    reach = (probe["reach_f"], probe["reach_b"])
+    return {"flood_road": lambda: [bs.flood_road(lay, *reach, probe["w"],
+                                                 cfg.beam_zone)
+                                   for lay in wedges]}
 
 
 def scan_shapes(c):
@@ -246,6 +278,8 @@ def main() -> int:
     for name, dims, host in scan_shapes(c):
         print(f"{name} ({dims.rings} x {dims.ring_capacity})", end=" ")
         out["per_scan"][name] = profiled(scan_calls(dev, dims, cfg, host))
+    print(f"sp_wedges ({c.WEDGES} x 128 x 384)", end=" ")
+    out["sp_wedges"] = profiled(sp_wedge_calls(dev, c, cfg))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

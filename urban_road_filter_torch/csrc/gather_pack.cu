@@ -17,7 +17,8 @@
 // >= 30-point gate `ok` (a device scalar, so the host never waits for it)
 // zeroes everything of a scan that is not evaluated, and the thread writes
 // the int8 label, the ROI and probably-road flags, and the packed byte
-// label | roi << 2 | probably_road << 3.
+// label | roi << 2 | probably_road << 3.  A point is probably road when its
+// ring id is prr and a ring of the table: the id `rings` means "no ring".
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -42,7 +43,7 @@ __global__ void gather_pack_kernel(const int* __restrict__ table, int rings,
   if (gate && r >= 0 && r < rings && s >= 0 && s < cap)
     lab = table[(size_t)r * cap + s];
   const bool v = gate && valid[i];
-  const bool pr = gate && r == prr;
+  const bool pr = gate && r == prr && r < rings;
   const int8_t lab8 = (int8_t)lab;
   labels[i] = lab8;
   roi[i] = v;

@@ -15,10 +15,12 @@ also returns the marker stage's per-bin first non-road key ``kf``
 (ops/markers.py), or ``flood_road`` (K12, replacing
 flood_scan.labeled_pallas), the road mask alone, which the unfused path
 (``blind_spots(want_marker_f=False)``) and the azimuth-sharded path run.
-On a CPU layout each runs its plain twin: the JAX
-package's dense compare-reduces over the (ring, slot, start) cube (its
-non-TPU branch, :180-191), evaluated a few rings at a time so the cube
-never exceeds ~16M elements.
+The kernels of K9 and K12 find the starts whose window holds a slot as an
+interval (fl(i +- w_k) is monotone in i), by bisection, and test it against
+prefix counts of the reach bits (csrc/flood.cu).  On a CPU layout each
+runs its plain twin: the JAX package's dense compare-reduces over the
+(ring, slot, start) cube (its non-TPU branch, :180-191), evaluated a few
+rings at a time so the cube never exceeds ~16M elements.
 
 Float semantics follow the C++ and the JAX package: integer starts compared
 in f32, window bounds i +- w_k in f32, the `i == 360-beamZone` /
@@ -37,7 +39,7 @@ from urban_road_filter_torch.constants import LABEL_CURB, LABEL_ROAD
 from urban_road_filter_torch import _build
 from urban_road_filter_torch.ops.geometry import F32, I32, RingLayout, f32
 from urban_road_filter_torch.ops.markers import (
-    I64, N_BINS, NO_KEY, first_nonroad_keys)
+    I64, N_BINS, first_nonroad_keys)
 
 _NI = 362  # start angles 0..361 (361 used; one pad, as in the JAX package)
 _CUBE = 1 << 24  # elements of one (rings, slots, starts) chunk
@@ -250,7 +252,7 @@ def flood_labeled(layout: RingLayout, reach_f, reach_b, w, beam_zone,
     _build.check(reach_b, "reach_b", torch.bool, (r, _NI), dev)
     _build.check(num_rings, "num_rings", I32, (), dev)
     label = torch.empty_like(layout.label)
-    kf = torch.full((N_BINS,), NO_KEY, dtype=I64, device=dev)
+    kf = torch.empty((N_BINS,), dtype=I64, device=dev)  # written whole
     _build.launch("flood_labeled", "urf_flood_labeled", dev,
                   _build.ptr(layout.alpha), _build.ptr(layout.label),
                   _build.ptr(layout.counts), _build.ptr(w),

@@ -7,10 +7,13 @@ at its (ring_id, pos) address.  Port of urban_road_filter_tpu/ops/
 gather.py:gather_by_group_pos (K11) fused with the output stage of
 pipeline.py:199-212,272-277: the >= 30-point gate ``ok``, the int8 labels,
 the ROI and probably-road flags and the packed uint8 wire plane
-``label | roi << 2 | probably_road << 3``.  A CUDA tensor goes through the
-hand-written kernel csrc/gather_pack.cu; a CPU tensor through the plain twin
-below.  Unlike the TPU kernel's i8 path (gather.py:113), a negative index
-reads as 0.
+``label | roi << 2 | probably_road << 3``.  A point is probably road when
+its ring id equals ``probably_road_ring`` and is a ring of the table, so
+``probably_road_ring == rings`` (the "no ring" id of every point outside
+the ROI) flags none, as the oracle returns none (the JAX package flags
+them all).  A CUDA tensor goes through the hand-written kernel
+csrc/gather_pack.cu; a CPU tensor through the plain twin below.  Unlike the
+TPU kernel's i8 path (gather.py:113), a negative index reads as 0.
 """
 
 from __future__ import annotations
@@ -36,7 +39,8 @@ def gather_pack_plain(table, ids, pos, valid, ok, probably_road_ring: int):
     lab = torch.where(ok, gather_by_group_pos(table, ids, pos), 0).to(
         torch.int8)
     roi = valid & ok
-    pr = (ids == probably_road_ring) & ok
+    r = table.shape[0]
+    pr = (ids == probably_road_ring) & (ids < r) & ok
     packed = lab.to(U8) | (roi.to(U8) << 2) | (pr.to(U8) << 3)
     return lab, roi, pr, packed
 

@@ -440,7 +440,8 @@ def _run(x, y, z, cfg: FilterConfig, dims: PipelineDims, lw: LocalWedges,
             markers=torch.where(ok, markers, 0.0),
             overflow=part_overflow + overflow,
             star_overflow=torch.zeros((), dtype=I32, device=dev),
-            probably_road=(ring_id == int(cfg.probably_road_ring)) & ok)
+            probably_road=((ring_id == int(cfg.probably_road_ring))
+                           & (ring_id < rings) & ok))
 
 
 def make_azimuth_pipeline(n_wedges: int, cfg: FilterConfig,
@@ -460,7 +461,9 @@ def make_azimuth_pipeline(n_wedges: int, cfg: FilterConfig,
 
     ``wedge_slack`` over-provisions each wedge's ring slots beyond the
     uniform share ring_capacity / n_wedges (rounded up to 64, capped at
-    ring_capacity), for the azimuth-density skew of real sensors."""
+    ring_capacity), for the azimuth-density skew of real sensors.  Raises
+    ValueError where the markers' f32 scan positions could pass 2^24:
+    dims.rings x (min(max_points, n_wedges x slots per wedge) + 1) > 2^24."""
     if 360 % n_wedges != 0:
         raise ValueError(f"{n_wedges} wedges must divide 360 (star beams "
                          "may not straddle wedges)")
@@ -472,6 +475,15 @@ def make_azimuth_pipeline(n_wedges: int, cfg: FilterConfig,
     if dims.rings > ingest.MAX_RINGS:
         raise ValueError(f"at most {ingest.MAX_RINGS} rings, got "
                          f"{dims.rings}")
+    # K14 carries the global scan position g = ring * P_glob + prefix + slot
+    # in f32 (_markers), with P_glob at most min(N, n_wedges * cap) + 1: g
+    # must stay below 2^24 to be exact.
+    g_end = dims.rings * (min(n, n_wedges * cap) + 1)
+    if g_end > 1 << 24:
+        raise ValueError(
+            f"scan positions up to {g_end} ({dims.rings} rings x "
+            f"(min({n}, {n_wedges} wedges x {cap} slots) + 1)) are not "
+            f"f32-exact; lower wedge_slack or ring_capacity")
     lw = LocalWedges(n_wedges)
 
     def run(pts, cfg_now: FilterConfig | None = None, layout: str = "rows",
