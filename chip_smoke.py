@@ -23,14 +23,18 @@
    scans as rows and as planes, on 2 merged multi-LiDAR scans (262144
    points, 128 rings), on an all-invalid scan and on a scan with a NaN
    vertical angle in the ROI.
-   The per-scan kernels (K4 star walk, K5 rank, K6 place, K7 x/z-zero,
+   The per-scan kernels (K4 star search, K5 rank, K6 place, K7 x/z-zero,
    K8 + K9 flood fill, K10 markers, K11 gather+pack, K12 road mask, K13
    marker keys, K14 marker state) run on one emulated OS1-64 scan (131072
    points, 64 rings x 4096 slots), and again at the two shapes phase 4
    gives them: a bench lane (64 rings x 2048 slots) and a merged
    multi-LiDAR scan (262144 points, 128 rings x 2048 slots).  At each
-   shape K6 also runs on the inputs of place_cases (strided x/y/z,
-   capacity 64, capacity 1023 with one and two fields) and K10 on those
+   shape K4 also runs with the beams merged 60 to one and with every beam
+   point in one beam (buckets longer than its shared chunk), and is held
+   against the plain walk of the beam-sorted streams (its plain version);
+   K5 also on ids over 9, 65, 129, 1025 and 2049 groups; K6 also runs on
+   the inputs of place_cases (strided x/y/z, capacity 64, capacity 1023
+   with one and two fields) and K10 on those
    of marker_cases (ties across every row-block, every candidate past
    kf, num_rings 5, no counts), on the layout and again at capacity 1023;
    K9 and K12 on those of flood_cases (window widths 0 to inf and NaN,
@@ -50,6 +54,9 @@
    star search off.  Launch counters are zeroed just before and read just
    after: every kernel of the path must have run.  Each result is gated
    against the numpy oracle (agreement >= 0.999, 0 systematic flips).
+   Then two_curbs, blind_spot and curb_gap again with the x/z-zero
+   stencils off, gated the same way (their star-hit curbs sit at the 2-D
+   azimuth 60.0, where a flood window starts).
 4. Drives the batch pipeline (process_batch, default configuration) on the
    replay benchmark's batch: 128 planar scans of 131072 points, 64 rings x
    2048 slots, two_curbs and blind_spot alternating (bench.py).  Launch
@@ -92,7 +99,8 @@ import numpy as np
 import torch
 
 REPS = 50  # timed launches per kernel / twin (after 5 warm-up launches)
-WALK_REPS = 5  # timed launches of the star walk's twin (one op per step)
+WALK_REPS = 5  # timed launches of the star search's plain version (one op
+# per walk step)
 SCAN_REPS = 5  # timed pipeline runs per scan (after 1 warm-up run)
 BATCH_REPS = 3  # timed batch runs (after 1 warm-up run)
 BATCH = 128  # scans in the phase-4 batch (bench.py's replay batch)
@@ -539,6 +547,32 @@ def flood_cases(layout, num_rings):
     return cases
 
 
+def rank_ids(n, groups, seed=3):
+    """(n,) int32 group ids in [0, groups), made from a seed, in runs of
+    random length as rings of an azimuth-major scan give them."""
+    rng = np.random.default_rng(seed + groups)
+    runs = rng.integers(1, 40, n)
+    return np.repeat(rng.integers(0, groups, n), runs)[:n].astype(np.int32)
+
+
+def star_chain_steps(fk, r_key, z, hp) -> int:
+    """The longest walk of the star search, in steps: per beam the position
+    of its triggering point in the beam's radius order, or the beam's
+    length where nothing trips."""
+    from urban_road_filter_torch.ops import star
+
+    fk_s, _, _, pid = star.beam_order(fk, r_key, z)
+    beam = fk_s.long()
+    inb = beam < 360
+    length = torch.bincount(beam[inb], minlength=360)
+    start = torch.cumsum(length, 0) - length
+    steps = length.clone()
+    hit = torch.nonzero(hp > 0).flatten()
+    at = torch.nonzero(torch.isin(pid, (hp[hit] - 1).to(pid.dtype))).flatten()
+    steps[beam[at]] = at - start[beam[at]]
+    return int(steps.max())
+
+
 def phase_kernels(dev, dims, cfg, scan, what, timed=True):
     """Each per-scan kernel against its plain twin on one scan (a (M, >=3)
     host array) padded to dims, and the unfused flood/marker path against
@@ -547,7 +581,7 @@ def phase_kernels(dev, dims, cfg, scan, what, timed=True):
     from urban_road_filter_torch import launch_counts, pad_scan
     from urban_road_filter_torch import reset_launch_counts
     from urban_road_filter_torch.ops import blind_spots as bs
-    from urban_road_filter_torch.ops import geometry
+    from urban_road_filter_torch.ops import geometry, ingest
     from urban_road_filter_torch.ops import markers as mk
     from urban_road_filter_torch.ops import star
     from urban_road_filter_torch.ops.gather import (
@@ -592,21 +626,45 @@ def phase_kernels(dev, dims, cfg, scan, what, timed=True):
               f"library {'none' if lib is None else f'{lib:.4f} ms'}",
               flush=True)
 
-    # K4: the star walk over the beam-sorted streams; also with the beams
-    # merged 60 to one, so that segments outgrow the kernel's staging chunk.
-    streams = star.beam_streams(x, y, z, valid, cfg)
-    fk = streams[0]
-    merged = (torch.where(fk < 360, fk // 60, fk), *streams[1:])
-    max_abs_err((star.star_walk(*merged, cfg),),
-                (star.star_walk_plain(*merged, cfg),))
-    k4 = lambda: star.star_walk(*streams, cfg)
-    p4 = lambda: star.star_walk_plain(*streams, cfg)
+    # K4: the star search from the unsorted K1 keys, z a strided rows
+    # view as packed_scan gives it; also with the beams merged 60 to one
+    # and with every beam point in one beam, so that buckets outgrow the
+    # kernel's shared chunk.  The bound counts fk and r_key read, z read
+    # for the beam points and hp written, and ~20 operations per beam point
+    # and 4 per point.  Printed beside it, not in the kernels line: an
+    # estimate of the walk's chain, the longest walk in steps (the plain
+    # walk's trip position, or the beam's length) times ~16 dependent
+    # cycles per step at the H100's 1.98 GHz boost clock.
+    _, fk1, rk1, _ = ingest.ingest_prep(x[None], y[None], z[None], cfg)
+    fk, rk, zs = fk1[0], rk1[0], pts[:, 2]
+    for case in (torch.where(fk < 360, fk // 60, fk),
+                 torch.where(fk < 360, 7, fk)):
+        got = star.star_search(case, rk, zs, cfg)
+        max_abs_err((got,), (star.star_search_plain(case, rk, zs, cfg),))
+        assert int((got > 0).sum()) > 0
+    k4 = lambda: star.star_search(fk, rk, zs, cfg)
+    p4 = lambda: star.star_search_plain(fk, rk, zs, cfg)
     hits = k4()
     assert int((hits > 0).sum()) > 30, "the scan must trigger star hits"
+    nb = int((fk < 360).sum())
     record("star_walk", (hits,), (p4(),), k4, p4, WALK_REPS,
-           nbytes=16 * n + 360 * 4, ops=20 * int((fk < 360).sum()))
+           nbytes=8 * n + 4 * nb + 360 * 4, ops=20 * nb + 4 * n)
+    if timed:
+        steps = star_chain_steps(fk, rk, zs, hits)
+        print(f"    star_walk chain: longest walk {steps} steps x ~16 "
+              f"dependent cycles at 1.98 GHz = "
+              f"{steps * 16 / 1.98e9 * 1e3:.4f} ms (an estimate, not "
+              f"measured)", flush=True)
 
-    # K5: stable rank within ring, rings + 1 groups.
+    # K5: stable rank within ring, rings + 1 groups; then random ids over
+    # 9, 65, 129, 1025 and 2049 groups (the SP path's 8 and 16 wedges x
+    # 128 rings + 1), in runs as azimuth-major scans give them.
+    for groups in (9, 65, 129, 1025, 2049):
+        ids = torch.from_numpy(rank_ids(n, groups)).to(dev)
+        max_abs_err(group_positions(ids, groups),
+                    group_positions_plain(ids, groups))
+    print("    group_rank at 9, 65, 129, 1025 and 2049 groups: bit-equal",
+          flush=True)
     k5 = lambda: group_positions(ring_id, r + 1)
     p5 = lambda: group_positions_plain(ring_id, r + 1)
     pos, counts = k5()
@@ -951,15 +1009,30 @@ def boundary_flips(got, want, pts) -> int:
     return int(flips.size)
 
 
-def wedge_kernels(probe, rings: int, bz: float) -> None:
-    """K12, K13 and K14 against their twins on each wedge of a real SP run:
-    its sorted wedge layouts, reach, window widths, g_offset and f_init."""
+def wedge_kernels(probe, rings: int, cfg) -> None:
+    """K4, K5, K12, K13 and K14 against their twins on the inputs of a real
+    SP run: K4 on each wedge's star keys, K5 on the ids of its two calls,
+    K12-K14 on each sorted wedge layout with its reach, window widths,
+    g_offset and f_init."""
     from urban_road_filter_torch.ops import blind_spots as bs
     from urban_road_filter_torch.ops import markers as mk
+    from urban_road_filter_torch.ops import star
     from urban_road_filter_torch.ops.marker_state import (
         marker_state, marker_state_plain)
+    from urban_road_filter_torch.ops.rank import (
+        group_positions, group_positions_plain)
     from urban_road_filter_torch.parallel.azimuth_parallel import _rows
 
+    bz = cfg.beam_zone
+    xw, yw, zw, vw, fkw, rkw = probe["star"]
+    for k in range(WEDGES):
+        fk, rk = star._star_keys(xw[k], yw[k], zw[k], vw[k], cfg,
+                                 (fkw[k], rkw[k]))
+        max_abs_err((star.star_search(fk, rk, zw[k], cfg),),
+                    (star.star_search_plain(fk, rk, zw[k], cfg),))
+    for groups, ids in probe["rank_ids"].items():
+        max_abs_err(group_positions(ids, groups),
+                    group_positions_plain(ids, groups))
     nr = probe["num_rings"]
     reach = (probe["reach_f"], probe["reach_b"])
     for k in range(WEDGES):
@@ -1040,10 +1113,11 @@ def phase_sp(dev, configs, smi, device_parity_gate):
         run = make_azimuth_pipeline(WEDGES, configs["default"], dims,
                                     device=dev)
         run(host.to(dev), probe=probe)
-        wedge_kernels(probe, dims.rings, configs["default"].beam_zone)
-        print(f"  {name}: K12, K13, K14 bit-equal to their twins on each "
-              f"wedge ({dims.rings} x "
-              f"{probe['layout'].x.shape[1]} slots)", flush=True)
+        wedge_kernels(probe, dims.rings, configs["default"])
+        print(f"  {name}: K4 ({per_wedge} points), K12, K13, K14 "
+              f"({dims.rings} x {probe['layout'].x.shape[1]} slots) on each "
+              f"wedge and K5 at {sorted(probe['rank_ids'])} groups bit-equal "
+              f"to their twins", flush=True)
     return total
 
 
@@ -1106,27 +1180,40 @@ def main() -> int:
     runs, scan_launches = phase_pipeline(dev, dims, configs, scans)
     print(f"  launches: {scan_launches}")
     assert_launched(scan_launches, SCAN_KERNELS, "the scan path")
-    for cname, k, fetched, p50 in runs:
-        name, pts = scans[k]
-        packed, markers, ok, num_rings, overflow = (t.numpy()
-                                                    for t in fetched)
-        assert packed.shape == (dims.max_points,) and packed.dtype == np.uint8
-        assert markers.shape == (361, 6) and np.isfinite(markers).all()
-        assert bool(ok) and int(num_rings) > 0
-        labels, _, _ = unpack_planes(packed)
-        assert int(labels.max()) <= 2
-        agree, n_sys = device_parity_gate(pts, labels, markers,
-                                          configs[cname], name)
-        print(f"  {cname} {name}: p50 {p50:.3f} ms, parity {agree:.6f}, "
-              f"systematic {n_sys}, rings {int(num_rings)}, "
-              f"overflow {int(overflow)}", flush=True)
-        assert agree >= 0.999 and n_sys == 0, (cname, name, agree, n_sys)
+
+    def gate_scans(runs, scans, configs):
+        for cname, k, fetched, p50 in runs:
+            name, pts = scans[k]
+            packed, markers, ok, num_rings, overflow = (t.numpy()
+                                                        for t in fetched)
+            assert (packed.shape == (dims.max_points,)
+                    and packed.dtype == np.uint8)
+            assert markers.shape == (361, 6) and np.isfinite(markers).all()
+            assert bool(ok) and int(num_rings) > 0
+            labels, _, _ = unpack_planes(packed)
+            assert int(labels.max()) <= 2
+            agree, n_sys = device_parity_gate(pts, labels, markers,
+                                              configs[cname], name)
+            print(f"  {cname} {name}: p50 {p50:.3f} ms, parity {agree:.6f}, "
+                  f"systematic {n_sys}, rings {int(num_rings)}, "
+                  f"overflow {int(overflow)}", flush=True)
+            assert agree >= 0.999 and n_sys == 0, (cname, name, agree, n_sys)
+
+    gate_scans(runs, scans, configs)
     assert_no_jax()
     for cname in configs:
         lat = [p50 for c, _, _, p50 in runs if c == cname]
         print(f"  {cname}: scan latency p50 over scans "
               f"{statistics.median(lat):.3f} ms (host to host, incl. H2D + "
               f"D2H)")
+    # The x/z-zero stencils off on the scenes whose star-hit curbs sit at
+    # the 2-D azimuth 60.0, where a flood window starts: the gate passes
+    # only where the port's azimuth is the oracle's (geometry.azimuth_2d).
+    off = {"stencils_off": FilterConfig(x_zero_method=False,
+                                        z_zero_method=False)}
+    at_sixty = [s for s in scans
+                if s[0] in ("two_curbs", "blind_spot", "curb_gap")]
+    gate_scans(phase_pipeline(dev, dims, off, at_sixty)[0], at_sixty, off)
 
     print(f"phase 4: process_batch on {BATCH} planar scans of 131072 "
           f"points (default configuration)", flush=True)

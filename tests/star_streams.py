@@ -31,3 +31,23 @@ def walk_streams(seed, max_len=300):
     z = np.concatenate([z, rng.normal(size=sink).astype(F32)])
     pid = rng.permutation(n + sink).astype(I32)
     return fk, r, z, pid
+
+
+def scatter_streams(streams, seed=0):
+    """Unsorted star inputs whose stable (beam, radius, input order) order
+    is the order of the beam-sorted streams (fk, r, z, pid): the points are
+    placed at random input indices, increasing along each run of equal
+    (beam, radius), so ties keep their stream order.  Returns ((fk, r, z)
+    in input order, pid): pid[s] is the input index of stream element s."""
+    fk, r, z, _ = streams
+    n = fk.size
+    q = np.random.default_rng(seed).permutation(n)
+    run = np.cumsum(np.r_[0, (fk[1:] != fk[:-1])
+                          | (r[1:].view(I32) != r[:-1].view(I32))])
+    pid = q[np.lexsort((q, run))].astype(I32)
+    out = []
+    for a in (fk, r, z):
+        b = np.empty_like(a)
+        b[pid] = a
+        out.append(b)
+    return tuple(out), pid

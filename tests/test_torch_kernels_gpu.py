@@ -2,7 +2,11 @@
 
 Needs a CUDA device (skips without one).  The same checks as phase 2 of
 chip_smoke.py at small shapes: every kernel output bit-equal to its twin's
-on the same CUDA tensors; ring discovery (K2) and assignment (K3) also at
+on the same CUDA tensors; the star search (K4) from unsorted keys also
+with buckets past its shared chunk, every beam point in one beam, 60 beams
+merged, the sink only, one point per beam and -0.0 / NaN radii; the rank
+(K5) at 1 to 2049 groups with ids outside the range; ring discovery (K2)
+and assignment (K3) also at
 full size (131072 points at B = 1 and 128, 128 rings), placement (K6) and
 the marker table (K10) at 64 rings x 4096 and 1023 slots, on the inputs
 that stress their designs (K6 and K10 on chip_smoke.py's place_cases and
@@ -20,7 +24,7 @@ import numpy as np
 import pytest
 import torch
 
-from star_streams import walk_streams
+from star_streams import scatter_streams, walk_streams
 
 from urban_road_filter_torch import (
     FilterConfig, PipelineDims, _build, pad_scan, planarize_batch,
@@ -77,14 +81,18 @@ def _rings(dev, scene="two_curbs", seed=0, cfg=FilterConfig()):
 @pytest.mark.parametrize("seed,max_len", [(0, 300), (1, 3000)])
 @pytest.mark.parametrize("kw", [dict(), dict(kdev_param=0.6, dmin_param=3)])
 def test_star_walk_kernel(dev, seed, max_len, kw):
-    # max_len 3000: beams longer than the kernel's staging chunk.
+    # K4 on the unsorted inputs of the beam-sorted streams; max_len 3000:
+    # buckets longer than the kernel's shared chunk (1024 keys).
     cfg = FilterConfig(**kw)
-    streams = [torch.from_numpy(a).to(dev) for a in walk_streams(seed,
-                                                                 max_len)]
+    streams = walk_streams(seed, max_len)
+    (fk, r, z), pid = scatter_streams(streams, seed)
+    fk, r, z = (torch.from_numpy(a).to(dev) for a in (fk, r, z))
     before = _build.launch_counts()["star_walk"]
-    got = star.star_walk(*streams, cfg)
+    got = star.star_search(fk, r, z, cfg)
     assert _build.launch_counts()["star_walk"] == before + 1
-    _assert_same((got,), (star.star_walk_plain(*streams, cfg),))
+    sorted_ = [torch.from_numpy(a).to(dev) for a in (*streams[:3], pid)]
+    _assert_same((got,), (star.star_walk_plain(*sorted_, cfg),))
+    _assert_same((got,), (star.star_search_plain(fk, r, z, cfg),))
     assert int((got > 0).sum()) > 30
 
 
@@ -93,21 +101,92 @@ def test_star_walk_kernel(dev, seed, max_len, kw):
 def test_star_hits_kernel(dev, scene, kw):
     cfg = FilterConfig(**kw)
     x, y, z, valid, _, _ = _rings(dev, scene, cfg=cfg)
-    streams = star.beam_streams(x, y, z, valid, cfg)
-    got = star.star_walk(*streams, cfg)
-    _assert_same((got,), (star.star_walk_plain(*streams, cfg),))
+    got = star.star_hits(x, y, z, valid, cfg)
+    _assert_same((got,), (star.star_walk_plain(
+        *star.beam_streams(x, y, z, valid, cfg), cfg),))
     assert int((got > 0).sum()) > 30
 
 
-@pytest.mark.parametrize("n,groups,seed", [(300, 5, 0), (4096, 65, 1),
-                                           (5000, 361, 2), (131072, 65, 3)])
+def _star_keys(dev, scene="two_curbs"):
+    """(fk, r_key, z) of a scan from K1, z a strided rows-layout view."""
+    pts = make_scan(SCENES[scene](), n_rings=24, n_azimuth=384, seed=3)
+    rows = torch.from_numpy(pad_scan(pts, N)).to(dev)
+    x, y, z, _ = geometry.xyz_of(rows, "rows")
+    _, fk, r_key, _ = ingest.ingest_prep(x[None], y[None], z[None],
+                                         FilterConfig())
+    return fk[0], r_key[0], z
+
+
+@pytest.mark.parametrize("case", ["one beam", "60 merged", "sink only",
+                                  "odd radii", "one point per beam"])
+def test_star_search_cases(dev, case):
+    fk, r, z = _star_keys(dev)
+    if case == "one beam":  # every point in the ROI in one bucket
+        fk = torch.where(fk < 360, 7, fk)
+    elif case == "60 merged":
+        fk = torch.where(fk < 360, fk // 60, fk)
+    elif case == "sink only":
+        fk = torch.full_like(fk, 360)
+    elif case == "odd radii":  # -0.0, NaN, ties and negatives in beams
+        rng = np.random.default_rng(4)
+        pick = torch.from_numpy(rng.integers(0, 5, fk.shape[0])).to(dev)
+        odd = torch.tensor([-0.0, float("nan"), 0.0, -1.0, 3.0],
+                           device=dev)[pick]
+        r = torch.where(torch.from_numpy(rng.random(fk.shape[0]) < 0.3)
+                        .to(dev), odd, r)
+    else:
+        iota = torch.arange(fk.shape[0], device=dev)
+        first = torch.full((361,), fk.shape[0], device=dev).scatter_reduce(
+            0, fk.long(), iota, "amin")
+        fk = torch.where((iota == first[fk.long()]) & (fk < 360), fk, 360)
+    got = star.star_search(fk, r, z, FilterConfig())
+    _assert_same((got,), (star.star_search_plain(fk, r, z, FilterConfig()),))
+    if case in ("sink only", "one point per beam"):
+        assert not bool(got.any())
+
+
+def _rank_ids(n, groups, seed, outside):
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(0, groups, n).astype(np.int32)
+    if outside:
+        bad = rng.random(n) < 0.1
+        ids[bad] = rng.choice(np.array([-1, -7, groups, groups + 3],
+                                       np.int32), int(bad.sum()))
+    return ids
+
+
+def _rank_np(ids, groups):
+    """pos[i] = # of j < i with ids[j] == ids[i] (-1 outside [0, groups)),
+    counts[g] = # of ids == g."""
+    pos = np.full(ids.shape, -1, np.int32)
+    seen = {}
+    for i, g in enumerate(ids.tolist()):
+        if 0 <= g < groups:
+            pos[i] = seen.get(g, 0)
+            seen[g] = pos[i] + 1
+    return pos, np.bincount(ids[(ids >= 0) & (ids < groups)],
+                            minlength=groups).astype(np.int32)
+
+
+@pytest.mark.parametrize("n,groups,seed", [
+    (300, 5, 0), (4096, 65, 1), (5000, 361, 2), (131072, 65, 3),
+    (131072 + 17, 9, 4), (262144 - 5, 129, 5), (262144, 1025, 6),
+    (262144 + 3, 2049, 7), (1, 1, 8), (300 * 1024 + 7, 9, 9)])
 def test_rank_kernel(dev, n, groups, seed):
-    ids = torch.from_numpy(np.random.default_rng(seed).integers(
-        0, groups, n).astype(np.int32)).to(dev)
+    ids = torch.from_numpy(_rank_ids(n, groups, seed, False)).to(dev)
     before = _build.launch_counts()["group_rank"]
     _assert_same(group_positions(ids, groups),
                  group_positions_plain(ids, groups))
     assert _build.launch_counts()["group_rank"] == before + 1
+
+
+@pytest.mark.parametrize("n,groups", [(5000, 9), (70001, 1025), (9000, 2049)])
+def test_rank_kernel_ids_outside(dev, n, groups):
+    ids = _rank_ids(n, groups, n, True)
+    pos, counts = group_positions(torch.from_numpy(ids).to(dev), groups)
+    want_pos, want_counts = _rank_np(ids, groups)
+    np.testing.assert_array_equal(pos.cpu().numpy(), want_pos)
+    np.testing.assert_array_equal(counts.cpu().numpy(), want_counts)
 
 
 @pytest.mark.parametrize("cap", [CAP, 64])

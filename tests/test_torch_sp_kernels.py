@@ -34,6 +34,8 @@ from urban_road_filter_tpu.ops.markers import marker_points as jmarkers
 from urban_road_filter_tpu.ops.star import star_shaped
 from urban_road_filter_tpu.ops.xzero import _new_y_table
 from urban_road_filter_tpu.ops.xzero import x_zero as jx_zero
+from urban_road_filter_tpu.oracle.reference import (
+    azimuth_2d as oracle_azimuth_2d)
 from urban_road_filter_torch.convert import filter_config, layout_from_numpy
 from urban_road_filter_torch.ops import blind_spots as bs
 from urban_road_filter_torch.ops import geometry
@@ -43,6 +45,7 @@ from urban_road_filter_torch.ops.markers import (
     first_nonroad_keys, marker_first_nonroad, marker_points)
 from urban_road_filter_torch.ops.stencil_kernels import fused_xz_zero
 from urban_road_filter_torch.ops.xzero import new_y_ladder, x_zero
+from torch_azimuth import assert_azimuth
 
 torch.set_num_threads(1)  # tier-1 runs several pytest workers
 
@@ -292,10 +295,11 @@ def test_sort_by_azimuth(scene, seed, bz, case):
     """sort_by_azimuth (pid carried or not) against the JAX package's: NaN
     azimuths sort after the finite ones, before the padding, and equal
     azimuths keep slot order, so every carried field is bit-equal.  The
-    azimuth is recomputed from the sorted x/y; torch's asin differs from
-    XLA's in the last bits on some inputs (a few ulp of alpha after the
-    quadrant offsets), so alpha is held bit-equal to the port's own
-    azimuth_2d of the sorted x/y and within two ulp of the JAX one."""
+    azimuth is recomputed from the sorted x/y: alpha is held bit-equal to
+    the port's own azimuth_2d of the sorted x/y and to the oracle's, and
+    within two ulp of the JAX one where the two packages' f32 brackets
+    agree, the JAX one everywhere within two ulp of the oracle's recipe on
+    its own bracket (tests/torch_azimuth.py)."""
     layout, _ = _flooded(scene, seed, bz, case)
     alpha = np.asarray(layout.alpha).copy()
     alpha[0, 1:4] = alpha[0, 5]  # ties
@@ -309,7 +313,8 @@ def test_sort_by_azimuth(scene, seed, bz, case):
             if f == "alpha":
                 np.testing.assert_array_equal(
                     g, geometry.azimuth_2d(got.x, got.y)[1].numpy())
-                np.testing.assert_allclose(g, w, rtol=2.4e-7, atol=0)
+                assert_azimuth(got.x.numpy(), got.y.numpy(), g, w,
+                               oracle_azimuth_2d)
             else:
                 np.testing.assert_array_equal(g, w, err_msg=f)
 

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Trees against each other on one CUDA card: the ingest kernels K1-K3,
-placement (K6), the flood fill (K9, K12) and the marker table (K10), and
-the end-to-end metrics of the PyTorch port.
+the star search (K4), rank and placement (K5, K6), the flood fill (K9,
+K12) and the marker table (K10), and the end-to-end metrics of the PyTorch
+port.
 
     python tools/ab_ingest_torch.py TREE [TREE ...] [--out F.json]
 
@@ -18,12 +19,15 @@ measures:
   scan (131072 points, 64 rings), at the SP call's shape (the OS1-128
   262144-point scan, 128 rings, valid0 & fits), on the ring-major OS1-64
   scan (K2's worst case) and at B = 128 (chip_smoke.py's phase-4 batch);
-- CUDA-event times, the same way, of K6 group_place, of the index_put_
-  call chip_smoke.py times beside it, of K9 flood_labeled, K10
-  marker_points and K12 flood_road, at phase 2's three per-scan shapes: the OS1-64 scan (64 rings x 4096 slots), a
-  bench lane (64 x 2048) and a merged multi-LiDAR scan (128 x 2048)
-  (inputs from tools/profile_ring_kernels.py's scan_calls, which calls
-  each tree's K6 in the form that tree takes);
+- CUDA-event times, the same way, of the whole star stage (star_hits
+  with the scan's K1 keys), K4 star_walk and, in trees whose K4 walks
+  sorted streams, the two stable sorts before it (beam_streams), K5
+  group_rank, K6 group_place, the index_put_ call chip_smoke.py times
+  beside it, K9 flood_labeled, K10 marker_points and K12 flood_road, at
+  phase 2's three per-scan shapes: the OS1-64 scan (64 rings x 4096
+  slots), a bench lane (64 x 2048) and a merged multi-LiDAR scan (128 x
+  2048) (inputs from tools/profile_ring_kernels.py's scan_calls, which
+  calls each tree's K4 and K6 in the form that tree takes);
 - scan latency p50 (packed_scan on the 9 scans of phase 3, default and
   star off), scans/s at batch 128 (phase 4's timing) and SP latency p50
   (8 wedges on the OS1-128 scan, default and star off), host to host.
@@ -118,8 +122,10 @@ def measure(tree: str) -> dict:
     for what, dims, scan in prof.scan_shapes(c):
         calls = prof.scan_calls(dev, dims, cfg, scan)
         out[what] = {k: c.cuda_ms(calls[k]) for k in
-                     ("group_place", "index_put", "flood_labeled",
-                      "marker_points", "flood_road")}
+                     ("star_stage", "star_walk", "beam_streams",
+                      "group_rank", "group_place", "index_put",
+                      "flood_labeled", "marker_points", "flood_road")
+                     if k in calls}
 
     configs = {"default": FilterConfig(), "star_off": cfg}
     runs, _ = c.phase_pipeline(dev, PipelineDims.for_sensor("os1-64"),

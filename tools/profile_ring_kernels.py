@@ -13,7 +13,7 @@ chip_smoke.py's phase 2:
   call's shape (262144 points, 128 rings, valid0 & fits), on two merged
   multi-LiDAR scans (262144 points, 128 rings) and on the phase-4 batch
   (B = 128); the ingest prep (K1) at B = 1 and B = 128;
-- the per-scan kernels K4-K14 (star walk, rank, place, x/z-zero, flood
+- the per-scan kernels K4-K14 (star search, rank, place, x/z-zero, flood
   fill, markers, gather + pack, road mask, marker keys, marker state) on
   the OS1-64 scan (64 rings x 4096 slots), a bench lane (64 x 2048) and a
   merged multi-LiDAR scan (128 x 2048), as phase 2 calls them, with the
@@ -21,7 +21,12 @@ chip_smoke.py's phase 2:
   gather);
 - the road mask (K12) over the 8 wedges of the SP run of phase 5's OS1-128
   scan (128 rings x 384 slots each), 8 launches per call, as the SP path
-  calls it.
+  calls it, the star search over the same 8 wedges (32768 points each),
+  and the SP path's two K5 calls (262144 ids over 9 and over 1025 groups),
+  the last two replayed from the calls a run of the tree's SP path made;
+- beside K4 the whole star stage as the pipeline calls it ("star_stage":
+  star_hits with the scan's K1 keys), and, in trees whose K4 walks sorted
+  streams, the two stable sorts on their own ("beam_streams").
 
 For each wrapper call: the device time of every device op it enqueued
 (kernels, memsets, copies), summed per call, and their count per call
@@ -60,14 +65,18 @@ def scan_calls(dev, dims, cfg, scan) -> dict:
     """{kernel: wrapper call} of K4-K14 on one scan (a (M, >=3) host array)
     padded to dims, on the inputs chip_smoke.py's phase 2 gives them, plus
     "index_put" and "gather" (the PyTorch calls phase 2 times beside K6 and
-    K11).  K6 is called
+    K11) and "star_stage", the whole star search as the pipeline calls it
+    (star_hits on the rows-layout views with the scan's K1 keys).  K4 is
+    called in the tree's form: from the unsorted keys (star_search), or, in
+    trees from before it, on the streams of the two stable sorts, which are
+    then timed on their own as "beam_streams".  K6 is called
     as the tree's ops.place takes it: with K5's group totals and a tuple
     of fields, or, in trees from before that argument, with x, y, z."""
     import torch
 
     from urban_road_filter_torch import pad_scan
     from urban_road_filter_torch.ops import blind_spots as bs
-    from urban_road_filter_torch.ops import geometry
+    from urban_road_filter_torch.ops import geometry, ingest
     from urban_road_filter_torch.ops import markers as mk
     from urban_road_filter_torch.ops import star
     from urban_road_filter_torch.ops.gather import gather_pack
@@ -85,7 +94,12 @@ def scan_calls(dev, dims, cfg, scan) -> dict:
     angles, num_rings = geometry.discover_rings(alpha, valid, cfg.interval,
                                                 rings=r)
     ring_id = geometry.assign_rings(alpha, valid, angles, cfg.interval)
-    streams = star.beam_streams(x, y, z, valid, cfg)
+    # The star stage as the pipeline calls it: rows-layout views and this
+    # scan's K1 keys.
+    rx, ry, rz, _ = geometry.xyz_of(pts, "rows")
+    _, fk1, rk1, _ = ingest.ingest_prep(rx[None], ry[None], rz[None], cfg)
+    keys = (fk1[0], rk1[0])
+    rvalid = geometry.roi_mask_xyz(rx, ry, rz, cfg)
     pos, counts = group_positions(ring_id, r + 1)
     layout, _ = geometry.tensorize(x, y, z, ring_id, p, rings=r)
     stenciled = layout._replace(label=fused_xz_zero(layout, cfg).label)
@@ -113,8 +127,17 @@ def scan_calls(dev, dims, cfg, scan) -> dict:
         return flooded[torch.clamp(ring_id, 0, r - 1).long(),
                        torch.clamp(pos, 0, p - 1).long()]
 
+    star_calls = {"star_stage": lambda: star.star_hits(rx, ry, rz, rvalid,
+                                                       cfg, keys)}
+    if hasattr(star, "star_search"):  # K4 from the unsorted keys
+        star_calls["star_walk"] = lambda: star.star_search(*keys, rz, cfg)
+    else:  # the two stable sorts, then K4 on the sorted streams
+        streams = star.beam_streams(rx, ry, rz, rvalid, cfg, keys)
+        star_calls["beam_streams"] = lambda: star.beam_streams(
+            rx, ry, rz, rvalid, cfg, keys)
+        star_calls["star_walk"] = lambda: star.star_walk(*streams, cfg)
     return {
-        "star_walk": lambda: star.star_walk(*streams, cfg),
+        **star_calls,
         "group_rank": lambda: group_positions(ring_id, r + 1),
         "group_place": place,
         "index_put": index_put,
@@ -135,23 +158,60 @@ def scan_calls(dev, dims, cfg, scan) -> dict:
 
 def sp_wedge_calls(dev, c, cfg) -> dict:
     """{"flood_road": K12 over the wedges of one SP run of phase 5's OS1-128
-    scan, as the SP path calls it (one launch per wedge)}."""
+    scan (configuration ``cfg``), as the SP path calls it (one launch per
+    wedge); "star_stage": the SP path's star_hits calls (one per wedge) and
+    "group_rank_G": its two K5 calls (G = 9 and 1025 groups), each as
+    recorded from a run of the tree's SP path with the default
+    configuration, so a tree is measured on the inputs its own partition
+    makes, whatever its probe holds}."""
     import torch
 
-    from urban_road_filter_torch import pad_scan
+    from urban_road_filter_torch import FilterConfig, pad_scan
     from urban_road_filter_torch.ops import blind_spots as bs
-    from urban_road_filter_torch.parallel.azimuth_parallel import (
-        _rows, make_azimuth_pipeline)
+    from urban_road_filter_torch.parallel import azimuth_parallel as ap
 
     _, dims, scan, _ = c.sp_deployments()[0]
     host = torch.from_numpy(pad_scan(scan, dims.max_points)).to(dev)
     probe = {}
-    make_azimuth_pipeline(c.WEDGES, cfg, dims, device=dev)(host, probe=probe)
-    wedges = [_rows(probe["layout"], k, dims.rings) for k in range(c.WEDGES)]
+    ap.make_azimuth_pipeline(c.WEDGES, cfg, dims, device=dev)(host,
+                                                              probe=probe)
+    wedges = [ap._rows(probe["layout"], k, dims.rings)
+              for k in range(c.WEDGES)]
     reach = (probe["reach_f"], probe["reach_b"])
-    return {"flood_road": lambda: [bs.flood_road(lay, *reach, probe["w"],
+
+    recorded = {"star_hits": [], "group_positions": []}
+
+    def recording(name):
+        fn = getattr(ap, name)
+
+        def call(*args, **kwargs):
+            recorded[name].append((args, kwargs))
+            return fn(*args, **kwargs)
+        return fn, call
+
+    saved = {name: recording(name) for name in recorded}
+    try:
+        for name, (_, call) in saved.items():
+            setattr(ap, name, call)
+        ap.make_azimuth_pipeline(c.WEDGES, FilterConfig(), dims,
+                                 device=dev)(host)
+    finally:
+        for name, (fn, _) in saved.items():
+            setattr(ap, name, fn)
+    star_hits = saved["star_hits"][0]
+    group_positions = saved["group_positions"][0]
+    # The star stage last: in trees where it is ~300 device ops a call, the
+    # profiler hands some of its events to the next profile, which then
+    # reads short.
+    calls = {f"group_rank_{a[1]}": (lambda a=a, kw=kw:
+                                    group_positions(*a, **kw))
+             for a, kw in recorded["group_positions"]}
+    calls["flood_road"] = lambda: [bs.flood_road(lay, *reach, probe["w"],
                                                  cfg.beam_zone)
-                                   for lay in wedges]}
+                                   for lay in wedges]
+    calls["star_stage"] = lambda: [star_hits(*a, **kw)
+                                   for a, kw in recorded["star_hits"]]
+    return calls
 
 
 def scan_shapes(c):
@@ -224,7 +284,9 @@ def main() -> int:
     inputs["b128"] = (alpha, valid, 64)
 
     def device_ms(fn):
-        """(device ms per call, device ops per call, {op: ms per call})."""
+        """(device ms per call, device ops per call, {op: ms per call});
+        None for the ms where the profiler saw no device op (every call
+        here launches one, so its events were lost: not measured)."""
         for _ in range(3):
             fn()
         torch.cuda.synchronize()
@@ -240,7 +302,7 @@ def main() -> int:
                     us = e.self_cuda_time_total
                 per[e.key[:60]] = us / CALLS / 1e3
                 ops += e.count
-        return sum(per.values()), ops / CALLS, per
+        return sum(per.values()) if ops else None, ops / CALLS, per
 
     def host_ms(fn):
         torch.cuda.synchronize()
@@ -257,8 +319,8 @@ def main() -> int:
             total, ops, per = device_ms(fn)
             res[kname] = {"device_ms": total, "device_ops": ops,
                           "host_ms": host_ms(fn), "kernels": per}
-        print(json.dumps({k: (round(v["device_ms"], 5), v["device_ops"],
-                              round(v["host_ms"], 5))
+        print(json.dumps({k: (v["device_ms"] and round(v["device_ms"], 5),
+                              v["device_ops"], round(v["host_ms"], 5))
                           for k, v in res.items()}), flush=True)
         return res
 

@@ -19,8 +19,10 @@ Prints the card's name and power limit; per stage (the pipeline's
 ``urf::<stage>`` ranges; a batch's ingest range covers K1-K3 over the
 whole batch) per scan the host ms, the device ms of its kernels and its
 span on the device timeline (gaps included); the device-busy share of the
-profiled wall time; the device ops per scan; and the kernels by device
-time.  Needs a CUDA device.
+profiled wall time; the device ops per scan; the kernels by device
+time; and, with the star search on, the star stage's device ms and device
+ops per scan, profiled on its own (star_hits on each scan's K1 keys, or on
+each wedge's with ``--sp``).  Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -46,6 +48,36 @@ def _union_us(intervals) -> float:
             total += e - max(s, end)
             end = e
     return total
+
+
+def star_calls(dev, cfg, args, hosts, call):
+    """[star_hits call] of each scan of a pass, on the card, as the
+    pipeline calls it: rows views (planar lanes of the batch) with the
+    scan's K1 keys, or, with ``--sp``, on each wedge's streams as one run of
+    the SP path hands them to its star search (its probe's "star")."""
+    from urban_road_filter_torch.ops import geometry, ingest
+    from urban_road_filter_torch.ops.star import star_hits
+
+    if args.sp:
+        probe = {}
+        call(hosts[0].to(dev), probe=probe)
+        xw, yw, zw, vw, fkw, rkw = probe["star"]
+        return [lambda k=k: star_hits(xw[k], yw[k], zw[k], vw[k], cfg,
+                                      (fkw[k], rkw[k]))
+                for k in range(xw.shape[0])]
+    out = []
+    for host in hosts:
+        pts = host.to(dev)
+        if args.batch:
+            x, y, z, _ = geometry.xyz_of(pts, "planar", batched=True)
+        else:
+            x, y, z, _ = geometry.xyz_of(pts, "rows")
+            x, y, z = x[None], y[None], z[None]
+        valid, fk, r_key, _ = ingest.ingest_prep(x, y, z, cfg)
+        out += [lambda b=b, x=x, y=y, z=z, v=valid, f=fk, r=r_key: star_hits(
+            x[b], y[b], z[b], v[b], cfg, (f[b], r[b]))
+            for b in range(x.shape[0])]
+    return out
 
 
 def main() -> int:
@@ -159,6 +191,27 @@ def main() -> int:
             kernels.append((self_dev_us / n / 1e3, e.count / n, e.key))
     kernels.sort(reverse=True)
 
+    # The star stage on its own: star_hits as the pipeline calls it, on
+    # each scan's (or wedge's, or lane's) K1 keys, profiled alone (the
+    # urf::star range credits only its PyTorch ops, not the kernel).
+    star = None
+    if cfg.star_shaped_method:
+        calls = star_calls(dev, cfg, args, hosts, call)
+        for fn in calls:  # warm-up
+            fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as sprof:
+            for _ in range(args.reps):
+                for fn in calls:
+                    fn()
+            torch.cuda.synchronize()
+        ev = [e for e in sprof.events() if e.device_type == DeviceType.CUDA]
+        m = args.reps * len(hosts) * scans_per_call
+        star = {"device_ms_per_scan": sum(e.time_range.end
+                                          - e.time_range.start
+                                          for e in ev) / m / 1e3,
+                "device_ops_per_scan": len(ev) / m} if ev else None
+
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -175,6 +228,7 @@ def main() -> int:
         "device_busy_share": busy_us / window_us if dev_events else None,
         "device_ops_per_scan": len(dev_events) / n,
         "stages": stages,
+        "star_stage": star,
         "kernels": [{"ms_per_scan": ms, "calls_per_scan": c, "name": k}
                     for ms, c, k in kernels[:30]],
     }
@@ -189,6 +243,12 @@ def main() -> int:
               f"ops per scan")
     else:
         print("device time: not measured (the profiler saw no device ops)")
+    if star:
+        print(f"star stage alone: {star['device_ms_per_scan']:.4f} ms device "
+              f"time, {star['device_ops_per_scan']:.1f} device ops per scan")
+    elif cfg.star_shaped_method:
+        print("star stage alone: not measured (the profiler saw no device "
+              "ops)")
     for name, s in stages.items():
         print(f"  stage {name:12s} host {s.get('host_ms', 0):8.3f} ms  "
               f"device {s.get('device_ms', 0):8.3f} ms  "

@@ -70,7 +70,7 @@ _SIGNATURES = {
                         _F, _I, _P, _P, _P, _P, _P, _P),
     "urf_discover_rings": (_P, _P, _I, _I, _F, _I, _P, _P, _P, _P, _P),
     "urf_assign_rings": (_P, _P, _P, _I, _I, _I, _F, _P, _P, _P),
-    "urf_star_walk": (_P, _P, _P, _P, _I, _F, _F, _F, _I, _P, _P),
+    "urf_star_search": (_P, _P, _P, _L, _I, _F, _F, _F, _I, _P, _P, _P),
     "urf_group_rank": (_P, _I, _I, _P, _P, _P, _P),
     "urf_group_place": (_P, _P, _P, _I, _I, _P, _P, _P, _L, _L, _L, _I, _I,
                         _P, _P, _P),

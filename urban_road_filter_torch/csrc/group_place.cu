@@ -14,16 +14,34 @@
 // K5 reads and writes ~1.6 MB and K6 ~5.8 MB (each x/y/z read once, the
 // three (R, P) planes written once): 0.5 and 1.7 us of HBM time.
 //
-// K5 design.  Blocks run in no order, so the TPU's carried counter becomes
-// three passes:
-//   1. hist_kernel: per-block group histograms (shared-memory atomics;
-//      counts do not depend on order);
-//   2. scan_kernel: an exclusive scan over blocks, one thread per group,
-//      giving every block its per-group base and the group totals;
-//   3. rank_kernel: the rank inside the block, STABLE in input order
-//      (the x/z-zero stencils read slot order, so atomics would be wrong):
-//      __match_any_sync + __popc(mask & lanemask_lt) inside a warp, then an
-//      exclusive scan of per-warp group counts across the block's warps.
+// K5 design: one cooperative launch of 1024-thread blocks over tiles of
+// 1024 points (grid: the larger of tiles and groups / 32, capped at the
+// co-resident block count), three phases split by two grid barriers:
+//   1. per tile, the group histogram in shared memory (warp-aggregated:
+//      __match_any_sync, one shared atomicAdd per group and warp), written
+//      to its row of the (tiles, groups) scratch;
+//   2. the exclusive scan of each group's column over the tiles, in
+//      place, and the group totals: a block takes 32 groups, each of its
+//      warps a slice of the tiles (lane l group g0 + l, so every load is
+//      one 128-byte piece of a tile's row), sums its slice, and rescans it
+//      from the slices before it; the threads' loads are independent, so
+//      a column costs two load latencies, not one dependent step per tile
+//      (a thread per group walking its column in series took ~0.013 ms at
+//      128 tiles on an H100);
+//   3. per tile, the rank STABLE in input order (the x/z-zero stencils
+//      read slot order, so atomics alone would be wrong):
+//      __match_any_sync + __popc(mask & lanemask_lt) inside a warp, then
+//      the warps in order, one per step of a 32-step pass over a shared
+//      array of running counts that starts at the tile's exclusive column
+//      prefix: warp w's first lane of each group reads the count and adds
+//      its group's size.
+// Shared memory is one int per group (8 KB at 2049 groups), not one per
+// warp and group (32 x groups would be 131 KB at 1025 groups, and group
+// counts above ~1800 could not launch).  Each point is read twice (ids) and
+// written once (pos), each histogram entry written, read and rewritten
+// once.  What bounds it on Hopper: the two grid barriers and the 32-step
+// ordered pass (~32 block barriers), not bytes (~1.6 MB at 131072 points,
+// 0.5 us of HBM time).
 //
 // K6 design: one launch, nothing pre-filled, every slot written once.  It
 // takes K5's group totals (``counts``, the dump group last) under the
@@ -52,76 +70,99 @@
 // layout half that size (64 x 2048): the point stores, not the zero
 // stores, set the time beyond the launch.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kBlock = 1024;  // points per rank block: 32 warps
+constexpr int kBlock = 1024;  // points per rank tile and block: 32 warps
 constexpr int kWarps = kBlock / 32;
 constexpr int kStatic = 48 * 1024;  // dynamic shared memory without opt-in
 
-__global__ void hist_kernel(const int* __restrict__ ids, int n, int groups,
-                            int* __restrict__ hist) {
-  extern __shared__ int cnt[];  // [groups]
-  for (int g = threadIdx.x; g < groups; g += blockDim.x) cnt[g] = 0;
-  __syncthreads();
-  const int i = blockIdx.x * kBlock + threadIdx.x;
-  if (i < n) {
-    const int g = ids[i];
-    if (g >= 0 && g < groups) atomicAdd(&cnt[g], 1);
-  }
-  __syncthreads();
-  for (int g = threadIdx.x; g < groups; g += blockDim.x)
-    hist[(size_t)blockIdx.x * groups + g] = cnt[g];
-}
+struct RankArgs {
+  const int* ids;
+  int n, groups, tiles;
+  int* pos;
+  int* counts;
+  int* hist;  // (tiles, groups) scratch, every entry written in phase 1
+};
 
-// In place: hist[b, g] becomes the number of group-g points in blocks < b.
-__global__ void scan_kernel(int* __restrict__ hist, int nblocks, int groups,
-                            int* __restrict__ counts) {
-  const int g = blockIdx.x * blockDim.x + threadIdx.x;
-  if (g >= groups) return;
-  int run = 0;
-  for (int b = 0; b < nblocks; ++b) {
-    const int c = hist[(size_t)b * groups + g];
-    hist[(size_t)b * groups + g] = run;
-    run += c;
-  }
-  counts[g] = run;
-}
-
-__global__ void rank_kernel(const int* __restrict__ ids, int n, int groups,
-                            const int* __restrict__ base,
-                            int* __restrict__ pos) {
-  extern __shared__ int warp_cnt[];  // [kWarps][groups]
+__global__ void __launch_bounds__(kBlock) group_rank_kernel(RankArgs a) {
+  extern __shared__ int s_cnt[];  // [groups]
+  __shared__ int s_part[kWarps][33];  // phase 2: per slice, per group
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  for (int k = threadIdx.x; k < kWarps * groups; k += blockDim.x)
-    warp_cnt[k] = 0;
-  __syncthreads();
+  const unsigned lt = (1u << lane) - 1u;
 
-  const int i = blockIdx.x * kBlock + threadIdx.x;
-  const int g = i < n ? ids[i] : -1;
-  const bool in_range = g >= 0 && g < groups;
-  const int key = in_range ? g : -1;
-  const unsigned same = __match_any_sync(0xffffffffu, key);
-  const int in_warp = __popc(same & ((1u << lane) - 1u));
-  if (in_range && in_warp == 0) warp_cnt[warp * groups + g] = __popc(same);
-  __syncthreads();
-
-  for (int gg = threadIdx.x; gg < groups; gg += blockDim.x) {
-    int run = 0;
-    for (int w = 0; w < kWarps; ++w) {
-      const int c = warp_cnt[w * groups + gg];
-      warp_cnt[w * groups + gg] = run;
-      run += c;
-    }
+  // 1. Tile histograms.
+  for (int t = blockIdx.x; t < a.tiles; t += gridDim.x) {
+    for (int g = threadIdx.x; g < a.groups; g += kBlock) s_cnt[g] = 0;
+    __syncthreads();
+    const int i = t * kBlock + threadIdx.x;
+    const int g = i < a.n ? a.ids[i] : -1;
+    const bool in = g >= 0 && g < a.groups;
+    const unsigned same = __match_any_sync(~0u, in ? g : -1);
+    if (in && (same & lt) == 0) atomicAdd(&s_cnt[g], __popc(same));
+    __syncthreads();
+    int* row = a.hist + (size_t)t * a.groups;
+    for (int g2 = threadIdx.x; g2 < a.groups; g2 += kBlock) row[g2] = s_cnt[g2];
+    __syncthreads();
   }
-  __syncthreads();
+  cooperative_groups::this_grid().sync();
 
-  if (i < n)
-    pos[i] = in_range ? base[(size_t)blockIdx.x * groups + g] +
-                            warp_cnt[warp * groups + g] + in_warp
-                      : -1;
+  // 2. Per group, the exclusive scan of its column over the tiles: a
+  // block takes 32 groups at a time, warp w the w-th slice of the tiles,
+  // lane l group g0 + l, so each load of a warp is 32 adjacent entries of
+  // one tile's row.
+  const int per = (a.tiles + kWarps - 1) / kWarps;  // tiles per slice
+  for (int g0 = blockIdx.x * 32; g0 < a.groups; g0 += gridDim.x * 32) {
+    const int g = g0 + lane;
+    const int t0 = warp * per;
+    const int t1 = min(t0 + per, a.tiles);
+    int sum = 0;
+    if (g < a.groups)
+      for (int t = t0; t < t1; ++t)
+        sum += __ldcg(a.hist + (size_t)t * a.groups + g);
+    s_part[warp][lane] = sum;
+    __syncthreads();
+    int run = 0;
+    for (int w = 0; w < warp; ++w) run += s_part[w][lane];
+    if (g < a.groups) {
+      for (int t = t0; t < t1; ++t) {
+        int* h = a.hist + (size_t)t * a.groups + g;
+        const int v = __ldcg(h);
+        *h = run;
+        run += v;
+      }
+      if (warp == kWarps - 1) a.counts[g] = run;
+    }
+    __syncthreads();
+  }
+  cooperative_groups::this_grid().sync();
+
+  // 3. Stable ranks: the warps of a tile in order.
+  for (int t = blockIdx.x; t < a.tiles; t += gridDim.x) {
+    const int* row = a.hist + (size_t)t * a.groups;
+    for (int g = threadIdx.x; g < a.groups; g += kBlock)
+      s_cnt[g] = __ldcg(row + g);
+    __syncthreads();
+    const int i = t * kBlock + threadIdx.x;
+    const int g = i < a.n ? a.ids[i] : -1;
+    const bool in = g >= 0 && g < a.groups;
+    const unsigned same = __match_any_sync(~0u, in ? g : -1);
+    const int leader = __ffs(same) - 1;
+    int base = 0;
+    for (int w = 0; w < kWarps; ++w) {
+      if (warp == w && in && lane == leader) {
+        base = s_cnt[g];
+        s_cnt[g] = base + __popc(same);
+      }
+      __syncthreads();
+    }
+    base = __shfl_sync(~0u, base, leader);
+    if (i < a.n) a.pos[i] = in ? base + __popc(same & lt) : -1;
+    __syncthreads();
+  }
 }
 
 constexpr int kPlaceThreads = 256;
@@ -198,23 +239,44 @@ extern "C" const char* urf_error_string(int err) {
 }
 
 // pos[i] = # of j < i with ids[j] == ids[i]; counts[g] = size of group g.
-// hist is caller-allocated scratch of ceil(n / 1024) * groups ints.
-// ids outside [0, groups) get pos -1 and are not counted.
+// hist is caller-allocated scratch of ceil(n / 1024) * groups ints (not
+// initialised).  ids outside [0, groups) get pos -1 and are not counted.
+// One cooperative launch; a refused launch returns its error.
 extern "C" int urf_group_rank(const int* ids, int n, int groups, int* pos,
                               int* counts, int* hist, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  const int nblocks = (n + kBlock - 1) / kBlock;
-  const size_t rank_smem = (size_t)kWarps * groups * sizeof(int);
-  const size_t hist_smem = (size_t)groups * sizeof(int);
-  cudaError_t err = set_smem((const void*)rank_kernel, rank_smem);
-  if (err == cudaSuccess) err = set_smem((const void*)hist_kernel, hist_smem);
+  if (n < 0 || groups < 1) return (int)cudaErrorInvalidValue;
+  constexpr int kMaxDevices = 64;
+  static int sms[kMaxDevices];
+  static size_t occ_smem[kMaxDevices];
+  static int occ_per_sm[kMaxDevices];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
-  if (nblocks > 0)
-    hist_kernel<<<nblocks, kBlock, hist_smem, s>>>(ids, n, groups, hist);
-  scan_kernel<<<(groups + 127) / 128, 128, 0, s>>>(hist, nblocks, groups,
-                                                    counts);
-  if (nblocks > 0)
-    rank_kernel<<<nblocks, kBlock, rank_smem, s>>>(ids, n, groups, hist, pos);
+  if (dev < 0 || dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  const size_t smem = (size_t)groups * sizeof(int);
+  err = set_smem((const void*)group_rank_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  if (sms[dev] == 0) {
+    err = cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount,
+                                 dev);
+    if (err != cudaSuccess) return (int)err;
+  }
+  if (occ_per_sm[dev] == 0 || occ_smem[dev] != smem) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &occ_per_sm[dev], group_rank_kernel, kBlock, smem);
+    if (err != cudaSuccess) return (int)err;
+    occ_smem[dev] = smem;
+  }
+  const int tiles = (n + kBlock - 1) / kBlock;
+  const int want = max(max(tiles, (groups + kWarps - 1) / kWarps), 1);
+  const int grid = min(want, occ_per_sm[dev] * sms[dev]);
+  if (grid < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
+  RankArgs a{ids, n, groups, tiles, pos, counts, hist};
+  void* args[] = {&a};
+  err = cudaLaunchCooperativeKernel((const void*)group_rank_kernel,
+                                    dim3(grid), dim3(kBlock), args, smem,
+                                    (cudaStream_t)stream);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 

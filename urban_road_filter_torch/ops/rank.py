@@ -6,9 +6,11 @@ layout) plus the per-group totals: the primitive behind tensorization
 (points -> (ring, slot)).
 
 Port of urban_road_filter_tpu/ops/rank.py.  A CUDA tensor goes through the
-hand-written kernel csrc/group_place.cu (K5: per-block histograms, a scan
-over blocks, a warp-match rank inside each block); a CPU tensor through the
-plain twin below, which has the semantics of the JAX ``_xla_rank``.
+hand-written kernel csrc/group_place.cu (K5, one cooperative launch:
+per-tile histograms, one warp per group scanning its column over the tiles,
+then a warp-match rank inside each tile with the warps taken in order); a
+CPU tensor through the plain twin below, which has the semantics of the
+JAX ``_xla_rank``.
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ import torch
 from urban_road_filter_torch import _build
 
 I32 = torch.int32
-_BLOCK = 1024  # points per block of the rank kernel (csrc/group_place.cu)
+_BLOCK = 1024  # points per tile of the rank kernel (csrc/group_place.cu)
 
 
 def group_positions_plain(ids: torch.Tensor, num_groups: int):

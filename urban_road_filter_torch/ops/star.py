@@ -2,16 +2,22 @@
 
 Port of urban_road_filter_tpu/ops/star.py:star_hits.  Each ROI point goes
 to one of 360 azimuth beams (optionally narrowed to the beam's rectangle);
-one stable sort by (beam, radius, input order) makes every beam a radially
-ordered segment; the walk along each segment (K4, ``star_walk``) marks at
-most one point per beam, the first whose slope trips a threshold.  The
-marks reach the (ring, slot) layout through a 360-element scatter
-(``star_labels``).
+each beam is walked in the order of a stable sort by radius (ties in input
+order) and marks at most one point, the first whose slope trips a
+threshold.  The marks reach the (ring, slot) layout through a 360-element
+scatter (``star_labels``).
+
+On the card the whole search is one kernel from the unsorted keys (K4,
+``star_search``, csrc/star.cu: partition by beam without a sort, sort each
+beam's bucket in shared memory, walk).  Its plain version is the JAX
+package's form: one stable (beam, radius, input order) sort of the streams
+(``beam_streams``) and the walk along each beam's segment
+(``star_walk_plain``); it is the CPU path and the kernel's yardstick.
 
 The walk keeps the reference's sequential running mean and mean absolute
 deviation, rounded in its order, where the JAX package used segmented
-prefix sums: the CUDA kernel (csrc/star.cu) and the plain twin here
-repeat the numpy oracle's ``_beam_walk`` operation for operation.  The
+prefix sums: the CUDA kernel and the plain walk here repeat the numpy
+oracle's ``_beam_walk`` operation for operation.  The
 sector and radius keys come from the ingest kernel K1 (ops/ingest.py),
 whose azimuth is the float64 atan2 rounded once to float32, as the C++ and
 the oracle compute it.
@@ -43,15 +49,13 @@ def _rect(x, y, f):
     return ((c - o) < coord) & (coord < (c + o))
 
 
-def beam_streams(x, y, z, valid, cfg: FilterConfig, keys=None):
-    """The four beam-sorted streams (beam, radius, z, point index), (N,)
-    each: beam STAR_REP (the sink, sorted last) for points outside the ROI
-    or their beam's rectangle; ties in radius keep input order.
-
-    ``keys`` is this scan's (fk, r_key) from the ingest kernel K1
-    (ops.ingest.ingest_prep), which already sends the points outside the
-    ROI to the sink; without it K1 runs here on the one scan and the points
-    outside ``valid`` go to the sink."""
+def _star_keys(x, y, z, valid, cfg: FilterConfig, keys=None):
+    """(fk, r_key) of one scan: ``keys`` from the ingest kernel K1
+    (ops.ingest.ingest_prep), which already sends the points outside the ROI
+    to the sink, or, without it, K1 run here on the scan with the points
+    outside ``valid`` sent to the sink; then, with cfg.starbeam_filter, the
+    points outside their beam's rectangle sent to the sink too (PyTorch
+    glue)."""
     if keys is None:
         _, fk, r_key, _ = ingest_prep(x[None], y[None], z[None], cfg)
         fk = torch.where(valid, fk[0], STAR_REP)
@@ -63,9 +67,23 @@ def beam_streams(x, y, z, valid, cfg: FilterConfig, keys=None):
         rect = _rect(x, y, torch.where(fk < STAR_REP, fk, 0).long())
         fk = torch.where(rect, fk, STAR_REP)
         r_key = torch.where(rect, r_key, math.inf)
+    return fk, r_key
+
+
+def beam_order(fk, r_key, z):
+    """The four beam-sorted streams (beam, radius, z, point index), (N,)
+    each, of unsorted keys: one stable sort by (beam, radius, input order)
+    as two stable torch.sorts; the sink (beam STAR_REP) sorts last."""
     order = torch.sort(r_key, stable=True).indices
     order = order[torch.sort(fk[order], stable=True).indices]
     return fk[order], r_key[order], z[order], order.to(I32)
+
+
+def beam_streams(x, y, z, valid, cfg: FilterConfig, keys=None):
+    """beam_order of one scan's star keys (``keys`` as for star_hits):
+    beam STAR_REP (the sink, sorted last) for points outside the ROI or
+    their beam's rectangle."""
+    return beam_order(*_star_keys(x, y, z, valid, cfg, keys), z)
 
 
 def _walk_params(cfg: FilterConfig):
@@ -111,29 +129,45 @@ def star_walk_plain(fk_s, r_s, z_s, pid_s, cfg: FilterConfig):
     return hit
 
 
-def star_walk(fk_s, r_s, z_s, pid_s, cfg: FilterConfig) -> torch.Tensor:
+def star_search_plain(fk, r_key, z, cfg: FilterConfig) -> torch.Tensor:
+    """The plain version of K4: beam_order, then star_walk_plain."""
+    return star_walk_plain(*beam_order(fk, r_key, z), cfg)
+
+
+def star_search(fk, r_key, z, cfg: FilterConfig) -> torch.Tensor:
     """(360,) int32 hp: hp[b] = 1 + index of beam b's first triggering
-    point, 0 where none (K4).  Inputs: beam_streams' four (N,) streams."""
-    if _build.on_cpu(fk_s):
-        return star_walk_plain(fk_s, r_s, z_s, pid_s, cfg)
-    n = fk_s.shape[0]
-    dev = fk_s.device
-    _build.check(fk_s, "fk", I32, (n,), dev)
-    _build.check(r_s, "r", F32, (n,), dev)
-    _build.check(z_s, "z", F32, (n,), dev)
-    _build.check(pid_s, "pid", I32, (n,), dev)
+    point, 0 where none, each beam walked in the order of a stable sort by
+    r_key (K4).  fk (N,) int32 beams (STAR_REP = the sink; anything outside
+    0..359 is skipped), r_key (N,) f32, z (N,) f32 (any stride on the
+    card)."""
+    if _build.on_cpu(fk):
+        return star_search_plain(fk, r_key, z, cfg)
+    n = fk.shape[0]
+    dev = fk.device
+    _build.check(fk, "fk", I32, (n,), dev)
+    _build.check(r_key, "r_key", F32, (n,), dev)
+    _build.check(z, "z", F32, (n,), dev, contiguous=False)
+    if n >= 1 << 24:
+        raise ValueError(f"the star search counts walk steps as f32: "
+                         f"n < 2^24, got {n}")
     slope_param, kdev, kdist, dmin = _walk_params(cfg)
+    # Per block a region of keys and (r, z), 16 bytes an entry, and the
+    # (360, 360) run table (csrc/star.cu, urf_star_search).
+    scratch = torch.empty(((n + STAR_REP * 256) * 2 + STAR_REP * STAR_REP,),
+                          dtype=torch.int64, device=dev)
     hp = torch.empty((STAR_REP,), dtype=I32, device=dev)
-    _build.launch("star_walk", "urf_star_walk", dev, _build.ptr(fk_s),
-                  _build.ptr(r_s), _build.ptr(z_s), _build.ptr(pid_s), n,
-                  slope_param, kdev, kdist, dmin, _build.ptr(hp))
+    _build.launch("star_walk", "urf_star_search", dev, _build.ptr(fk),
+                  _build.ptr(r_key), _build.ptr(z), z.stride(0), n,
+                  slope_param, kdev, kdist, dmin, _build.ptr(scratch),
+                  _build.ptr(hp))
     return hp
 
 
 def star_hits(x, y, z, valid, cfg: FilterConfig, keys=None) -> torch.Tensor:
-    """(360,) int32 hp of the star search over one scan's points; ``keys``
-    as for beam_streams."""
-    return star_walk(*beam_streams(x, y, z, valid, cfg, keys), cfg)
+    """(360,) int32 hp of the star search over one scan's points: ``keys``
+    is this scan's (fk, r_key) from the ingest kernel K1, or None to run K1
+    here (the points outside ``valid`` go to the sink)."""
+    return star_search(*_star_keys(x, y, z, valid, cfg, keys), z, cfg)
 
 
 def star_labels(hp, ring_id, pos, rings: int, cap: int) -> torch.Tensor:

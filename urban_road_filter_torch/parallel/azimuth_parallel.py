@@ -361,6 +361,8 @@ def _run(x, y, z, cfg: FilterConfig, dims: PipelineDims, lw: LocalWedges,
         rk_w = torch.where(valid_w, wedged(rk0, math.inf), math.inf)
         piece = lw.psum(valid_w.sum(1, dtype=I32))
         ok = piece >= MIN_POINTS
+        if probe is not None:
+            probe.update(rank_ids={d + 1: wedge})
 
     with _stage("sp_rings"):
         # The global greedy over the points that fit (K2, input order),
@@ -374,6 +376,8 @@ def _run(x, y, z, cfg: FilterConfig, dims: PipelineDims, lw: LocalWedges,
 
     star = torch.zeros((d, per_wedge + 1), dtype=F32, device=dev)
     if cfg.star_shaped_method:
+        if probe is not None:
+            probe.update(star=(xw, yw, zw, valid_w, fk_w, rk_w))
         with _stage("sp_star"):
             for k in range(d):  # K4 per wedge: beams never straddle
                 hp = star_hits(xw[k], yw[k], zw[k], valid_w[k], cfg,
@@ -388,6 +392,8 @@ def _run(x, y, z, cfg: FilterConfig, dims: PipelineDims, lw: LocalWedges,
                             lw.index(dev)[:, None] * rings + ring_w,
                             d * rings).to(I32).reshape(-1)
         pos, counts_all = group_positions(group, d * rings + 1)
+        if probe is not None:
+            probe["rank_ids"][d * rings + 1] = group
         lx, ly, lz, overflow = group_place(
             group, pos, counts_all,
             (xw.reshape(-1), yw.reshape(-1), zw.reshape(-1)), d * rings, cap)
@@ -455,9 +461,13 @@ def make_azimuth_pipeline(n_wedges: int, cfg: FilterConfig,
     replaces the configuration for that call.  ``device`` as for
     pipeline.process_scan: "cuda" unless "cpu" is asked for.  A dict
     passed as ``probe`` receives the kernels' wedge inputs of that call: the
-    stacked sorted layout after the flood fill ("layout", "num_rings"), the
-    window widths and reach of K12 ("w", "reach_f", "reach_b") and K14's
-    per-wedge offsets and global floor ("g_offset" (D, R), "f_init").
+    ids of the two K5 calls ("rank_ids", {groups: ids}), the star search's
+    (D, N / D) wedge streams with the star search on ("star": x, y, z,
+    valid, fk, r_key; wedge k is star_hits(x[k], y[k], z[k], valid[k], cfg,
+    (fk[k], r_key[k]))), the stacked sorted layout after the flood fill
+    ("layout", "num_rings"), the window widths and reach of K12 ("w",
+    "reach_f", "reach_b") and K14's per-wedge offsets and global floor
+    ("g_offset" (D, R), "f_init").
 
     ``wedge_slack`` over-provisions each wedge's ring slots beyond the
     uniform share ring_capacity / n_wedges (rounded up to 64, capped at
