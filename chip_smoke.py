@@ -42,6 +42,9 @@
    reach bits all, none, alternating, only the special or the last start,
    two beam zones, num_rings 5) and K11 with probably_road_ring equal to
    the ring count (no point may be flagged).
+   K8 also with every slot a curb (its worst case, timed).  K8 and K14's
+   two passes also at the SP path's stacked shape (8 wedges of 128 x 384
+   slots of the OS1-128 scan, one launch each over all wedges), timed.
    On the OS1-64 scan the unfused path (blind_spots(want_marker_f=False),
    K8 + K12, then marker_points(kf=None), K13 + K10) must equal the fused
    one bit for bit.  Prints median CUDA-event times of kernel, twin and, where
@@ -75,9 +78,10 @@
    phase 3.  Labels and markers must equal process_scan's of the same
    scan, or differ only at an integer degree (the count is printed); the
    oracle gate as in phase 3 (128 channels for the 128-ring scan); no
-   overflow.  Prints the SP scan latency p50 host to host.  K12, K13 and
-   K14 are held against their twins again at the per-wedge shapes, K14
-   with the run's own g_offset and f_init.
+   overflow.  Prints the SP scan latency p50 host to host.  Each SP scan
+   must launch K8 once and K14 twice.  K12 and K13 are held against their
+   twins again at the per-wedge shapes, K8 and K14 over the stacked
+   wedges, K14 with the run's own g_offset and f_init.
 6. Prints one JSON line of per-kernel results (K1-K3 with their grid and
    their times at B = 1, "b1", at the SP call's shape, "sp", and, K2 and
    K3, on the ring-major scan, "ring_major") and, last,
@@ -722,8 +726,18 @@ def phase_kernels(dev, dims, cfg, scan, what, timed=True):
     p8 = lambda: bs.flood_blocked_plain(stenciled, w, bz)
     blocked = k8()
     assert bool(blocked[0].any()), "the curbs must block some windows"
+    # The bound counts alpha and label of the counted slots read once.
+    counted = int(torch.clamp(layout.counts, 0, p).sum())
     record("flood_blocked", blocked, p8(), k8, p8,
-           nbytes=8 * r * p + 8 * r + 2 * r * 362, ops=4 * 362 * n_curb)
+           nbytes=8 * counted + 8 * r + 2 * r * 362,
+           ops=4 * n_curb + 2 * 362 * r * 20)
+    # K8's worst case: every slot of every ring a curb.
+    curbs = stenciled._replace(label=torch.full_like(marked, 2))
+    k8c = lambda: bs.flood_blocked(curbs, w, bz)
+    max_abs_err(k8c(), bs.flood_blocked_plain(curbs, w, bz))
+    if timed:
+        print(f"    flood_blocked with every slot a curb: bit-equal, kernel "
+              f"{cuda_ms(k8c):.4f} ms", flush=True)
 
     # K9: the road mask and the markers' first-pass keys.  K9's and K12's
     # operations: per valid slot two 9-step bisections (an f32 add and a
@@ -790,7 +804,9 @@ def phase_kernels(dev, dims, cfg, scan, what, timed=True):
            nbytes=8 * r * p + 4 * r + 361 * 8, ops=5 * r * p)
 
     # K14: the marker state on the sorted layout, with the default offsets
-    # and, untimed, with offsets and a floor of the SP path's form.
+    # and, untimed, with offsets and a floor of the SP path's form.  The
+    # bound counts alpha and label of the active slots (as K10's), x and y
+    # of their road slots and z of the 361 winners read once.
     srt = geometry.sort_by_azimuth(road)
     k14 = lambda: marker_state(srt, num_rings)
     p14 = lambda: marker_state_plain(srt, num_rings)
@@ -804,7 +820,8 @@ def phase_kernels(dev, dims, cfg, scan, what, timed=True):
     max_abs_err((marker_state(srt, num_rings, goff, f_init),),
                 (marker_state_plain(srt, num_rings, goff, f_init),))
     record("marker_state", (state,), (p14(),), k14, p14,
-           nbytes=20 * r * p + 8 * r + 361 * 28, ops=15 * r * p)
+           nbytes=state_bytes(srt, num_rings, r) + 4 * r + 361 * 28,
+           ops=15 * active)
 
     # K11: gather + gate + pack on the final label table; then indices
     # outside the table, negative ones included, must read label 0.  The
@@ -1010,15 +1027,14 @@ def boundary_flips(got, want, pts) -> int:
 
 
 def wedge_kernels(probe, rings: int, cfg) -> None:
-    """K4, K5, K12, K13 and K14 against their twins on the inputs of a real
+    """K4, K5, K8 and K12-K14 against their twins on the inputs of a real
     SP run: K4 on each wedge's star keys, K5 on the ids of its two calls,
-    K12-K14 on each sorted wedge layout with its reach, window widths,
-    g_offset and f_init."""
+    K8 and K14 over the stacked sorted layout (both passes of K14, with
+    its g_offset and f_init), K12 and K13 on each wedge's layout with its
+    reach and window widths."""
     from urban_road_filter_torch.ops import blind_spots as bs
     from urban_road_filter_torch.ops import markers as mk
     from urban_road_filter_torch.ops import star
-    from urban_road_filter_torch.ops.marker_state import (
-        marker_state, marker_state_plain)
     from urban_road_filter_torch.ops.rank import (
         group_positions, group_positions_plain)
     from urban_road_filter_torch.parallel.azimuth_parallel import _rows
@@ -1035,17 +1051,87 @@ def wedge_kernels(probe, rings: int, cfg) -> None:
                     group_positions_plain(ids, groups))
     nr = probe["num_rings"]
     reach = (probe["reach_f"], probe["reach_b"])
+    for call, _ in sp_stacked_calls(probe, bz).values():
+        max_abs_err(call(False), call(True))
     for k in range(WEDGES):
         lay = _rows(probe["layout"], k, rings)
-        goff, f_init = probe["g_offset"][k], probe["f_init"]
         max_abs_err((bs.flood_road(lay, *reach, probe["w"], bz),
-                     mk.marker_first_nonroad(lay, nr),
-                     marker_state(lay, nr),
-                     marker_state(lay, nr, goff, f_init)),
+                     mk.marker_first_nonroad(lay, nr)),
                     (bs.flood_road_plain(lay, *reach, probe["w"], bz),
-                     mk.first_nonroad_keys(lay, nr),
-                     marker_state_plain(lay, nr),
-                     marker_state_plain(lay, nr, goff, f_init)))
+                     mk.first_nonroad_keys(lay, nr)))
+
+
+def state_bytes(lay, num_rings, rings: int) -> int:
+    """The bytes K14 must read of a (D * rings, P) layout: alpha and label
+    of the active slots (ring < num_rings in its wedge, slot < counts), x
+    and y of those that are road with a valid azimuth."""
+    rows, p = lay.alpha.shape
+    dev = lay.alpha.device
+    active = ((torch.arange(p, device=dev)[None, :] < lay.counts[:, None])
+              & ((torch.arange(rows, device=dev) % rings) < num_rings)[:,
+                                                                       None])
+    road = (active & (lay.label == 1) & (lay.alpha >= 0)
+            & (lay.alpha <= 360))
+    return 8 * int(active.sum()) + 8 * int(road.sum())
+
+
+def sp_stacked_calls(probe, bz) -> dict:
+    """{name: (call(plain), (bytes, operations))}: K8 and K14's two passes
+    over the stacked sorted layout of an SP run, as the SP path calls them
+    (one launch each over every wedge); call(True) runs the plain twin.
+    The bounds count the slots each reads once (K8: alpha and label of the
+    counted slots; K14: state_bytes, and z of its winners) and the outputs
+    written once."""
+    from urban_road_filter_torch.ops import blind_spots as bs
+    from urban_road_filter_torch.ops.marker_state import (
+        marker_state, marker_state_plain)
+
+    lay, nr = probe["layout"], probe["num_rings"]
+    goff, f = probe["g_offset"], probe["f_init"]
+    rows, p = lay.alpha.shape
+    f_init = f.expand(WEDGES, f.shape[0])
+    k8 = (bs.flood_blocked, bs.flood_blocked_plain)
+    k14 = (marker_state, marker_state_plain)
+    counted = int(torch.clamp(lay.counts, 0, p).sum())
+    k14_bytes = (state_bytes(lay, nr, rows // WEDGES) + 8 * rows
+                 + WEDGES * 361 * 28)
+    return {
+        "flood_blocked": (lambda plain: k8[plain](
+            lay, probe["w"], bz, wedges=WEDGES),
+            (8 * counted + 4 * rows + 2 * rows * 362,
+             4 * counted + 2 * 362 * rows * 20)),
+        "marker_state pass 1": (lambda plain: (k14[plain](
+            lay, nr, goff, wedges=WEDGES),),
+            (k14_bytes, 15 * counted)),
+        "marker_state pass 2": (lambda plain: (k14[plain](
+            lay, nr, goff, f_init, wedges=WEDGES),),
+            (k14_bytes + WEDGES * 361 * 4, 15 * counted)),
+    }
+
+
+def phase_sp_stacked(dev, cfg) -> None:
+    """K8 and K14's two passes at the SP path's stacked shape (8 wedges of
+    the OS1-128 scan's 128 x 384 slots) against their twins, on the inputs
+    of one SP run, timed beside their bounds."""
+    from urban_road_filter_torch import pad_scan
+    from urban_road_filter_torch.parallel.azimuth_parallel import (
+        make_azimuth_pipeline)
+
+    name, dims, scan, _ = sp_deployments()[0]
+    probe = {}
+    make_azimuth_pipeline(WEDGES, cfg, dims, device=dev)(
+        torch.from_numpy(pad_scan(scan, dims.max_points)).to(dev),
+        probe=probe)
+    rows, p = probe["layout"].alpha.shape
+    for what, (call, (nbytes, ops)) in sp_stacked_calls(
+            probe, cfg.beam_zone).items():
+        max_abs_err(call(False), call(True))
+        b = bound(nbytes, ops)
+        print(f"    {what} at the SP shape ({name}, {WEDGES} wedges x "
+              f"{rows // WEDGES} x {p}): bit-equal, kernel "
+              f"{cuda_ms(lambda: call(False)):.4f} ms, plain "
+              f"{cuda_ms(lambda: call(True)):.4f} ms, bound "
+              f"{b['bound_ms']:.4f} ms ({b['bound_by']})", flush=True)
 
 
 def phase_sp(dev, configs, smi, device_parity_gate):
@@ -1082,6 +1168,9 @@ def phase_sp(dev, configs, smi, device_parity_gate):
             want = SP_KERNELS if cfg.star_shaped_method else tuple(
                 k for k in SP_KERNELS if k != "star_walk")
             assert_launched(launches, want, f"the SP path ({name} {cname})")
+            runs = 1 + SCAN_REPS  # K8 once and K14 twice per SP scan
+            assert launches["flood_blocked"] == runs, launches
+            assert launches["marker_state"] == 2 * runs, launches
             assert int(fetched.overflow) == 0, "SP overflow"
             assert bool(fetched.ok) and int(fetched.num_rings) > 0
             labels = fetched.labels.numpy()
@@ -1114,10 +1203,11 @@ def phase_sp(dev, configs, smi, device_parity_gate):
                                     device=dev)
         run(host.to(dev), probe=probe)
         wedge_kernels(probe, dims.rings, configs["default"])
-        print(f"  {name}: K4 ({per_wedge} points), K12, K13, K14 "
-              f"({dims.rings} x {probe['layout'].x.shape[1]} slots) on each "
-              f"wedge and K5 at {sorted(probe['rank_ids'])} groups bit-equal "
-              f"to their twins", flush=True)
+        print(f"  {name}: K4 ({per_wedge} points), K12, K13 ({dims.rings} "
+              f"x {probe['layout'].x.shape[1]} slots) on each wedge, K8 and "
+              f"K14 over the {WEDGES} stacked wedges and K5 at "
+              f"{sorted(probe['rank_ids'])} groups bit-equal to their "
+              f"twins", flush=True)
     return total
 
 
@@ -1166,6 +1256,7 @@ def main() -> int:
                                                "OS1-64 drive scan")
     kernels.update(per_scan)
     assert set(kernels) == set(_build.KERNELS), sorted(kernels)
+    phase_sp_stacked(dev, FilterConfig())
     # The per-scan kernels again at the shapes the batch path gives them
     # in phase 4: a bench lane and a merged multi-LiDAR scan (128 rings).
     phase_kernels(dev, bench_dims, cfg, bench[0][1], "bench lane",

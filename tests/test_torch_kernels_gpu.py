@@ -11,8 +11,13 @@ full size (131072 points at B = 1 and 128, 128 rings), placement (K6) and
 the marker table (K10) at 64 rings x 4096 and 1023 slots, on the inputs
 that stress their designs (K6 and K10 on chip_smoke.py's place_cases and
 marker_cases, K9 and K12 on its flood_cases at 64 x 4096 and 128 x 2048,
-one launch per call).  Run on a machine with the card (tests/conftest.py
-imports jax, which a GPU host without JAX skips with --noconftest):
+one launch per call), K8 and K14 over three stacked azimuth wedges (one
+launch per call, an empty wedge, NaN azimuths, K14 with and without
+f_init), K14 with rows longer than one step (8192 and 8191 slots) and
+over more row groups than the card holds blocks at once (64 wedges of 128
+x 384), and K8 with every slot a curb.  Run on a machine with the card
+(tests/conftest.py imports jax, which a GPU host without JAX skips with
+--noconftest):
 
     python -m pytest tests/test_torch_kernels_gpu.py -q -m gpu --noconftest
 """
@@ -584,6 +589,213 @@ def test_marker_state_kernel(dev, sp):
     assert int((got[:, 1] > 0).sum()) > 10
 
 
+def _wedge_layouts(dev, sort):
+    """Three wedges of 64 rings x 1024 slots stacked (scenes two_curbs,
+    blind_spot, curb_gap): wedge 1 with NaN-azimuth curb and road slots on
+    rings 1 and 3, wedge 2 empty; flooded and sorted by azimuth for K14."""
+    cfg = FilterConfig()
+    lays = []
+    for k, scene in enumerate(("two_curbs", "blind_spot", "curb_gap")):
+        layout, num_rings, w = _stenciled(dev, scene, cfg)
+        if sort:
+            layout = geometry.sort_by_azimuth(blind_spots(
+                layout, geometry.max_distance(layout), num_rings, cfg,
+                want_marker_f=False))
+        if k == 1:
+            x, y, label = layout.x.clone(), layout.y.clone(), layout.label
+            label = label.clone()
+            x[1:4:2, :3] = 0.0
+            y[1:4:2, :3] = 0.0
+            label[1, :3] = 2
+            label[3, :3] = 1
+            d2, alpha = geometry.azimuth_2d(x, y)
+            assert bool(torch.isnan(alpha[1, :3]).all())
+            layout = layout._replace(x=x, y=y, d2=d2, alpha=alpha,
+                                     label=label)
+        if k == 2:
+            layout = layout._replace(counts=torch.zeros_like(layout.counts))
+        lays.append(layout)
+    stacked = lays[0]._replace(**{f: torch.cat([getattr(lay, f) for lay in
+                                                lays]) for f in (
+        "x", "y", "z", "d2", "alpha", "label", "pid", "counts")})
+    return lays, stacked, num_rings, w
+
+
+def test_flood_blocked_wedges(dev):
+    """K8 over three stacked wedges in one launch against its twin and
+    against the 2-D kernel calls stacked; the empty wedge blocks nothing."""
+    lays, stacked, _, w = _wedge_layouts(dev, sort=False)
+    for bz in (30.0, 45.5):
+        before = _build.launch_counts()["flood_blocked"]
+        got = bs.flood_blocked(stacked, w, bz, wedges=3)
+        assert _build.launch_counts()["flood_blocked"] == before + 1
+        _assert_same(got, bs.flood_blocked_plain(stacked, w, bz, wedges=3))
+        for i in (0, 1):
+            _assert_same((got[i],), (torch.stack(
+                [bs.flood_blocked(lay, w, bz)[i] for lay in lays]),))
+            assert bool(got[i][0].any()) and not bool(got[i][2].any())
+
+
+@pytest.mark.parametrize("wedges", [None, 3])
+def test_flood_blocked_all_curbs(dev, wedges):
+    """K8's worst case: every valid slot of every ring a curb."""
+    lays, stacked, _, w = _wedge_layouts(dev, sort=False)
+    layout = lays[0] if wedges is None else stacked
+    curbs = layout._replace(label=torch.full_like(layout.label, 2))
+    got = bs.flood_blocked(curbs, w, 30.0, wedges=wedges)
+    _assert_same(got, bs.flood_blocked_plain(curbs, w, 30.0, wedges=wedges))
+    assert bool(got[0].any())
+
+
+@pytest.mark.parametrize("nr", [None, 5])
+def test_marker_state_wedges(dev, nr):
+    """K14 over three stacked wedges, one launch per call: default offsets
+    without f_init, and the SP path's offsets with a (D, 361) f_init and
+    with a broadcast view of one floor; against its twin and against the
+    2-D kernel calls stacked."""
+    from urban_road_filter_torch.ops.marker_state import (
+        marker_state, marker_state_plain)
+
+    lays, stacked, num_rings, _ = _wedge_layouts(dev, sort=True)
+    if nr is not None:
+        num_rings = torch.full_like(num_rings, nr)
+    rng = np.random.default_rng(12)
+    p_glob = 3 * CAP + 1
+    goff = torch.from_numpy((np.arange(RINGS)[None, :] * p_glob + np.array(
+        [[0], [700], [1500]])).astype(np.int32)).to(dev)
+    floor = np.where(rng.random(361) < 0.3, 3e38,
+                     rng.integers(0, RINGS * p_glob, 361)).astype(np.float32)
+    floors = torch.from_numpy(np.stack([floor, floor[::-1], floor])).to(dev)
+    one = torch.from_numpy(floor).to(dev)
+    for kw, per in (({}, lambda k: {}),
+                    (dict(g_offset=goff, f_init=floors),
+                     lambda k: dict(g_offset=goff[k], f_init=floors[k])),
+                    (dict(g_offset=goff, f_init=one.expand(3, 361)),
+                     lambda k: dict(g_offset=goff[k], f_init=one))):
+        before = _build.launch_counts()["marker_state"]
+        got = marker_state(stacked, num_rings, wedges=3, **kw)
+        assert _build.launch_counts()["marker_state"] == before + 1
+        assert got.shape == (3, 361, 6)
+        _assert_same((got,), (marker_state_plain(stacked, num_rings,
+                                                 wedges=3, **kw),))
+        _assert_same((got,), (torch.stack([marker_state(
+            lay, num_rings, **per(k)) for k, lay in enumerate(lays)]),))
+        assert int((got[0, :, 1] > 0).sum()) > 10
+        assert not bool(got[2, :, 1:].any())
+
+
+
+def _dense_sorted(dev, d, r, p, seed):
+    """d wedges of r rings x p slots, stacked: each row's azimuths sorted,
+    radii from four values (ties in a bin), labels road, unlabelled and
+    curb at random, counts from 0 to past p (rows full to the last slot
+    among them)."""
+    rng = np.random.default_rng(seed)
+    rows = d * r
+    deg = np.sort(rng.uniform(-2.0, 362.0, (rows, p)), axis=1)
+    rad = rng.choice(np.array([3.0, 4.0, 5.0, 5.0], np.float32), (rows, p))
+    x = (rad * np.cos(np.radians(90.0 - deg))).astype(np.float32)
+    y = (-rad * np.sin(np.radians(90.0 - deg))).astype(np.float32)
+    label = rng.choice(np.array([1, 1, 1, 0, 2], np.int32), (rows, p))
+    counts = rng.integers(0, p + 3, rows).astype(np.int32)
+    counts[::3] = p
+    t = lambda a: torch.from_numpy(a).to(dev)
+    xt, yt = t(x), t(y)
+    d2, alpha = geometry.azimuth_2d(xt, yt)
+    return geometry.RingLayout(
+        x=xt, y=yt, z=t(rng.normal(size=(rows, p)).astype(np.float32)),
+        d2=d2, alpha=alpha, label=t(label),
+        pid=torch.full((rows, p), -1, dtype=torch.int32, device=dev),
+        counts=t(counts), overflow=torch.zeros((), dtype=torch.int32,
+                                               device=dev))
+
+
+def _floors(dev, d, g_max, seed):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(np.where(
+        rng.random((d, 361)) < 0.3, 3e38,
+        rng.integers(0, g_max, (d, 361))).astype(np.float32)).to(dev)
+
+
+
+@pytest.mark.parametrize("p", [8192, 8191])
+def test_flood_blocked_long_rows(dev, p):
+    """K8 with rows longer than the kernel stages at once (8192 and 8191
+    slots), over two stacked wedges; also with alpha and label 4 bytes off
+    16-byte alignment (element-wise copies in place of 16-byte ones)."""
+    r = 8
+    lay = _dense_sorted(dev, 2, r, p, seed=p + 1)
+    w = torch.tensor([np.nan, 0.0, 1e-30, 2.5, 17.0, 40.0, np.inf, 361.0],
+                     dtype=torch.float32, device=dev)
+
+    def shifted(t):
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=dev)
+        buf[1:] = t.reshape(-1)
+        return buf[1:].view(t.shape)
+
+    off = lay._replace(alpha=shifted(lay.alpha), label=shifted(lay.label))
+    for bz in (30.0, 45.5):
+        want = bs.flood_blocked_plain(lay, w, bz, wedges=2)
+        for case in (lay, off):
+            _assert_same(bs.flood_blocked(case, w, bz, wedges=2), want)
+        assert bool(want[0].any()) and not bool(want[0].all())
+
+
+@pytest.mark.parametrize("floor", [False, True])
+@pytest.mark.parametrize("p", [8192, 8191])
+def test_marker_state_multi_step_rows(dev, p, floor):
+    """K14 with rows longer than one step of a block (ring_capacity 8192,
+    and 8191, whose rows are not 16-byte aligned): each row group walks
+    its slots in steps and reads them again after the grid barrier; with
+    f_init=None and with a given f_init."""
+    from urban_road_filter_torch.ops.marker_state import (
+        marker_state, marker_state_plain)
+
+    r = 8
+    lay = _dense_sorted(dev, 1, r, p, seed=p)
+    for nr in (r, r - 3):
+        num_rings = torch.tensor(nr, dtype=torch.int32, device=dev)
+        kw = dict(f_init=_floors(dev, 1, r * p, nr)[0]) if floor else {}
+        got = marker_state(lay, num_rings, **kw)
+        _assert_same((got,), (marker_state_plain(lay, num_rings, **kw),))
+        assert int((got[:, 1] > 0).sum()) > 150
+
+
+@pytest.mark.parametrize("floor", [False, True])
+def test_marker_state_wedges_past_the_grid(dev, floor):
+    """K14 over 64 wedges of 128 x 384 (832 row groups, more than the
+    blocks the card holds at once): blocks stride over the groups and read
+    their slots again after the grid barrier; the SP path's offsets, with
+    f_init=None and with a (D, 361) f_init; against the twin and against
+    the 2-D kernel calls stacked."""
+    from urban_road_filter_torch.ops.marker_state import (
+        marker_state, marker_state_plain)
+
+    d, r, p = 64, 128, 384
+    lay = _dense_sorted(dev, d, r, p, seed=11)
+    num_rings = torch.tensor(r - 5, dtype=torch.int32, device=dev)
+    p_glob = d * p + 1
+    goff = torch.from_numpy((np.arange(r)[None, :] * p_glob + np.arange(
+        d)[:, None] * p).astype(np.int32)).to(dev)
+    kw = dict(g_offset=goff)
+    if floor:
+        kw["f_init"] = _floors(dev, d, r * p_glob, 5)
+    before = _build.launch_counts()["marker_state"]
+    got = marker_state(lay, num_rings, wedges=d, **kw)
+    assert _build.launch_counts()["marker_state"] == before + 1
+    _assert_same((got,), (marker_state_plain(lay, num_rings, wedges=d,
+                                             **kw),))
+    rows = lambda k: lay._replace(**{f: getattr(lay, f)[k * r:(k + 1) * r]
+                                     for f in ("x", "y", "z", "d2", "alpha",
+                                               "label", "pid", "counts")})
+    for k in (0, 37, d - 1):
+        one = dict(g_offset=goff[k])
+        if floor:
+            one["f_init"] = kw["f_init"][k]
+        _assert_same((got[k],), (marker_state(rows(k), num_rings, **one),))
+    assert int((got[:, :, 1] > 0).sum()) > d * 150
+
+
 def test_xz_zero_ladder_kernel(dev):
     """K7 with a per-ring newY ladder offset against its twin."""
     from urban_road_filter_torch.ops.xzero import new_y_ladder
@@ -604,7 +816,8 @@ def test_xz_zero_ladder_kernel(dev):
                                  FilterConfig(star_shaped_method=False)])
 def test_sp_equals_process_scan(dev, cfg):
     """The 8-wedge SP path on an azimuth-sorted scan equals process_scan
-    on every field, and launched K12 and K14."""
+    on every field; K8 and K14 launch once per pass over all wedges, K12
+    once per wedge."""
     from urban_road_filter_torch.parallel.azimuth_parallel import (
         azimuth_sorted, make_azimuth_pipeline)
 
@@ -615,7 +828,8 @@ def test_sp_equals_process_scan(dev, cfg):
     _build.reset_launch_counts()
     got = make_azimuth_pipeline(8, cfg, dims)(pts)
     counts = _build.launch_counts()
-    assert counts["flood_road"] == 8 and counts["marker_state"] == 16
+    assert counts["flood_road"] == 8 and counts["marker_state"] == 2
+    assert counts["flood_blocked"] == 1
     want = process_scan(pts, cfg, dims)
     for g, w in zip(got, want):
         _assert_same((g,), (w,))

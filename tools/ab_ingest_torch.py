@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Trees against each other on one CUDA card: the ingest kernels K1-K3,
-the star search (K4), rank and placement (K5, K6), the flood fill (K9,
-K12) and the marker table (K10), and the end-to-end metrics of the PyTorch
-port.
+the star search (K4), rank and placement (K5, K6), the flood fill (K8,
+K9, K12), the marker table (K10) and state (K14), and the end-to-end
+metrics of the PyTorch port.
 
     python tools/ab_ingest_torch.py TREE [TREE ...] [--out F.json]
 
@@ -23,7 +23,8 @@ measures:
   with the scan's K1 keys), K4 star_walk and, in trees whose K4 walks
   sorted streams, the two stable sorts before it (beam_streams), K5
   group_rank, K6 group_place, the index_put_ call chip_smoke.py times
-  beside it, K9 flood_labeled, K10 marker_points and K12 flood_road, at
+  beside it, K8 flood_blocked (also with every slot a curb), K9
+  flood_labeled, K10 marker_points, K12 flood_road and K14 marker_state, at
   phase 2's three per-scan shapes: the OS1-64 scan (64 rings x 4096
   slots), a bench lane (64 x 2048) and a merged multi-LiDAR scan (128 x
   2048) (inputs from tools/profile_ring_kernels.py's scan_calls, which
@@ -124,7 +125,9 @@ def measure(tree: str) -> dict:
         out[what] = {k: c.cuda_ms(calls[k]) for k in
                      ("star_stage", "star_walk", "beam_streams",
                       "group_rank", "group_place", "index_put",
-                      "flood_labeled", "marker_points", "flood_road")
+                      "flood_blocked", "flood_blocked_all_curbs",
+                      "flood_labeled", "marker_points", "flood_road",
+                      "marker_state")
                      if k in calls}
 
     configs = {"default": FilterConfig(), "star_off": cfg}

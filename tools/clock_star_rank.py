@@ -33,22 +33,19 @@ longer has the lines it anchors on.  Needs a CUDA device.
 from __future__ import annotations
 
 import argparse
-import ctypes
 import importlib.util
 import json
 import os
-import subprocess
 import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
+sys.path.insert(0, str(ROOT / "tools"))
 
-CLOCK = ("__device__ unsigned long long {name}[512 * 16];\n"
-         "static __device__ __forceinline__ unsigned long long gtime() {{\n"
-         "  unsigned long long t;\n"
-         '  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));\n'
-         "  return t;\n}}\n")
+import _clock  # noqa: E402
+
+ROWS = 512  # blocks recorded
 
 
 def _lap(acc):
@@ -59,7 +56,7 @@ def _lap(acc):
 # (anchor, replacement) per source: each anchor must occur.
 STAR = (
     ("namespace {\n\nconstexpr int kBeams = 360;",
-     CLOCK.format(name="g_clk_star")
+     _clock.declare("g_clk_star", ROWS)
      + "namespace {\n\nconstexpr int kBeams = 360;"),
     ("  // 1. Partition this block's points into its region, beam after "
      "beam.\n",
@@ -104,7 +101,7 @@ STAR = (
 )
 RANK = (
     ("namespace {\n\nconstexpr int kBlock = 1024;",
-     CLOCK.format(name="g_clk_rank")
+     _clock.declare("g_clk_rank", ROWS)
      + "namespace {\n\nconstexpr int kBlock = 1024;"),
     ("  // 1. Tile histograms.\n",
      "  const unsigned long long t_start = gtime();\n"
@@ -133,52 +130,6 @@ RANK = (
      "    d[4] = t_s2; d[5] = gtime(); d[6] = p_ord; d[7] = gridDim.x;\n"
      "  }\n}\n"),
 )
-READ = ('\nextern "C" int {fn}(unsigned long long* host) {{\n'
-        "  return (int)cudaMemcpyFromSymbol(host, {name}, "
-        "sizeof(unsigned long long) * 512 * 16);\n}}\n")
-
-
-def clocked(source: str, patches, fn: str, name: str) -> str:
-    src = (ROOT / "urban_road_filter_torch/csrc" / source).read_text()
-    for anchor, text in patches:
-        if anchor not in src:
-            raise SystemExit(f"clock_star_rank: {source} lacks {anchor!r}")
-        src = src.replace(anchor, text, 1)
-    return src + READ.format(fn=fn, name=name)
-
-
-def build():
-    """The clocked library, loaded, with the wrappers' C signatures."""
-    from urban_road_filter_torch import _build
-
-    out = _build.BUILD_DIR / "clock_star_rank"
-    out.mkdir(parents=True, exist_ok=True)
-    srcs = [out / "star_clocked.cu", out / "group_place_clocked.cu"]
-    srcs[0].write_text(clocked("star.cu", STAR, "urf_clock_star",
-                               "g_clk_star"))
-    srcs[1].write_text(clocked("group_place.cu", RANK, "urf_clock_rank",
-                               "g_clk_rank"))
-    lib_path = out / "libclocked.so"
-    res = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o",
-                          str(lib_path), *map(str, srcs)],
-                         capture_output=True, text=True)
-    if res.returncode != 0:
-        sys.exit(res.stdout + res.stderr)
-    for line in (res.stdout + res.stderr).splitlines():
-        if "Used" in line:
-            print(line.strip())
-    lib = ctypes.CDLL(str(lib_path))
-    for fn in ("urf_star_search", "urf_group_rank"):
-        getattr(lib, fn).argtypes = _build._SIGNATURES[fn]
-        getattr(lib, fn).restype = ctypes.c_int
-    lib.urf_error_string.argtypes = (ctypes.c_int,)
-    lib.urf_error_string.restype = ctypes.c_char_p
-    for fn in ("urf_clock_star", "urf_clock_rank"):
-        getattr(lib, fn).argtypes = (ctypes.c_void_p,)
-        getattr(lib, fn).restype = ctypes.c_int
-    return lib
-
-
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None, help="write the result as JSON")
@@ -205,12 +156,13 @@ def main() -> int:
 
     dev = torch.device("cuda", 0)
     cfg = FilterConfig()
-    normal = _build.library()
-    clocked_lib = build()
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit,clocks.max.sm",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0]
+    _build.library()
+    clocked_lib = _clock.build(
+        "clock_star_rank",
+        [("star.cu", STAR, "urf_clock_star", "g_clk_star", ROWS),
+         ("group_place.cu", RANK, "urf_clock_rank", "g_clk_rank", ROWS)],
+        entries=("urf_star_search", "urf_group_rank"))
+    smi = _clock.card()
     print(smi, flush=True)
 
     # The inputs, made with the unclocked kernels.
@@ -247,20 +199,12 @@ def main() -> int:
     k5_in.append(("random (2049 groups)",
                   torch.from_numpy(c.rank_ids(n, 2049)).to(dev), 2049))
 
-    def on(lib, fn):
-        _build._lib = lib
-        try:
-            return fn()
-        finally:
-            _build._lib = normal
+    on = _clock.on
 
     def read(fn, grid_col):
         """The clock rows of the last launch's blocks (the grid size sits
         in column grid_col)."""
-        buf = (ctypes.c_ulonglong * (512 * 16))()
-        assert getattr(clocked_lib, fn)(ctypes.addressof(buf)) == 0
-        rows = np.frombuffer(buf, dtype=np.uint64).reshape(512, 16)
-        rows = rows.astype(np.int64)
+        rows = _clock.read(clocked_lib, fn, ROWS)
         return rows[:int(rows[0, grid_col])]
 
     def event_ms(fn):

@@ -19,11 +19,15 @@ chip_smoke.py's phase 2:
   merged multi-LiDAR scan (128 x 2048), as phase 2 calls them, with the
   PyTorch calls phase 2 times beside K6 (index_put_) and K11 (the indexed
   gather);
+- the blocked bits (K8) also with every slot a curb ("flood_blocked_all_
+  curbs", its worst case);
 - the road mask (K12) over the 8 wedges of the SP run of phase 5's OS1-128
   scan (128 rings x 384 slots each), 8 launches per call, as the SP path
   calls it, the star search over the same 8 wedges (32768 points each),
-  and the SP path's two K5 calls (262144 ids over 9 and over 1025 groups),
-  the last two replayed from the calls a run of the tree's SP path made;
+  the SP path's two K5 calls (262144 ids over 9 and over 1025 groups), and
+  its K8 and K14 calls of one scan (8 and 16 per-wedge calls in trees
+  before the wedge axis, 1 and 2 since), the last four replayed from the
+  calls a run of the tree's SP path made;
 - beside K4 the whole star stage as the pipeline calls it ("star_stage":
   star_hits with the scan's K1 keys), and, in trees whose K4 walks sorted
   streams, the two stable sorts on their own ("beam_streams").
@@ -106,6 +110,7 @@ def scan_calls(dev, dims, cfg, scan) -> dict:
     bz = cfg.beam_zone
     w = bs.window_widths(geometry.max_distance(layout), bz)
     blocked = bs.flood_blocked(stenciled, w, bz)
+    curbs = stenciled._replace(label=torch.full_like(stenciled.label, 2))
     reach = bs.sweep_reach(stenciled, blocked, w, num_rings, cfg)
     flooded, kf = bs.flood_labeled(stenciled, *reach, w, bz, num_rings)
     road = stenciled._replace(label=flooded)
@@ -143,6 +148,7 @@ def scan_calls(dev, dims, cfg, scan) -> dict:
         "index_put": index_put,
         "xz_zero": lambda: fused_xz_zero(layout, cfg),
         "flood_blocked": lambda: bs.flood_blocked(stenciled, w, bz),
+        "flood_blocked_all_curbs": lambda: bs.flood_blocked(curbs, w, bz),
         "flood_labeled": lambda: bs.flood_labeled(stenciled, *reach, w, bz,
                                                   num_rings),
         "marker_points": lambda: mk.marker_points(road, num_rings, kf),
@@ -159,8 +165,10 @@ def scan_calls(dev, dims, cfg, scan) -> dict:
 def sp_wedge_calls(dev, c, cfg) -> dict:
     """{"flood_road": K12 over the wedges of one SP run of phase 5's OS1-128
     scan (configuration ``cfg``), as the SP path calls it (one launch per
-    wedge); "star_stage": the SP path's star_hits calls (one per wedge) and
-    "group_rank_G": its two K5 calls (G = 9 and 1025 groups), each as
+    wedge); "star_stage": the SP path's star_hits calls (one per wedge),
+    "group_rank_G": its two K5 calls (G = 9 and 1025 groups),
+    "flood_blocked" and "marker_state": its K8 and K14 calls of one scan
+    (per wedge in older trees, over the wedge axis since), each as
     recorded from a run of the tree's SP path with the default
     configuration, so a tree is measured on the inputs its own partition
     makes, whatever its probe holds}."""
@@ -179,10 +187,12 @@ def sp_wedge_calls(dev, c, cfg) -> dict:
               for k in range(c.WEDGES)]
     reach = (probe["reach_f"], probe["reach_b"])
 
-    recorded = {"star_hits": [], "group_positions": []}
+    owner = {"star_hits": ap, "group_positions": ap, "marker_state": ap,
+             "flood_blocked": bs}
+    recorded = {name: [] for name in owner}
 
     def recording(name):
-        fn = getattr(ap, name)
+        fn = getattr(owner[name], name)
 
         def call(*args, **kwargs):
             recorded[name].append((args, kwargs))
@@ -192,25 +202,31 @@ def sp_wedge_calls(dev, c, cfg) -> dict:
     saved = {name: recording(name) for name in recorded}
     try:
         for name, (_, call) in saved.items():
-            setattr(ap, name, call)
+            setattr(owner[name], name, call)
         ap.make_azimuth_pipeline(c.WEDGES, FilterConfig(), dims,
                                  device=dev)(host)
     finally:
         for name, (fn, _) in saved.items():
-            setattr(ap, name, fn)
-    star_hits = saved["star_hits"][0]
-    group_positions = saved["group_positions"][0]
+            setattr(owner[name], name, fn)
+    fns = {name: fn for name, (fn, _) in saved.items()}
+
+    def replay(name):
+        return lambda: [fns[name](*a, **kw) for a, kw in recorded[name]]
+
     # The star stage last: in trees where it is ~300 device ops a call, the
     # profiler hands some of its events to the next profile, which then
     # reads short.
     calls = {f"group_rank_{a[1]}": (lambda a=a, kw=kw:
-                                    group_positions(*a, **kw))
+                                    fns["group_positions"](*a, **kw))
              for a, kw in recorded["group_positions"]}
     calls["flood_road"] = lambda: [bs.flood_road(lay, *reach, probe["w"],
                                                  cfg.beam_zone)
                                    for lay in wedges]
-    calls["star_stage"] = lambda: [star_hits(*a, **kw)
-                                   for a, kw in recorded["star_hits"]]
+    # K8 and K14 as the tree's SP path calls them: per wedge (8 and 16
+    # calls per scan) or over the wedge axis (1 and 2).
+    calls["flood_blocked"] = replay("flood_blocked")
+    calls["marker_state"] = replay("marker_state")
+    calls["star_stage"] = replay("star_hits")
     return calls
 
 

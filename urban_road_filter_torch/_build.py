@@ -76,7 +76,7 @@ _SIGNATURES = {
                         _P, _P, _P),
     "urf_xz_zero": (_P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _F,
                     _F, _F, _P),
-    "urf_flood_blocked": (_P, _P, _P, _P, _I, _I, _F, _P, _P, _P),
+    "urf_flood_blocked": (_P, _P, _P, _P, _I, _I, _I, _F, _P, _P, _P),
     "urf_flood_labeled": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _P, _P, _P),
     "urf_marker_points": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _I,
                           _P, _P),
@@ -84,8 +84,8 @@ _SIGNATURES = {
                         _P),
     "urf_flood_road": (_P, _P, _P, _P, _P, _I, _I, _F, _P, _P),
     "urf_marker_first_nonroad": (_P, _P, _P, _P, _I, _I, _P, _P),
-    "urf_marker_state": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P,
-                         _P, _P, _P),
+    "urf_marker_state": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I,
+                         _P, _I, _P, _P),
 }
 
 _launches = dict.fromkeys(KERNELS, 0)

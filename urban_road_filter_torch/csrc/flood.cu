@@ -6,7 +6,8 @@
 //     curb slot of ring k inside the forward window [i, i + w_k] or the
 //     backward window [i - w_k, i]?  The TPU streamed (ring, slot) blocks
 //     with the 362 starts on sublanes, in three 128-start windows skipped by
-//     a min/max precheck.
+//     a min/max precheck.  Here over any number of azimuth wedges of R
+//     rings in one launch (the sharded path's stacked layout).
 //   * labeled_markerf_pallas (K9): a slot is road when a reachable start of
 //     either sweep has it in its window; in the same pass, per one-degree
 //     azimuth bin, the smallest (ring, alpha, slot) key over the slots that
@@ -26,10 +27,29 @@
 // (backward lo -> 0) for rings k >= 1 only, and NaN azimuths that never
 // block and never become road (every compare with NaN is false).
 //
-// K8 is bounded by the number of curb slots per ring, which is small: one
-// block per ring compacts the ring's curb azimuths into shared memory
-// (order does not matter to "any"), then one thread per start scans that
-// short list.
+// K8: the per-start loop turned around.  Start i's forward window
+// [i, fl(i + w_k)] holds a curb exactly when the smallest curb azimuth a
+// >= i does (the nearest curb at or after i is the first one the window
+// can hold), and its backward window [fl(i - w_k), i] when the largest
+// curb azimuth a <= i does.  For an integer i, a >= i holds exactly when
+// top(a) >= i, with top(a) = floor(a) (361 for a >= 361, none for a < 0),
+// and a <= i exactly when first(a) <= i, with first(a) = ceil(a) (0 for
+// a <= 0, none for a > 361).  So per row the kernel reduces the smallest
+// curb azimuth per top and the largest per first in shared memory
+// (atomicMin / atomicMax of ordered images), then one block-wide scan per
+// sweep takes a suffix minimum (forward) or a prefix maximum (backward)
+// over the 362 starts and compares it with the twin's bound, rounded once
+// in f32 (__fadd_rn / __fsub_rn), as the dense compare does.  The special
+// starts (rings >= 1) replace the generic bound, so their bits are set on
+// their own: forward i* == 360 - bz is blocked by a curb with i* <= a <= 360,
+// backward bz by one with 0 <= a <= bz.  A NaN w_k makes every compare
+// false; +-inf blocks every start with a curb on the right side.  Cost per
+// row: O(curbs + 362), not O(362 x curbs).  One block per (wedge, ring)
+// row, so the azimuth-sharded path's wedges are one launch.  What bounds
+// it on Hopper: the launch and fixed costs per block, not bytes (~0.3 us
+// of them per counted 64 x 4096 layout): the row's count, then its slots
+// (two trips to memory), the reads of one SM, the barriers and the
+// instruction fetches of code that each block runs once (PERF.md).
 //
 // K9 and K12: the starts that cover a slot form an interval.  For a slot
 // of ring k with a valid azimuth a (0 <= a <= 360, not NaN):
@@ -136,44 +156,6 @@ __device__ __forceinline__ unsigned long long marker_key(int ring, float a,
          (unsigned long long)slot;
 }
 
-// Grid: one block per ring, kStarts threads or more.
-__global__ void blocked_kernel(const float* __restrict__ alpha,
-                               const int* __restrict__ label,
-                               const int* __restrict__ counts,
-                               const float* __restrict__ w, int p, float bz,
-                               bool* __restrict__ blocked_f,
-                               bool* __restrict__ blocked_b) {
-  extern __shared__ float curb_alpha[];  // [p]
-  __shared__ int n_curb;
-  const int r = blockIdx.x;
-  if (threadIdx.x == 0) n_curb = 0;
-  __syncthreads();
-  const int n = min(counts[r], p);
-  const size_t row = (size_t)r * p;
-  for (int s = threadIdx.x; s < n; s += blockDim.x) {
-    if (label[row + s] != kCurb) continue;
-    const float a = alpha[row + s];
-    if (a == a) curb_alpha[atomicAdd(&n_curb, 1)] = a;  // NaN never blocks
-  }
-  __syncthreads();
-  const int i = threadIdx.x;
-  if (i >= kStarts) return;
-  const float fi = (float)i;
-  const float wk = w[r];
-  const bool ge1 = r >= 1;
-  const float hi = (ge1 && fi == 360.0f - bz) ? 360.0f : fi + wk;
-  const float lo = (ge1 && fi == bz) ? 0.0f : fi - wk;
-  bool bf = false, bb = false;
-  const int m = n_curb;
-  for (int c = 0; c < m; ++c) {
-    const float a = curb_alpha[c];
-    bf |= (a >= fi) && (a <= hi);
-    bb |= (a >= lo) && (a <= fi);
-  }
-  blocked_f[(size_t)r * kStarts + i] = bf;
-  blocked_b[(size_t)r * kStarts + i] = bb;
-}
-
 // One ring's reach bits of both sweeps (0 forward, 1 backward), packed, and
 // per word the count of set bits in the words before it.
 struct RingReach {
@@ -220,6 +202,227 @@ __device__ __forceinline__ int backward_end(float a, float wk) {
     if (n + step <= kStarts && __fsub_rn((float)(n + step - 1), wk) <= a)
       n += step;
   return n;
+}
+
+// K8.  The ordered integer image of a float: unsigned order == float
+// order (NaN excluded).  kNoMin and kNoMax lie above and below every image.
+constexpr unsigned int kNoMin = 0xffffffffu;
+constexpr unsigned int kNoMax = 0u;
+
+__device__ __forceinline__ unsigned int ordered(float v) {
+  const unsigned int u = __float_as_uint(v);
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+
+__device__ __forceinline__ float unordered(unsigned int k) {
+  return __uint_as_float((k & 0x80000000u) ? (k & 0x7fffffffu) : ~k);
+}
+
+struct BlockedArgs {
+  const float* alpha;
+  const int* label;
+  const int* counts;
+  const float* w;  // (rings,), shared by every wedge
+  bool* blocked_f;  // (rows, kStarts)
+  bool* blocked_b;
+  int rings;  // rings per wedge
+  int rows;   // wedges * rings
+  int p;
+  float bz;
+  bool vec;  // alpha and label are 16-byte aligned
+};
+
+constexpr int kScan = 384;  // the 362 starts, padded to whole warps
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned int at = (unsigned int)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(at),
+               "l"(gmem)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Copies quads [qb, qb + n) of the flat alpha and label arrays into shared
+// memory, 16 bytes a copy in flight at once where the bases are aligned
+// (cp.async, no registers held), else element by element (0 past the end).
+template <int kThreads>
+__device__ __forceinline__ void blocked_stage(const BlockedArgs& A,
+                                              size_t total, size_t qb, int n,
+                                              float4* s_a, int4* s_l) {
+  for (int qi = threadIdx.x; qi < n; qi += kThreads) {
+    const size_t e = 4 * (qb + (size_t)qi);
+    if (A.vec && e + 4 <= total) {
+      cp_async16(s_a + qi, A.alpha + e);
+      cp_async16(s_l + qi, A.label + e);
+    } else {
+      float av[4];
+      int lv[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        av[j] = e + j < total ? __ldg(A.alpha + e + j) : 0.0f;
+        lv[j] = e + j < total ? __ldg(A.label + e + j) : 0;
+      }
+      s_a[qi] = make_float4(av[0], av[1], av[2], av[3]);
+      s_l[qi] = make_int4(lv[0], lv[1], lv[2], lv[3]);
+    }
+  }
+}
+
+// Grid: one block per (wedge, ring) row, kThreads threads (128 or 384);
+// thread t scans starts [t * kSeg, (t + 1) * kSeg).  The row's count, then
+// its counted slots, go through shared memory in chunks of 3 * kThreads
+// quads, so a row of up to 4096 slots is one chunk (the host takes 128
+// threads up to 1024 slots), every copy of a chunk in flight at once.
+// The code is kept compact (rolled loops): each block runs it once, so its
+// instruction fetches, not its arithmetic, set much of its time
+// (tools/clock_flood_markers.py splits it by phase).
+template <int kThreads>
+__global__ void __launch_bounds__(kThreads) blocked_kernel(BlockedArgs A) {
+  constexpr int kSeg = kScan / kThreads;
+  constexpr int kWarps = kThreads / 32;
+  constexpr int kChunk = 3 * kThreads;  // quads staged at a time
+  __shared__ float4 s_aq[kChunk];
+  __shared__ int4 s_lq[kChunk];
+  __shared__ unsigned int s_min[kScan];  // per top start
+  __shared__ unsigned int s_max[kScan];  // per first start
+  __shared__ unsigned int s_wmin[kWarps], s_wmax[kWarps];
+  __shared__ int s_special[2];
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int row = blockIdx.x;
+  const int k = row % A.rings;  // the ring within its wedge
+  const size_t row0 = (size_t)row * A.p;
+  const size_t total = (size_t)A.rows * A.p;
+  // Quads of the flat arrays that hold the row's slots, from q_lo.
+  const size_t q_lo = row0 / 4;
+  const float wk = __ldg(A.w + k);
+  const int cnt = min(max(__ldg(A.counts + row), 0), A.p);
+  // Quads that hold the row's counted slots [0, cnt).
+  const int nq = cnt > 0 ? (int)((row0 + cnt - 1) / 4 - q_lo + 1) : 0;
+  blocked_stage<kThreads>(A, total, q_lo, min(nq, kChunk), s_aq, s_lq);
+  for (int b = tid; b < kScan; b += kThreads) {
+    s_min[b] = kNoMin;
+    s_max[b] = kNoMax;
+  }
+  if (tid < 2) s_special[tid] = 0;
+  // The special starts, each an integer start or none (-1), rings >= 1.
+  const float edge = __fsub_rn(360.0f, A.bz);
+  const bool ge1 = k >= 1;
+  const int i_f = (ge1 && edge >= 0.0f && edge <= 361.0f &&
+                   edge == floorf(edge)) ? (int)edge : -1;
+  const int i_b = (ge1 && A.bz >= 0.0f && A.bz <= 361.0f &&
+                   A.bz == floorf(A.bz)) ? (int)A.bz : -1;
+  cp_async_wait_all();
+  __syncthreads();
+
+  // The row's curbs: per top the smallest azimuth, per first the largest.
+  bool sp_f = false, sp_b = false;
+  for (int c0 = 0; c0 < nq; c0 += kChunk) {
+    if (c0 > 0) {  // rows longer than one chunk
+      __syncthreads();
+      blocked_stage<kThreads>(A, total, q_lo + c0, min(nq - c0, kChunk),
+                              s_aq, s_lq);
+      cp_async_wait_all();
+      __syncthreads();
+    }
+    for (int qi = tid; qi < min(nq - c0, kChunk); qi += kThreads) {
+      const int4 l4 = s_lq[qi];
+      if (l4.x != kCurb && l4.y != kCurb && l4.z != kCurb && l4.w != kCurb)
+        continue;
+      const float4 a4 = s_aq[qi];
+      const float av[4] = {a4.x, a4.y, a4.z, a4.w};
+      const int lv[4] = {l4.x, l4.y, l4.z, l4.w};
+      const long long s0 =
+          (long long)(4 * (q_lo + (size_t)(c0 + qi))) - (long long)row0;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const long long s = s0 + j;
+        const float a = av[j];
+        // NaN never blocks.
+        if (!(s >= 0 && s < cnt && lv[j] == kCurb && a == a)) continue;
+        const unsigned int img = ordered(a);
+        if (a >= 0.0f)  // forward: blocks starts up to top
+          atomicMin(&s_min[a >= 361.0f ? 361 : (int)floorf(a)], img);
+        if (a <= 361.0f)  // backward: blocks starts from first
+          atomicMax(&s_max[a <= 0.0f ? 0 : (int)ceilf(a)], img);
+        sp_f |= i_f >= 0 && (float)i_f <= a && a <= 360.0f;
+        sp_b |= i_b >= 0 && 0.0f <= a && a <= (float)i_b;
+      }
+    }
+  }
+  if (sp_f) s_special[0] = 1;
+  if (sp_b) s_special[1] = 1;
+  __syncthreads();
+
+  // Forward: start i is blocked when the smallest curb azimuth at or above
+  // it (a suffix minimum over the tops >= i) is <= fl(i + w_k); backward:
+  // when the largest at or below it (a prefix maximum over the firsts
+  // <= i) is >= fl(i - w_k).  One block-wide scan each: a thread's kSeg
+  // starts, then its warp, then the warps' totals.  The special start
+  // takes its own bound's bit, not the generic one's.
+  const int i0 = kSeg * tid;
+  unsigned int vf[kSeg], vb[kSeg];
+#pragma unroll
+  for (int t = 0; t < kSeg; ++t) {
+    vf[t] = s_min[i0 + t];
+    vb[t] = s_max[i0 + t];
+  }
+#pragma unroll
+  for (int t = kSeg - 2; t >= 0; --t) vf[t] = min(vf[t], vf[t + 1]);
+#pragma unroll
+  for (int t = 1; t < kSeg; ++t) vb[t] = max(vb[t], vb[t - 1]);
+  unsigned int tf = vf[0], tb = vb[kSeg - 1];
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const unsigned int f = __shfl_down_sync(~0u, tf, o);
+    const unsigned int b = __shfl_up_sync(~0u, tb, o);
+    if (lane + o < 32) tf = min(tf, f);
+    if (lane >= o) tb = max(tb, b);
+  }
+  if (lane == 0) s_wmin[warp] = tf;
+  if (lane == 31) s_wmax[warp] = tb;
+  unsigned int after = __shfl_down_sync(~0u, tf, 1);
+  unsigned int before = __shfl_up_sync(~0u, tb, 1);
+  if (lane == 31) after = kNoMin;
+  if (lane == 0) before = kNoMax;
+  __syncthreads();
+  if (warp == 0) {  // over the warps' totals: exclusive, in place
+    unsigned int f = lane < kWarps ? s_wmin[lane] : kNoMin;
+    unsigned int b = lane < kWarps ? s_wmax[lane] : kNoMax;
+#pragma unroll
+    for (int o = 1; o < 16; o <<= 1) {
+      const unsigned int g = __shfl_down_sync(~0u, f, o);
+      const unsigned int h = __shfl_up_sync(~0u, b, o);
+      if (lane + o < 32) f = min(f, g);
+      if (lane >= o) b = max(b, h);
+    }
+    f = __shfl_down_sync(~0u, f, 1);
+    b = __shfl_up_sync(~0u, b, 1);
+    if (lane < kWarps) {
+      s_wmin[lane] = lane + 1 < kWarps ? f : kNoMin;
+      s_wmax[lane] = lane > 0 ? b : kNoMax;
+    }
+  }
+  __syncthreads();
+  after = min(after, s_wmin[warp]);
+  before = max(before, s_wmax[warp]);
+  bool* out_f = A.blocked_f + (size_t)row * kStarts;
+  bool* out_b = A.blocked_b + (size_t)row * kStarts;
+  const bool spf = s_special[0] != 0, spb = s_special[1] != 0;
+#pragma unroll
+  for (int t = 0; t < kSeg; ++t) {
+    const int i = i0 + t;
+    if (i >= kStarts) break;
+    const unsigned int mf = min(vf[t], after), mb = max(vb[t], before);
+    const bool hf = mf != kNoMin && unordered(mf) <= __fadd_rn((float)i, wk);
+    const bool hb = mb != kNoMax && __fsub_rn((float)i, wk) <= unordered(mb);
+    out_f[i] = i == i_f ? spf : hf;
+    out_b[i] = i == i_b ? spb : hb;
+  }
 }
 
 // Grid: (slot tiles of kSlots * blockDim, rings), blockDim a multiple of
@@ -348,19 +551,30 @@ int labeled_threads(int p) {
 
 }  // namespace
 
-// blocked_f / blocked_b: (rings, 362) bool.  alpha (rings, p) f32, label
-// (rings, p) int32, counts (rings,) int32, w (rings,) f32.
+// blocked_f / blocked_b: (wedges * rings, 362) bool, row w * rings + k
+// for ring k of wedge w.  alpha (wedges * rings, p) f32, label int32,
+// counts (wedges * rings,) int32, w (rings,) f32, shared by the wedges;
+// the special starts apply to rings k >= 1 of each wedge.  One launch.
 extern "C" int urf_flood_blocked(const float* alpha, const int* label,
-                                 const int* counts, const float* w, int rings,
-                                 int p, float bz, bool* blocked_f,
-                                 bool* blocked_b, void* stream) {
-  const size_t smem = (size_t)p * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      blocked_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  if (rings > 0)
-    blocked_kernel<<<rings, 384, smem, (cudaStream_t)stream>>>(
-        alpha, label, counts, w, p, bz, blocked_f, blocked_b);
+                                 const int* counts, const float* w,
+                                 int wedges, int rings, int p, float bz,
+                                 bool* blocked_f, bool* blocked_b,
+                                 void* stream) {
+  const long long rows = (long long)wedges * rings;
+  if (wedges < 0 || rings < 0 || p < 0 || rows > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  if (rows == 0) return (int)cudaGetLastError();
+  auto is16 = [](const void* ptr) {
+    return reinterpret_cast<uintptr_t>(ptr) % 16 == 0;
+  };
+  // 128 threads for rows of up to 1024 slots, else 384.
+  BlockedArgs a{alpha,  label,       counts, w,        blocked_f,
+                blocked_b, rings, (int)rows, p, bz,
+                is16(alpha) && is16(label)};
+  if (p <= 1024)
+    blocked_kernel<128><<<(int)rows, 128, 0, (cudaStream_t)stream>>>(a);
+  else
+    blocked_kernel<384><<<(int)rows, 384, 0, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
 

@@ -10,8 +10,9 @@
 //   * marker_state_pallas (K14, _marker_kernel): the per-bin state
 //     [f, maxd, gstar, x, y, z] on the AZIMUTH-SORTED layout with a scan
 //     position g = g_offset[ring] + slot, which the azimuth-sharded path
-//     runs twice per wedge (g_offset and the global f floor f_init make
-//     each wedge's state its share of the global one).
+//     runs twice per wedge on the TPU (g_offset and the global f floor
+//     f_init make each wedge's state its share of the global one); here
+//     one launch per pass covers every wedge.
 // The reference walks its rings outward and each ring in azimuth order
 // (lidar_segmentation.cpp:295-351); per bin it keeps the farthest road
 // point, updating on a strictly greater distance (ties keep the first
@@ -71,14 +72,51 @@
 //   at 64 x 4096, 64 x 2048 and 128 x 2048 alike, against a bound below
 //   1 us: fixed costs (launch, two shared-memory passes with their
 //   barriers per row, the grid barrier, the merge), not bytes, set it.
-// K13 and K14 are chains of small launches behind one entry:
-//   K13: first_nonroad_kernel (a 64-bit atomicMin per non-road slot);
-//   K14: state_init_kernel, state_f_kernel (atomicMin of g per non-road
-//        slot), state_max_kernel, state_win_kernel (atomicMin of
-//        g << 32 | flat slot index, so the winner's address rides along),
-//        state_table_kernel.
-// K13's kf is filled with kNoKey by the caller; K14 initialises its own
-// scratch.
+// K13 is a kernel behind a fill: first_nonroad_kernel (a 64-bit atomicMin
+// per non-road slot) into a kf the caller fills with kNoKey.
+//
+// K14 design: one cooperative launch over any number of azimuth wedges (the
+// sharded path's stacked layout: wedge w's ring k at row w * R + k), with
+// no fill and no scratch that anything pre-fills, so a call is one device
+// op, whatever the number of wedges.  Each wedge's active rings are cut
+// into row groups (rings j, j + G, ... for group j of G), as many rows per
+// group as one step of 512 threads x 2 quads holds; blocks grid-stride
+// over the (wedge, group) pairs, the grid capped at the co-resident block
+// count.  A thread holds 2 quads of the group's rows, 512 quads apart
+// (alpha and label of the row's counted slots, 16-byte quads where
+// aligned; azimuths outside [0, 360] or NaN are masked; x and y where the
+// quad holds road), keeps them in registers, and makes one shared atomic
+// per run of one bin in a quad (a sorted row's neighbours share a bin).
+//   Phase 1.  Per group, the smallest g = goff[row] + slot of a non-road
+//   slot per bin (atomicMin of its f32's ordered image in shared memory,
+//   starting from f_init's image, 3e38's when none is given), written
+//   whole to the group's partials.  Grid barrier.
+//   Phase 2.  Each block merges its wedge's f per bin, the minimum of the
+//   wedge's group partials (16-byte loads, the groups split over the
+//   block's threads; the block of group 0 also writes it for phase 3),
+//   then runs K10's chunk scheme on its group: a shared atomicMax of d's
+//   bits over the
+//   candidates (road, d > 0, g < f), a step that forgets the winner of a
+//   bin whose max rose, and the min key g << 32 | flat slot at that max in
+//   two 32-bit atomicMin passes (g's low word as a signed int, then the
+//   flat slot among those at that g) in place of one 64-bit one.  When the
+//   block has one group of one step, its slots stay in registers across
+//   the barrier (x and y, which only phase 2 reads, are loaded before it,
+//   so they arrive during it) and the layout is read once; otherwise it
+//   reads its group again.  Partials written whole.  Grid barrier.
+//   Phase 3.  8, 16 or 32 lanes (enough for the wedge's groups) per
+//   (wedge, bin) merge the partials (larger d wins, equal d keeps the
+//   smaller key), gather the winner's x, y, z and write the row [f, maxd,
+//   gstar, x, y, z].
+// Nothing outlives a launch: every scratch entry a launch reads it wrote
+// before a grid barrier, so launches may overlap on other streams and a
+// captured launch replays as it ran.
+// What bounds it: latency, not bytes.  Its bytes (x, y, alpha, label)
+// take ~1.6 us at 64 x 4096 and ~1.9 us per pass at the sharded path's
+// 8 x 128 x 384; the launch, the two grid barriers (~1 us each), the
+// chains of loads (counts, then the slots) and each phase's instruction
+// fetch (every block runs the code once) take the rest
+// (tools/clock_flood_markers.py times the phases).
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -296,7 +334,21 @@ __global__ void first_nonroad_kernel(const float* __restrict__ alpha,
     if (blk[b] != kNoKey) atomicMin(&kf[b], blk[b]);
 }
 
-// K14.  The ordered integer image of a float: unsigned order == float order.
+// K14.  The ordered integer image of a float: unsigned order == float
+// order (NaN excluded); kNoImage lies above every image.
+constexpr unsigned int kNoImage = 0xffffffffu;
+constexpr long long kNoState = 0x7fffffffffffffffLL;  // no winner key
+constexpr float kFNone = 3.0e38f;  // f_init's default (marker_scan.py:44)
+constexpr int kStateThreads = 512;
+constexpr int kStateQuads = 2;  // quads per thread per step
+constexpr int kStateStep = kStateThreads * kStateQuads;  // quads per step
+// A group's f partials: 361 images padded to whole 16-byte quads, merged
+// by kFSlices threads per quad, each over every kFSlices-th group.
+constexpr int kFPad = 364;
+constexpr int kFQuads = kFPad / 4;
+constexpr int kFSlices = kStateThreads / kFQuads;
+constexpr int kFBatch = 8;  // f partials in flight per thread
+
 __device__ __forceinline__ unsigned int ordered(float v) {
   const unsigned int u = __float_as_uint(v);
   return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
@@ -306,150 +358,418 @@ __device__ __forceinline__ float unordered(unsigned int k) {
   return __uint_as_float((k & 0x80000000u) ? (k & 0x7fffffffu) : ~k);
 }
 
-__global__ void state_init_kernel(const float* __restrict__ f_init,
-                                  unsigned int* __restrict__ f_img,
-                                  unsigned int* __restrict__ maxd,
-                                  unsigned long long* __restrict__ win) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= kBins) return;
-  f_img[b] = ordered(f_init[b]);
-  maxd[b] = 0u;
-  win[b] = kNoKey;
+struct StateArgs {
+  const float* x;
+  const float* y;
+  const float* z;
+  const float* alpha;
+  const int* label;
+  const int* counts;
+  const int* num_rings;
+  const int* goff;      // (wedges * rings,), or null: ring * p
+  const float* f_init;  // (wedges, 361), wedge stride f_stride, or null
+  unsigned int* part_f;  // (wedges, groups, kFPad): per row group, images
+  unsigned int* f_out;   // (wedges, 361): each wedge's merged f, images
+  unsigned int* part_d;  // (wedges, 361, groups): per row group
+  long long* part_k;
+  float* state;  // (wedges, 361, 6)
+  long long f_stride;
+  int wedges, rings, p;
+  int groups;  // row groups per wedge
+  int qp;      // quads one row may touch
+  int lanes;   // lanes per (wedge, bin) in the merge: 8, 16 or 32
+  bool vec;    // x, y, alpha and label are 16-byte aligned
+};
+
+// One step of a row group in registers: kStateQuads quads of the group's
+// rows a thread, kStateThreads apart (row i of the group at quads
+// [i * qp, (i + 1) * qp)), so a warp's loads are contiguous.
+struct StateStep {
+  float a[kStateQuads][4];
+  float x[kStateQuads][4];  // loaded only where the quad holds road
+  float y[kStateQuads][4];
+  long long g0[kStateQuads];     // g of each quad's element 0
+  unsigned int e[kStateQuads];   // flat index of each quad's element 0
+  unsigned int ok;    // bit 4u + j: a slot of an active row, 0 <= a <= 360
+  unsigned int road;  // bit 4u + j: ok and LABEL_ROAD
+};
+
+// Row group v of a call: wedge v / groups, rings j, j + groups, ... below
+// nr, j = v % groups.  Sets the group's count of quads.
+__device__ __forceinline__ int group_quads(const StateArgs& A, int j,
+                                           int nr) {
+  return j < nr ? ((nr - 1 - j) / A.groups + 1) * A.qp : 0;
 }
 
-// A slot of the sorted layout with a valid azimuth on an active ring: sets
-// *bin, *g (its scan position) and *road.
-__device__ __forceinline__ bool state_slot(const float* __restrict__ alpha,
-                                           const int* __restrict__ label,
-                                           const int* __restrict__ counts,
-                                           const int* __restrict__ num_rings,
-                                           const int* __restrict__ goff,
-                                           int r, int s, int p, int* bin,
-                                           int* g, bool* road) {
-  if (s >= p || s >= counts[r] || r >= *num_rings) return false;
-  const size_t at = (size_t)r * p + s;
-  const float a = alpha[at];
-  if (!(a >= 0.0f && a <= 360.0f)) return false;
-  *bin = (int)floorf(a);
-  *g = goff[r] + s;
-  *road = label[at] == kRoad;
-  return true;
-}
-
-// A K14 candidate: road, d > 0 and g < f of its bin; sets *d.
-__device__ __forceinline__ bool state_cand(
-    const float* __restrict__ x, const float* __restrict__ y,
-    const float* __restrict__ alpha, const int* __restrict__ label,
-    const int* __restrict__ counts, const int* __restrict__ num_rings,
-    const int* __restrict__ goff, const unsigned int* __restrict__ f_img,
-    int r, int s, int p, int* bin, int* g, float* d) {
-  bool road;
-  if (!state_slot(alpha, label, counts, num_rings, goff, r, s, p, bin, g,
-                  &road) || !road)
-    return false;
-  const size_t at = (size_t)r * p + s;
-  const float px = x[at];
-  const float py = y[at];
-  *d = sqrtf(px * px + py * py);
-  return *d > 0.0f && (float)*g < unordered(f_img[*bin]);
-}
-
-__global__ void state_f_kernel(const float* __restrict__ alpha,
-                               const int* __restrict__ label,
-                               const int* __restrict__ counts,
-                               const int* __restrict__ num_rings,
-                               const int* __restrict__ goff, int p,
-                               unsigned int* __restrict__ f_img) {
-  __shared__ unsigned int blk[kBins];
-  for (int b = threadIdx.x; b < kBins; b += blockDim.x) blk[b] = 0xffffffffu;
-  __syncthreads();
-  int bin, g;
-  bool road;
-  if (state_slot(alpha, label, counts, num_rings, goff, blockIdx.y,
-                 blockIdx.x * blockDim.x + threadIdx.x, p, &bin, &g, &road) &&
-      !road)
-    atomicMin(&blk[bin], ordered((float)g));
-  __syncthreads();
-  for (int b = threadIdx.x; b < kBins; b += blockDim.x)
-    if (blk[b] != 0xffffffffu) atomicMin(&f_img[b], blk[b]);
-}
-
-__global__ void state_max_kernel(const float* __restrict__ x,
-                                 const float* __restrict__ y,
-                                 const float* __restrict__ alpha,
-                                 const int* __restrict__ label,
-                                 const int* __restrict__ counts,
-                                 const int* __restrict__ num_rings,
-                                 const int* __restrict__ goff, int p,
-                                 const unsigned int* __restrict__ f_img,
-                                 unsigned int* __restrict__ maxd) {
-  __shared__ unsigned int blk[kBins];
-  for (int b = threadIdx.x; b < kBins; b += blockDim.x) blk[b] = 0u;
-  __syncthreads();
-  int bin, g;
-  float d;
-  if (state_cand(x, y, alpha, label, counts, num_rings, goff, f_img,
-                 blockIdx.y, blockIdx.x * blockDim.x + threadIdx.x, p, &bin,
-                 &g, &d))
-    atomicMax(&blk[bin], __float_as_uint(d));
-  __syncthreads();
-  for (int b = threadIdx.x; b < kBins; b += blockDim.x)
-    if (blk[b] != 0u) atomicMax(&maxd[b], blk[b]);
-}
-
-__global__ void state_win_kernel(const float* __restrict__ x,
-                                 const float* __restrict__ y,
-                                 const float* __restrict__ alpha,
-                                 const int* __restrict__ label,
-                                 const int* __restrict__ counts,
-                                 const int* __restrict__ num_rings,
-                                 const int* __restrict__ goff, int p,
-                                 const unsigned int* __restrict__ f_img,
-                                 const unsigned int* __restrict__ maxd,
-                                 unsigned long long* __restrict__ win) {
-  __shared__ unsigned long long blk[kBins];
-  for (int b = threadIdx.x; b < kBins; b += blockDim.x) blk[b] = kNoKey;
-  __syncthreads();
-  int bin, g;
-  float d;
-  const int r = blockIdx.y;
-  const int s = blockIdx.x * blockDim.x + threadIdx.x;
-  if (state_cand(x, y, alpha, label, counts, num_rings, goff, f_img, r, s, p,
-                 &bin, &g, &d) &&
-      __float_as_uint(d) == maxd[bin])
-    atomicMin(&blk[bin], ((unsigned long long)(unsigned int)g << 32) |
-                             (unsigned long long)((size_t)r * p + s));
-  __syncthreads();
-  for (int b = threadIdx.x; b < kBins; b += blockDim.x)
-    if (blk[b] != kNoKey) atomicMin(&win[b], blk[b]);
-}
-
-__global__ void state_table_kernel(const float* __restrict__ x,
-                                   const float* __restrict__ y,
-                                   const float* __restrict__ z,
-                                   const unsigned int* __restrict__ f_img,
-                                   const unsigned int* __restrict__ maxd,
-                                   const unsigned long long* __restrict__ win,
-                                   float* __restrict__ state) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= kBins) return;
-  float* row = state + (size_t)b * 6;
-  row[0] = unordered(f_img[b]);
-  float md = 0.0f, gs = 0.0f, px = 0.0f, py = 0.0f, pz = 0.0f;
-  if (maxd[b] != 0u) {
-    const unsigned long long k = win[b];
-    const size_t at = (size_t)(k & 0xffffffffULL);
-    md = __uint_as_float(maxd[b]);
-    gs = (float)(unsigned int)(k >> 32);
-    px = x[at];
-    py = y[at];
-    pz = z[at];
+// A step's alpha and label (each row's count and offset first: only the
+// row's counted slots are read).
+__device__ __forceinline__ void load_step(const StateArgs& A, int w, int j,
+                                          int n_quads, int step,
+                                          StateStep& S) {
+  const size_t total = (size_t)A.wedges * A.rings * A.p;
+  int cnt[kStateQuads];
+  size_t row0[kStateQuads];
+  int lv[kStateQuads][4];
+#pragma unroll
+  for (int u = 0; u < kStateQuads; ++u) {
+    const int f = step * kStateStep + u * kStateThreads + threadIdx.x;
+    const int i = A.qp > 0 ? f / A.qp : 0;
+    const int q = A.qp > 0 ? f - i * A.qp : 0;
+    const int k = j + i * A.groups;  // ring within the wedge
+    const int row = w * A.rings + k;
+    const bool in_q = f < n_quads;
+    row0[u] = (size_t)row * A.p;
+    const size_t e = 4 * (row0[u] / 4 + (size_t)q);
+    cnt[u] = in_q ? min(max(__ldg(A.counts + row), 0), A.p) : 0;
+    S.g0[u] = (in_q ? (A.goff ? (long long)__ldg(A.goff + row)
+                              : (long long)k * A.p) : 0LL) +
+              (long long)e - (long long)row0[u];
+    S.e[u] = (unsigned int)e;
   }
-  row[1] = md;
-  row[2] = gs;
-  row[3] = px;
-  row[4] = py;
-  row[5] = pz;
+#pragma unroll
+  for (int u = 0; u < kStateQuads; ++u) {
+    const size_t e = S.e[u];
+    const bool quad = e < row0[u] + cnt[u];
+    if (quad && A.vec && e + 4 <= total) {
+      const float4 a4 =
+          __ldg(reinterpret_cast<const float4*>(A.alpha) + e / 4);
+      const int4 l4 = __ldg(reinterpret_cast<const int4*>(A.label) + e / 4);
+      S.a[u][0] = a4.x, S.a[u][1] = a4.y, S.a[u][2] = a4.z, S.a[u][3] = a4.w;
+      lv[u][0] = l4.x, lv[u][1] = l4.y, lv[u][2] = l4.z, lv[u][3] = l4.w;
+    } else {
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        const bool in = quad && e + jj >= row0[u] && e + jj < row0[u] + cnt[u];
+        S.a[u][jj] = in ? __ldg(A.alpha + e + jj) : -1.0f;
+        lv[u][jj] = in ? __ldg(A.label + e + jj) : 0;
+      }
+    }
+  }
+  S.ok = 0u;
+  S.road = 0u;
+#pragma unroll
+  for (int u = 0; u < kStateQuads; ++u)
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+      const long long s = (long long)S.e[u] + jj - (long long)row0[u];
+      const float a = S.a[u][jj];
+      if (s >= 0 && s < cnt[u] && a >= 0.0f && a <= 360.0f) {
+        S.ok |= 1u << (4 * u + jj);
+        if (lv[u][jj] == kRoad) S.road |= 1u << (4 * u + jj);
+      }
+    }
+}
+
+// A step's x and y, where its quads hold road slots (phase 2 reads them;
+// issued before the grid barrier, they arrive during it).
+__device__ __forceinline__ void load_xy(const StateArgs& A, StateStep& S) {
+  const size_t total = (size_t)A.wedges * A.rings * A.p;
+#pragma unroll
+  for (int u = 0; u < kStateQuads; ++u) {
+    const size_t e = S.e[u];
+    const unsigned int road = S.road >> (4 * u) & 0xfu;
+    if (road && A.vec && e + 4 <= total) {
+      const float4 x4 = __ldg(reinterpret_cast<const float4*>(A.x) + e / 4);
+      const float4 y4 = __ldg(reinterpret_cast<const float4*>(A.y) + e / 4);
+      S.x[u][0] = x4.x, S.x[u][1] = x4.y, S.x[u][2] = x4.z, S.x[u][3] = x4.w;
+      S.y[u][0] = y4.x, S.y[u][1] = y4.y, S.y[u][2] = y4.z, S.y[u][3] = y4.w;
+    } else {
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        const bool in = road >> jj & 1u;
+        S.x[u][jj] = in ? __ldg(A.x + e + jj) : 0.0f;
+        S.y[u][jj] = in ? __ldg(A.y + e + jj) : 0.0f;
+      }
+    }
+  }
+}
+
+// Phase 1 of one step: per bin the smallest g of a non-road slot, one
+// shared atomic per run of one bin in the thread's slots.
+__device__ __forceinline__ void step_f(const StateStep& S,
+                                       unsigned int* s_f) {
+#pragma unroll
+  for (int u = 0; u < kStateQuads; ++u) {
+    int run = -1;
+    unsigned int v = kNoImage;
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+      const int bit = 4 * u + jj;
+      if (!((S.ok & ~S.road) >> bit & 1u)) continue;
+      const int bin = (int)floorf(S.a[u][jj]);
+      const unsigned int img = ordered(__ll2float_rn(S.g0[u] + jj));
+      if (bin != run) {
+        if (run >= 0) atomicMin(&s_f[run], v);
+        run = bin;
+        v = img;
+      } else {
+        v = min(v, img);
+      }
+    }
+    if (run >= 0) atomicMin(&s_f[run], v);
+  }
+}
+
+// Phase 2 of one step, K10's chunk scheme: the max of d's bits over the
+// candidates (road, d > 0, g < f), a step that forgets the winner of a bin
+// whose max rose, then the min key (g, flat slot) among those at the max,
+// in two native 32-bit atomicMin passes: g's low 32 bits as a signed int
+// (the order of g << 32 | flat as an int64), then the flat slot among
+// those at that g (forgotten first where the bin's g fell).
+__device__ __forceinline__ void step_win(const StateStep& S,
+                                         const unsigned int* s_fm,
+                                         unsigned int* s_d,
+                                         unsigned int* s_prev, int* s_g,
+                                         int* s_gseen,
+                                         unsigned int* s_flat) {
+  unsigned int cand = 0u;
+  float d[kStateQuads][4];
+#pragma unroll
+  for (int u = 0; u < kStateQuads; ++u) {
+    int run = -1;
+    unsigned int v = 0u;
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+      const int bit = 4 * u + jj;
+      // d as marker_scan.py:86; built with --fmad=false, so x*x and y*y
+      // are rounded apart, as the twin rounds them.
+      d[u][jj] = sqrtf(S.x[u][jj] * S.x[u][jj] + S.y[u][jj] * S.y[u][jj]);
+      if (!(S.road >> bit & 1u)) continue;
+      const int bin = (int)floorf(S.a[u][jj]);
+      if (!(d[u][jj] > 0.0f &&
+            __ll2float_rn(S.g0[u] + jj) < unordered(s_fm[bin])))
+        continue;
+      cand |= 1u << bit;
+      const unsigned int db = __float_as_uint(d[u][jj]);
+      if (bin != run) {
+        if (run >= 0) atomicMax(&s_d[run], v);
+        run = bin;
+        v = db;
+      } else {
+        v = max(v, db);
+      }
+    }
+    if (run >= 0) atomicMax(&s_d[run], v);
+  }
+  __syncthreads();
+  for (int b = threadIdx.x; b < kBins; b += blockDim.x)
+    if (s_d[b] != s_prev[b]) {  // the max rose: its old winner is stale
+      s_prev[b] = s_d[b];
+      s_g[b] = 0x7fffffff;
+      s_gseen[b] = 0x7fffffff;
+      s_flat[b] = 0xffffffffu;
+    }
+  __syncthreads();
+  unsigned int top = 0u;  // bit 4u + j: a candidate at its bin's max
+#pragma unroll
+  for (int u = 0; u < kStateQuads; ++u) {
+    int run = -1, gv = 0x7fffffff;
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+      const int bit = 4 * u + jj;
+      if (!(cand >> bit & 1u)) continue;
+      const int bin = (int)floorf(S.a[u][jj]);
+      if (__float_as_uint(d[u][jj]) != s_d[bin]) continue;
+      top |= 1u << bit;
+      const int g = (int)(unsigned int)(S.g0[u] + jj);
+      if (bin != run) {
+        if (run >= 0) atomicMin(&s_g[run], gv);
+        run = bin;
+        gv = g;
+      } else {
+        gv = min(gv, g);
+      }
+    }
+    if (run >= 0) atomicMin(&s_g[run], gv);
+  }
+  __syncthreads();
+  for (int b = threadIdx.x; b < kBins; b += blockDim.x)
+    if (s_g[b] != s_gseen[b]) {  // g fell: the old flat slot is stale
+      s_gseen[b] = s_g[b];
+      s_flat[b] = 0xffffffffu;
+    }
+  __syncthreads();
+#pragma unroll
+  for (int u = 0; u < kStateQuads; ++u) {
+    int run = -1;
+    unsigned int fv = 0xffffffffu;
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+      const int bit = 4 * u + jj;
+      if (!(top >> bit & 1u)) continue;
+      const int bin = (int)floorf(S.a[u][jj]);
+      if ((int)(unsigned int)(S.g0[u] + jj) != s_g[bin]) continue;
+      const unsigned int flat = S.e[u] + jj;
+      if (bin != run) {
+        if (run >= 0) atomicMin(&s_flat[run], fv);
+        run = bin;
+        fv = flat;
+      } else {
+        fv = min(fv, flat);
+      }
+    }
+    if (run >= 0) atomicMin(&s_flat[run], fv);
+  }
+  __syncthreads();
+}
+
+__device__ __forceinline__ bool better_state(unsigned int d, long long k,
+                                             unsigned int bd, long long bk) {
+  return d > bd || (d == bd && k < bk);
+}
+
+__device__ __forceinline__ unsigned int f_init_image(const StateArgs& A,
+                                                     int w, int b) {
+  return ordered(A.f_init ? A.f_init[(size_t)w * A.f_stride + b] : kFNone);
+}
+
+__global__ void __launch_bounds__(kStateThreads)
+    marker_state_kernel(StateArgs A) {
+  __shared__ unsigned int s_f[kBins], s_d[kBins], s_prev[kBins];
+  __shared__ unsigned int s_flat[kBins];
+  __shared__ int s_g[kBins], s_gseen[kBins];
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int nr = min(max(*A.num_rings, 0), A.rings);
+  const int groups = A.wedges * A.groups;
+  // The layout stays in registers across the grid barrier when this block
+  // has one row group of one step.
+  const bool cached =
+      (int)gridDim.x >= groups &&
+      group_quads(A, blockIdx.x % A.groups, nr) <= kStateStep;
+  StateStep S;
+
+  // Phase 1: per row group, the smallest non-road g per bin against
+  // f_init's image, written whole to the group's partials.
+  for (int v = blockIdx.x; v < groups; v += gridDim.x) {
+    const int w = v / A.groups, j = v % A.groups;
+    const int n_quads = group_quads(A, j, nr);
+    const int steps = max(1, (n_quads + kStateStep - 1) / kStateStep);
+    for (int step = 0; step < steps; ++step) {
+      load_step(A, w, j, n_quads, step, S);  // in flight over the reset
+      if (step == 0) {
+        for (int b = tid; b < kBins; b += blockDim.x)
+          s_f[b] = f_init_image(A, w, b);
+        __syncthreads();
+      }
+      step_f(S, s_f);
+      if (cached) load_xy(A, S);  // read in phase 2, after the barrier
+    }
+    __syncthreads();
+    for (int b = tid; b < kFPad; b += blockDim.x)
+      A.part_f[(size_t)v * kFPad + b] = b < kBins ? s_f[b] : kNoImage;
+    __syncthreads();
+  }
+  cooperative_groups::this_grid().sync();
+
+  // Phase 2: per row group the winner's partials under the wedge's f.
+  for (int v = blockIdx.x; v < groups; v += gridDim.x) {
+    const int w = v / A.groups, j = v % A.groups;
+    const int n_quads = group_quads(A, j, nr);
+    const int steps = max(1, (n_quads + kStateStep - 1) / kStateStep);
+    // The wedge's f: the minimum of its groups' partials, each of which
+    // holds f_init already.
+    // The loads of up to kFSlices * kFBatch groups are issued together (one
+    // trip to memory), later ones kFBatch at a time.
+    const int fq = tid % kFQuads, fs = tid / kFQuads;
+    uint4 m = make_uint4(kNoImage, kNoImage, kNoImage, kNoImage);
+    if (fs < kFSlices) {
+      const uint4* pf = reinterpret_cast<const uint4*>(A.part_f) +
+                        (size_t)w * A.groups * kFQuads + fq;
+      for (int g0 = fs; g0 < A.groups; g0 += kFSlices * kFBatch) {
+#pragma unroll
+        for (int t = 0; t < kFBatch; ++t) {
+          const int g = g0 + t * kFSlices;
+          if (g < A.groups) {
+            const uint4 u = __ldcg(pf + (size_t)g * kFQuads);
+            m.x = min(m.x, u.x), m.y = min(m.y, u.y);
+            m.z = min(m.z, u.z), m.w = min(m.w, u.w);
+          }
+        }
+      }
+    }
+    for (int b = tid; b < kBins; b += blockDim.x) {
+      s_f[b] = kNoImage;
+      s_d[b] = 0u;
+      s_prev[b] = 0u;
+    }
+    __syncthreads();
+    if (fs < kFSlices) {
+      const unsigned int mv[4] = {m.x, m.y, m.z, m.w};
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        if (4 * fq + c < kBins) atomicMin(&s_f[4 * fq + c], mv[c]);
+    }
+    __syncthreads();
+    if (j == 0)
+      for (int b = tid; b < kBins; b += blockDim.x)
+        A.f_out[w * kBins + b] = s_f[b];
+    for (int step = 0; step < steps; ++step) {
+      if (!cached) {
+        load_step(A, w, j, n_quads, step, S);
+        load_xy(A, S);
+      }
+      step_win(S, s_f, s_d, s_prev, s_g, s_gseen, s_flat);
+    }
+    for (int b = tid; b < kBins; b += blockDim.x) {
+      const size_t at = ((size_t)w * kBins + b) * A.groups + j;
+      A.part_d[at] = s_d[b];
+      A.part_k[at] = s_d[b] ? (long long)(
+          (unsigned long long)(unsigned int)s_g[b] << 32 | s_flat[b])
+                            : kNoState;
+    }
+    __syncthreads();
+  }
+  cooperative_groups::this_grid().sync();
+
+  // Phase 3: A.lanes lanes per (wedge, bin) merge the partials (larger d
+  // wins, equal d keeps the smaller key: a total order, so exact in any
+  // order) and write the row [f, maxd, gstar, x, y, z].
+  const int width = A.lanes;
+  const int sub = lane & (width - 1);
+  const int per_warp = 32 / width;
+  const int pairs = A.wedges * kBins;
+  const int gwarps = gridDim.x * (blockDim.x >> 5);
+  for (int base = (blockIdx.x * (blockDim.x >> 5) + (tid >> 5)) * per_warp;
+       base < pairs; base += gwarps * per_warp) {
+    const int pair = base + lane / width;
+    const bool live = pair < pairs;
+    const int w = live ? pair / kBins : 0, b = live ? pair % kBins : 0;
+    unsigned int bd = 0u;
+    long long bk = kNoState;
+    for (int g = sub; live && g < A.groups; g += width) {
+      const size_t at = ((size_t)w * kBins + b) * A.groups + g;
+      const unsigned int d = __ldcg(A.part_d + at);
+      const long long k = __ldcg(A.part_k + at);
+      if (better_state(d, k, bd, bk)) {
+        bd = d;
+        bk = k;
+      }
+    }
+    for (int o = width >> 1; o > 0; o >>= 1) {
+      const unsigned int d = __shfl_xor_sync(~0u, bd, o);
+      const long long k = __shfl_xor_sync(~0u, bk, o);
+      if (better_state(d, k, bd, bk)) {
+        bd = d;
+        bk = k;
+      }
+    }
+    if (!live || sub >= 6) continue;
+    const bool exists = bd != 0u;
+    const size_t at = (size_t)((unsigned long long)bk & 0xffffffffULL);
+    float val = 0.0f;
+    if (sub == 0) {
+      val = unordered(__ldcg(A.f_out + pair));
+    } else if (sub == 1) {
+      val = exists ? __uint_as_float(bd) : 0.0f;
+    } else if (sub == 2) {
+      val = exists ? __ll2float_rn(bk >> 32) : 0.0f;
+    } else {
+      const float* src = sub == 3 ? A.x : sub == 4 ? A.y : A.z;
+      val = exists ? src[at] : 0.0f;
+    }
+    A.state[(size_t)pair * 6 + sub] = val;
+  }
 }
 
 }  // namespace
@@ -515,32 +835,71 @@ extern "C" int urf_marker_first_nonroad(const float* alpha, const int* label,
   return (int)cudaGetLastError();
 }
 
-// state (361, 6) f32: [f, maxd, gstar, x, y, z] per bin from the
-// azimuth-sorted layout (K14).  goff (rings,) int32 scan-position offsets
-// (g = goff[ring] + slot must stay below 2^24); f_init (361,) f32 floors.
-// f_img, maxd (361,) uint32 and win (361,) uint64 are scratch.
+// state (wedges, 361, 6) f32: per wedge and bin [f, maxd, gstar, x, y, z]
+// from the azimuth-sorted layout (K14), ring k of wedge w at row
+// w * rings + k of the (wedges * rings, p) arrays.  goff (wedges * rings,)
+// int32 scan-position offsets (g = goff[row] + slot), or null for
+// k * p; f_init: the wedges' (361,) f32 floors, wedge w at
+// f_init + w * f_stride, or null for 3e38.  scratch: (4 * 364 + 12 * 361)
+// * scratch_groups + 4 * 361 * wedges bytes, 16-byte aligned,
+// uninitialised (every entry the launch reads it writes first); at most
+// wedges * max(rings, 1) row groups are used.  One cooperative launch; a
+// refused launch returns its error.
 extern "C" int urf_marker_state(const float* x, const float* y,
                                 const float* z, const float* alpha,
                                 const int* label, const int* counts,
                                 const int* num_rings, const int* goff,
-                                const float* f_init, int rings, int p,
-                                unsigned int* f_img, unsigned int* maxd,
-                                unsigned long long* win, float* state,
+                                const float* f_init, long long f_stride,
+                                int wedges, int rings, int p, void* scratch,
+                                int scratch_groups, float* state,
                                 void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  state_init_kernel<<<(kBins + 127) / 128, 128, 0, st>>>(f_init, f_img, maxd,
-                                                         win);
-  if (rings > 0 && p > 0) {
-    const dim3 grid((p + 255) / 256, rings);
-    state_f_kernel<<<grid, 256, 0, st>>>(alpha, label, counts, num_rings,
-                                         goff, p, f_img);
-    state_max_kernel<<<grid, 256, 0, st>>>(x, y, alpha, label, counts,
-                                           num_rings, goff, p, f_img, maxd);
-    state_win_kernel<<<grid, 256, 0, st>>>(x, y, alpha, label, counts,
-                                           num_rings, goff, p, f_img, maxd,
-                                           win);
+  constexpr int kMaxDevices = 64;
+  static int resident[kMaxDevices];  // co-resident blocks, per device
+  if (wedges < 0 || rings < 0 || p < 0) return (int)cudaErrorInvalidValue;
+  if (wedges == 0) return (int)cudaGetLastError();
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev < 0 || dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  if (resident[dev] == 0) {
+    int per_sm = 0, sms = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, marker_state_kernel, kStateThreads, 0);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return (int)err;
+    resident[dev] = per_sm * sms;
   }
-  state_table_kernel<<<(kBins + 127) / 128, 128, 0, st>>>(x, y, z, f_img,
-                                                          maxd, win, state);
+  // Quads one row may touch (one more where rows are not 4-aligned); as
+  // many rows per group as one step holds, so a group's slots stay in
+  // registers across the grid barrier.
+  const int qp = p == 0 ? 0 : p % 4 == 0 ? p / 4 : (p + 3) / 4 + 1;
+  const int per_group = max(1, kStateStep / max(qp, 1));
+  const int groups = max(1, (rings + per_group - 1) / per_group);
+  const long long all = (long long)wedges * groups;
+  if (all > scratch_groups ||
+      (long long)wedges * rings * p > 0xffffffffLL ||
+      reinterpret_cast<uintptr_t>(scratch) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  const int grid = (int)max(1LL, min(all, (long long)resident[dev]));
+  auto is16 = [](const void* ptr) {
+    return reinterpret_cast<uintptr_t>(ptr) % 16 == 0;
+  };
+  // part_f first (16-byte quads), then part_k, part_d and f_out.
+  unsigned int* part_f = static_cast<unsigned int*>(scratch);
+  long long* part_k =
+      reinterpret_cast<long long*>(part_f + (size_t)kFPad * all);
+  unsigned int* part_d =
+      reinterpret_cast<unsigned int*>(part_k + (size_t)kBins * all);
+  const int lanes = groups <= 8 ? 8 : groups <= 16 ? 16 : 32;
+  StateArgs a{x, y, z, alpha, label, counts, num_rings, goff, f_init,
+              part_f, part_d + (size_t)kBins * all, part_d, part_k, state,
+              f_stride, wedges, rings, p, groups, qp, lanes,
+              is16(x) && is16(y) && is16(alpha) && is16(label)};
+  void* args[] = {&a};
+  err = cudaLaunchCooperativeKernel((const void*)marker_state_kernel,
+                                    dim3(grid), dim3(kStateThreads), args, 0,
+                                    (cudaStream_t)stream);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

@@ -9,7 +9,8 @@ the stage is a pure reachability computation over the INITIAL curb marks:
     road(point p on ring k) = EXISTS i: reach[k, i] & p in window_k(i)
 
 The two existential quantifiers are the kernels of csrc/flood.cu:
-``flood_blocked`` (K8, replacing flood_scan.blocked_pallas) and
+``flood_blocked`` (K8, replacing flood_scan.blocked_pallas; one launch
+over any number of azimuth wedges, the sharded path's stacked layout) and
 ``flood_labeled`` (K9, replacing flood_scan.labeled_markerf_pallas), which
 also returns the marker stage's per-bin first non-road key ``kf``
 (ops/markers.py), or ``flood_road`` (K12, replacing
@@ -160,30 +161,53 @@ def _slot_valid(layout: RingLayout) -> torch.Tensor:
             < layout.counts[:, None])
 
 
-def flood_blocked_plain(layout: RingLayout, w, beam_zone):
+def _wedge_rows(layout: RingLayout, w, wedges):
+    """(D, R): the wedge count and rings per wedge of a flood_blocked call
+    (wedges=None: one (R, P) layout)."""
+    rows = layout.alpha.shape[0]
+    rings = w.shape[0]
+    d = 1 if wedges is None else int(wedges)
+    if d < 0 or rows != d * rings:
+        raise ValueError(f"a layout of {rows} rows is not {d} wedges of "
+                         f"{rings} rings (w)")
+    return d, rings
+
+
+def flood_blocked_plain(layout: RingLayout, w, beam_zone, wedges=None):
+    d, rings = _wedge_rows(layout, w, wedges)
     curb = _slot_valid(layout) & (layout.label == LABEL_CURB)
-    return tuple(blocked_bits(layout.alpha, curb,
-                              *sweep_bounds(w, beam_zone, d)[1:])
-                 for d in (+1, -1))
+    out = []
+    for direction in (+1, -1):
+        lo, hi = sweep_bounds(w, beam_zone, direction)[1:]
+        bits = blocked_bits(layout.alpha, curb, lo.repeat(d, 1),
+                            hi.repeat(d, 1))
+        out.append(bits if wedges is None else bits.view(d, rings, _NI))
+    return tuple(out)
 
 
-def flood_blocked(layout: RingLayout, w: torch.Tensor, beam_zone):
-    """(blocked_fwd, blocked_bwd), each (R, 362) bool: any curb slot of
-    ring k inside the forward / backward window of start i.  w: (R,) f32
-    window widths (window_widths)."""
+def flood_blocked(layout: RingLayout, w: torch.Tensor, beam_zone,
+                  wedges: int | None = None):
+    """(blocked_fwd, blocked_bwd): any curb slot of ring k inside the
+    forward / backward window of start i.  w: (R,) f32 window widths
+    (window_widths).  wedges=None: layout (R, P), each result (R, 362).
+    wedges=D: the stacked layout of D azimuth wedges of R rings, (D * R, P)
+    with ring k of wedge j at row j * R + k, all sharing w; each result
+    (D, R, 362), equal to the D per-wedge calls stacked, from one launch."""
     if _build.on_cpu(layout.alpha):
-        return flood_blocked_plain(layout, w, beam_zone)
-    r, p = layout.alpha.shape
+        return flood_blocked_plain(layout, w, beam_zone, wedges)
+    d, r = _wedge_rows(layout, w, wedges)
+    rows, p = layout.alpha.shape
     dev = layout.alpha.device
-    _build.check(layout.alpha, "alpha", F32, (r, p), dev)
-    _build.check(layout.label, "label", I32, (r, p), dev)
-    _build.check(layout.counts, "counts", I32, (r,), dev)
+    _build.check(layout.alpha, "alpha", F32, (rows, p), dev)
+    _build.check(layout.label, "label", I32, (rows, p), dev)
+    _build.check(layout.counts, "counts", I32, (rows,), dev)
     _build.check(w, "w", F32, (r,), dev)
-    bf = torch.empty((r, _NI), dtype=torch.bool, device=dev)
-    bb = torch.empty((r, _NI), dtype=torch.bool, device=dev)
+    shape = (rows, _NI) if wedges is None else (d, r, _NI)
+    bf = torch.empty(shape, dtype=torch.bool, device=dev)
+    bb = torch.empty(shape, dtype=torch.bool, device=dev)
     _build.launch("flood_blocked", "urf_flood_blocked", dev,
                   _build.ptr(layout.alpha), _build.ptr(layout.label),
-                  _build.ptr(layout.counts), _build.ptr(w), r, p,
+                  _build.ptr(layout.counts), _build.ptr(w), d, r, p,
                   f32(beam_zone), _build.ptr(bf), _build.ptr(bb))
     return bf, bb
 

@@ -17,9 +17,10 @@ wedge, with collectives where a dependency crosses wedges:
 
 Here the wedges live on ONE card.  Their collectives are those of
 ``LocalWedges``: every per-wedge value is stacked on a leading wedge axis
-and reduced over it.  The kernels run per wedge, on views of the stacked
-tensors, or once over all wedges where a kernel takes a batch (K3) or
-groups (K5, K6, K7): a ring of wedge w is group w * rings + ring.
+and reduced over it.  The kernels run once over all wedges where a kernel
+takes a wedge axis (K8, K14), a batch (K3) or groups (K5, K6, K7: a ring
+of wedge w is group w * rings + ring), and per wedge, on views of the
+stacked tensors, otherwise (K4, K12).
 
 Semantics kept from the JAX SP path (not the single-device one): inside a
 ring the point order is (wedge, local input order), which equals input
@@ -268,15 +269,14 @@ def _quadrants(lw: LocalWedges, layout: RingLayout, rings: int):
 
 def _blind_spots(lw: LocalWedges, layout: RingLayout, rings: int, max_dist,
                  num_rings, cfg: FilterConfig, probe=None) -> torch.Tensor:
-    """Labels of the stacked layout after the flood fill: K8 per wedge, its
-    blocked bits OR-ed over wedges, the global quadrant gate, then K12 per
-    wedge (the JAX _blind_spots_sharded)."""
+    """Labels of the stacked layout after the flood fill: K8 over all the
+    wedges in one launch, its blocked bits OR-ed over wedges, the global
+    quadrant gate, then K12 per wedge (the JAX _blind_spots_sharded)."""
     bz = cfg.beam_zone
     w = bs.window_widths(max_dist, bz)
     wedges = [_rows(layout, k, rings) for k in range(lw.size)]
-    blocked = [bs.flood_blocked(lay, w, bz) for lay in wedges]
-    blocked = tuple(lw.psum(torch.stack([b[i] for b in blocked]).to(I32)) > 0
-                    for i in (0, 1))
+    blocked = tuple(lw.psum(b.to(I32)) > 0 for b in
+                    bs.flood_blocked(layout, w, bz, wedges=lw.size))
     q = _quadrants(lw, layout, rings) if cfg.blind_spots else None
     reach_f, reach_b = bs.sweep_reach(wedges[0], blocked, w, num_rings, cfg,
                                       q=q)
@@ -289,9 +289,10 @@ def _blind_spots(lw: LocalWedges, layout: RingLayout, rings: int, max_dist,
 
 def _markers(lw: LocalWedges, layout: RingLayout, rings: int,
              num_rings, probe=None) -> torch.Tensor:
-    """(361, 6) markers from the stacked sorted layout: K14 twice per wedge
-    with the global scan position g = ring * P_glob + wedge prefix + slot,
-    then the max/min/sum combines (the JAX _markers_sharded).  The f32
+    """(361, 6) markers from the stacked sorted layout: K14 twice, each call
+    one launch over every wedge, with the global scan position g = ring *
+    P_glob + wedge prefix + slot, then the max/min/sum combines (the JAX
+    _markers_sharded).  The f32
     sentinel F_NONE (3e38) of K14 is not the int32 maximum the JAX XLA
     branch uses for the same "no non-road point" (azimuth_parallel.py:
     624-626)."""
@@ -302,12 +303,10 @@ def _markers(lw: LocalWedges, layout: RingLayout, rings: int,
     p_glob = torch.amax(lw.psum(counts_g)) + 1
     goff = (torch.arange(rings, dtype=I32, device=dev) * p_glob
             + prefix).to(I32)  # (D, R)
-    wedges = [_rows(layout, k, rings) for k in range(d)]
-    st1 = torch.stack([marker_state(lay, num_rings, goff[k])
-                       for k, lay in enumerate(wedges)])
+    st1 = marker_state(layout, num_rings, goff, wedges=d)
     f = lw.pmin(st1[..., 0])
-    st2 = torch.stack([marker_state(lay, num_rings, goff[k], f_init=f)
-                       for k, lay in enumerate(wedges)])
+    st2 = marker_state(layout, num_rings, goff,
+                       f_init=f.expand(d, N_BINS), wedges=d)
     if probe is not None:
         probe.update(layout=layout, num_rings=num_rings, g_offset=goff,
                      f_init=f)
