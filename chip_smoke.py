@@ -22,7 +22,8 @@
    rings, tol-exact, all-NaN and empty tables; on the batch's first 8
    scans as rows and as planes, on 2 merged multi-LiDAR scans (262144
    points, 128 rings), on an all-invalid scan and on a scan with a NaN
-   vertical angle in the ROI.
+   vertical angle in the ROI.  K1 must be one device op on each (the
+   launch zeroes its in-ROI counts itself).
    The per-scan kernels (K4 star search, K5 rank, K6 place, K7 x/z-zero,
    K8 + K9 flood fill, K10 markers, K11 gather+pack, K12 road mask, K13
    marker keys, K14 marker state) run on one emulated OS1-64 scan (131072
@@ -41,7 +42,9 @@
    azimuths on and one ulp beside the window ends and the integer starts,
    reach bits all, none, alternating, only the special or the last start,
    two beam zones, num_rings 5) and K11 with probably_road_ring equal to
-   the ring count (no point may be flagged).
+   the ring count (no point may be flagged).  K11 also over the phase-4
+   batch as process_batch calls it (128 lanes in one launch, one device
+   op), timed beside one indexed gather of the stacked tables.
    K8 also with every slot a curb (its worst case, timed).  K8 and K14's
    two passes also at the SP path's stacked shape (8 wedges of 128 x 384
    slots of the OS1-128 scan, one launch each over all wedges), timed.
@@ -64,7 +67,8 @@
    replay benchmark's batch: 128 planar scans of 131072 points, 64 rings x
    2048 slots, two_curbs and blind_spot alternating (bench.py).  Launch
    counters as in phase 3; prints scans/s host to host (median of 3 runs,
-   every output fetched).  Every lane must equal process_scan of its scan
+   every output fetched).  K11 must launch once per 128 lanes of a batch,
+   not once per lane.  Every lane must equal process_scan of its scan
    bit for bit, and no ring may overflow.  A second batch of the 7 scenes
    and 2 OS1-64 drive scans, with the star search on and off, and 4 lanes
    of the first, are gated against the oracle as in phase 3; so is one
@@ -84,7 +88,8 @@
    wedges, K14 with the run's own g_offset and f_init.
 6. Prints one JSON line of per-kernel results (K1-K3 with their grid and
    their times at B = 1, "b1", at the SP call's shape, "sp", and, K2 and
-   K3, on the ring-major scan, "ring_major") and, last,
+   K3, on the ring-major scan, "ring_major"; K11's over the phase-4 batch,
+   "b128") and, last,
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Any failure raises (exit code 1).  Without a CUDA device, or outside a
@@ -246,6 +251,7 @@ def ingest_vs_twins(x, y, z, cfg, rings):
     the ring counts.  K1's bound counts x, y, z read and valid, fk, r_key
     written, and ~40 operations per point (a float64 atan2, a root, the
     ROI compares)."""
+    from urban_road_filter_torch import _build
     from urban_road_filter_torch.ops import geometry, ingest
 
     k1 = lambda: ingest.ingest_prep(x, y, z, cfg)
@@ -253,6 +259,8 @@ def ingest_vs_twins(x, y, z, cfg, rings):
     prep = k1()
     e1 = max_abs_err(prep, p1())
     valid = prep[0]
+    ops = _build.device_ops(k1)
+    assert ops == 1, f"K1 must be one device op (no fill): {ops}"
     # Without the star keys (the star search off) only valid and piece.
     lean = ingest.ingest_prep(x, y, z, cfg, want_star_keys=False)
     assert lean[1] is None and lean[2] is None
@@ -825,7 +833,8 @@ def phase_kernels(dev, dims, cfg, scan, what, timed=True):
 
     # K11: gather + gate + pack on the final label table; then indices
     # outside the table, negative ones included, must read label 0.  The
-    # library call: the indexed gather (with the clamps it needs).
+    # library call: the indexed gather (with the clamps it needs).  The
+    # bound counts the table sectors the in-range points can touch.
     table = flooded
     ok = torch.sum(valid) >= 30
     prr = int(cfg.probably_road_ring)
@@ -846,7 +855,8 @@ def phase_kernels(dev, dims, cfg, scan, what, timed=True):
     max_abs_err(no_ring, gather_pack_plain(table, ring_id, pos, valid, ok, r))
     assert int((ring_id == r).sum()) > 0 and not bool(no_ring[2].any())
     record("gather_pack", k11(), p11(), k11, p11,
-           nbytes=4 * r * p + 13 * n, ops=4 * n, library=l11)
+           nbytes=gather_bytes(table, (ring_id,), (pos,), ok[None]),
+           ops=4 * n, library=l11)
 
     # The unfused path: K8 + K12, then K13 + K10, equals K8 + K9, K10.
     md = geometry.max_distance(layout)
@@ -865,6 +875,75 @@ def phase_kernels(dev, dims, cfg, scan, what, timed=True):
           f"{ {k: v for k, v in unfused_launches.items() if v} }",
           flush=True)
     return out, unfused_launches
+
+
+def gather_bytes(shape_of, ids, pos, ok) -> int:
+    """The bytes K11 must move for lanes of (ids, pos): ids, pos and valid
+    read and four byte planes written (13 per point), ok read, and per
+    lane the distinct 32-byte sectors of its (R, P) int32 table that its
+    in-range points read (none where the lane's gate is shut)."""
+    r, p = shape_of.shape
+    total = 0
+    for b, (i, q) in enumerate(zip(ids, pos)):
+        inr = ok[b] & (i >= 0) & (i < r) & (q >= 0) & (q < p)
+        word = i[inr].long() * p + q[inr].long()
+        total += 32 * torch.unique(word // 8).numel() + 13 * i.shape[0] + 1
+    return total
+
+
+def recorded_calls(owner, name: str, run) -> list:
+    """The argument tuples of every call of owner.<name> that run() makes
+    (the function still runs)."""
+    fn = getattr(owner, name)
+    recorded = []
+
+    def recording(*args):
+        recorded.append(args)
+        return fn(*args)
+
+    setattr(owner, name, recording)
+    try:
+        run()
+    finally:
+        setattr(owner, name, fn)
+    return recorded
+
+
+def phase_gather_batch(dev, planar, dims):
+    """K11 over the phase-4 batch (128 planar scans, default configuration)
+    in one launch, on the inputs process_batch gives it (recorded from a
+    run): bit-equal to its plain version, one device op, timed beside the
+    library call (one indexed gather of the 128 tables stacked beforehand)
+    and its bound."""
+    from urban_road_filter_torch import (
+        FilterConfig, _build, pipeline, process_batch)
+    from urban_road_filter_torch.ops.gather import (
+        gather_pack_batch, gather_pack_batch_plain)
+
+    (tables, ids, pos, valid, ok, prr), = recorded_calls(
+        pipeline, "gather_pack_batch",
+        lambda: process_batch(planar, FilterConfig(), dims, layout="planar"))
+    b, n = ids.shape
+    k11 = lambda: gather_pack_batch(tables, ids, pos, valid, ok, prr)
+    p11 = lambda: gather_pack_batch_plain(tables, ids, pos, valid, ok, prr)
+    err = max_abs_err(k11(), p11())
+    ops = _build.device_ops(k11)
+    assert ops == -(-b // 128), f"K11 over {b} lanes: {ops} device ops"
+    r, p = tables[0].shape
+    stacked, spos = torch.stack(tables), torch.stack(pos)
+    lane = torch.arange(b, device=dev)[:, None]
+    l11 = lambda: stacked[lane, torch.clamp(ids, 0, r - 1).long(),
+                          torch.clamp(spos, 0, p - 1).long()]
+    res = {"max_abs_err": err, "ms": cuda_ms(k11),
+           "plain_ms": cuda_ms(p11, WALK_REPS),
+           **bound(gather_bytes(tables[0], ids, pos, ok), 4 * b * n),
+           "library_ms": cuda_ms(l11), "device_ops": ops}
+    print(f"  gather_pack over the phase-4 batch ({b} lanes x {n} points, "
+          f"{r} x {p} tables): bit-equal, {ops} device op, kernel "
+          f"{res['ms']:.4f} ms, plain {res['plain_ms']:.4f} ms, bound "
+          f"{res['bound_ms']:.4f} ms ({res['bound_by']}), library "
+          f"{res['library_ms']:.4f} ms", flush=True)
+    return res
 
 
 def scans_for_pipeline():
@@ -1251,10 +1330,13 @@ def main() -> int:
     mrows = torch.from_numpy(np.stack(
         [pad_scan(p, mdims.max_points) for _, p in merged[:2]])).to(dev)
     kernels = phase_ingest(dev, cfg, planar, mrows)
-    del planar, mrows
+    del mrows
     per_scan, unfused_launches = phase_kernels(dev, dims, cfg, os1_64_scan(),
                                                "OS1-64 drive scan")
     kernels.update(per_scan)
+    kernels["gather_pack"]["b128"] = phase_gather_batch(dev, planar,
+                                                        bench_dims)
+    del planar
     assert set(kernels) == set(_build.KERNELS), sorted(kernels)
     phase_sp_stacked(dev, FilterConfig())
     # The per-scan kernels again at the shapes the batch path gives them
@@ -1312,6 +1394,10 @@ def main() -> int:
                            mdims, smi, device_parity_gate)
     print(f"  launches: {launches}")
     assert_launched(launches, SCAN_KERNELS, "the batch path")
+    # One K11 launch per 128 lanes of each batch run, not one per lane.
+    batch_runs = 1 + BATCH_REPS
+    assert launches["gather_pack"] == batch_runs * -(-BATCH // 128), (
+        launches["gather_pack"])
 
     print(f"phase 5: the azimuth-sharded path, {WEDGES} wedges on the card",
           flush=True)

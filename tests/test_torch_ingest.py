@@ -174,6 +174,76 @@ class TestIngestPrep:
             assert torch.equal(a, b)
 
 
+def _k1_views(ptsb, layout):
+    """(x, y, z) (B, N) views of (B, N, 4) rows in one of the layouts K1
+    takes: rows of 4 floats, rows of 3, rows of 4 at a storage offset of
+    one float, or planes."""
+    b, n, _ = ptsb.shape
+    if layout == "planar":
+        xyz = _t(np.ascontiguousarray(ptsb[..., :3].transpose(2, 0, 1)))
+        return xyz[0], xyz[1], xyz[2]
+    if layout == "rows3":
+        rows = _t(np.ascontiguousarray(ptsb[..., :3]))
+    elif layout == "offset1":
+        flat = torch.zeros(1 + ptsb.size)
+        flat[1:] = _t(ptsb).flatten()
+        rows = flat[1:].view(b, n, 4)
+        assert rows.storage_offset() == 1
+    else:
+        rows = _t(ptsb)
+    return rows[..., 0], rows[..., 1], rows[..., 2]
+
+
+class TestIngestPrepLayouts:
+    """K1's twin on every layout the kernel reads in its own way (rows of
+    4 floats a float4 per point, planes a float4 per plane, other strides
+    point by point), at point counts that leave a ragged tail, against the
+    interpreted Pallas kernel (its streams zero-padded to the 128-point
+    multiple it needs: zero points are outside the ROI)."""
+
+    @pytest.mark.parametrize("n", [3, 4097])
+    @pytest.mark.parametrize("layout", ["rows", "rows3", "offset1",
+                                        "planar"])
+    def test_matches_pallas(self, n, layout):
+        ptsb, cfg = _batch(2)
+        ptsb = np.ascontiguousarray(ptsb[:, :n])
+        valid, fk, r_key, piece = (t.numpy() for t in ingest.ingest_prep(
+            *_k1_views(ptsb, layout), cfg))
+        pad = -n % 128
+        jx, jy, jz = (jnp.asarray(np.pad(ptsb[..., i], ((0, 0), (0, pad))))
+                      for i in range(3))
+        pv, pfk, prk, ppiece = (np.asarray(t) for t in ingest_prep_pallas(
+            jx, jy, jz, jnp.arctan2(jy, jx), cfg, interpret=True))
+        pv, pfk, prk = pv[:, :n], pfk[:, :n], prk[:, :n]
+        np.testing.assert_array_equal(valid, pv)
+        np.testing.assert_array_equal(piece, ppiece)
+        assert valid[0].sum() > 0 or n == 3
+        # r_key: exact against the eager XLA ops, within 1 ulp of the
+        # interpreted kernel (it contracts x*x + y*y into a multiply-add).
+        x, y = ptsb[..., 0], ptsb[..., 1]
+        want_r = np.where(pv, np.asarray(jnp.sqrt(jnp.asarray(x * x)
+                                                  + jnp.asarray(y * y))),
+                          np.inf)
+        np.testing.assert_array_equal(r_key, want_r)
+        assert _ulps(r_key, prk).max() <= 1
+        # fk: exact wherever the f32 and f64 atan2 round alike.
+        fi32 = np.asarray(jnp.arctan2(jnp.asarray(y), jnp.asarray(x)))
+        same = fi32 == np.arctan2(y.astype(np.float64),
+                                  x.astype(np.float64)).astype(F32)
+        np.testing.assert_array_equal(fk[same], pfk[same])
+        assert (fk[~valid] == STAR_REP).all()
+
+    @pytest.mark.parametrize("n", [3, 4097])
+    def test_layouts_agree(self, n):
+        ptsb, cfg = _batch(3)
+        ptsb = np.ascontiguousarray(ptsb[:, :n])
+        want = ingest.ingest_prep(*_k1_views(ptsb, "rows"), cfg)
+        for layout in ("rows3", "offset1", "planar"):
+            got = ingest.ingest_prep(*_k1_views(ptsb, layout), cfg)
+            for g, w in zip(got, want):
+                assert torch.equal(g, w), layout
+
+
 def _alphas(seeds, all_invalid=None, merged=False):
     """(valid, alpha) of one scan per seed, as (B, N) arrays; ``merged``
     takes multi-LiDAR scans (> 64 rings) instead of 24-ring ones."""
@@ -320,6 +390,41 @@ def test_cpu_ingest_launches_no_kernel():
     angles, _ = ingest.discover_rings(alpha, valid, cfg.interval)
     ingest.assign_rings(alpha, valid, angles, cfg.interval)
     assert not any(_build.launch_counts().values())
+
+
+class _Stream:
+    """A stand-in for torch.cuda.Stream: a handle and whether it is idle."""
+
+    def __init__(self, handle, idle=True):
+        self.cuda_stream, self.idle = handle, idle
+
+    def query(self):
+        return self.idle
+
+
+@pytest.mark.parametrize("kernel", _build.TICKETED)
+def test_ticketed_launches_keep_to_one_busy_stream(monkeypatch, kernel):
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
+                        lambda: False)
+    monkeypatch.setattr(_build, "_last_stream", {})
+    dev = torch.device("cuda", 0)
+    first, second = _Stream(1, idle=False), _Stream(2)
+    _build._one_stream(kernel, dev, first)
+    _build._one_stream(kernel, dev, first)  # the same stream, still busy
+    with pytest.raises(RuntimeError, match="two streams at once"):
+        _build._one_stream(kernel, dev, second)
+    first.idle = True
+    _build._one_stream(kernel, dev, second)
+    # Another device, or another ticketed kernel, keeps its own record.
+    _build._one_stream(kernel, torch.device("cuda", 1), _Stream(3, False))
+    other = [k for k in _build.TICKETED if k != kernel][0]
+    _build._one_stream(other, dev, _Stream(4, idle=False))
+    _build._one_stream(kernel, dev, _Stream(5))
+    # Inside a capture the earlier stream is not queried.
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
+                        lambda: True)
+    _build._one_stream(kernel, dev, _Stream(6, idle=False))
+    _build._one_stream(kernel, dev, _Stream(7))
 
 
 # --- The rules K2 and K3 rest on (csrc/ingest.cu), as numpy models ---------

@@ -15,7 +15,13 @@ one launch per call), K8 and K14 over three stacked azimuth wedges (one
 launch per call, an empty wedge, NaN azimuths, K14 with and without
 f_init), K14 with rows longer than one step (8192 and 8191 slots) and
 over more row groups than the card holds blocks at once (64 wedges of 128
-x 384), and K8 with every slot a curb.  Run on a machine with the card
+x 384), and K8 with every slot a curb; K11 over batches of 1, 3, 128, 129
+and 257 lanes (one launch per 128) with indices outside the tables,
+mixed gates and lanes off a 4-point boundary; K1 at 1 to 131072 points,
+B = 1, 3 and 128, on rows of 4 and 3 floats, rows at storage offsets of
+1-3 floats and planes, one device op a call, its in-ROI counts exact over
+200 launches alternating B = 1, B = 128 and the SP call's shape (its
+first-block tickets).  Run on a machine with the card
 (tests/conftest.py imports jax, which a GPU host without JAX skips with
 --noconftest):
 
@@ -41,7 +47,8 @@ from urban_road_filter_torch.ops import blind_spots as bs
 from urban_road_filter_torch.ops import markers as mk
 from urban_road_filter_torch.ops import star
 from urban_road_filter_torch.ops.blind_spots import blind_spots
-from urban_road_filter_torch.ops.gather import gather_pack, gather_pack_plain
+from urban_road_filter_torch.ops.gather import (
+    gather_pack, gather_pack_batch, gather_pack_batch_plain, gather_pack_plain)
 from urban_road_filter_torch.ops.place import group_place, group_place_plain
 from urban_road_filter_torch.ops.rank import (
     group_positions, group_positions_plain)
@@ -997,3 +1004,174 @@ def test_assign_128_rings_b128(dev):
     vb = torch.stack([torch.roll(valid[0], int(s)) for s in 4099 * k])
     ring = _assign_vs_twin(ab, vb, angles.expand(128, 128).contiguous())
     assert int(ring[vb].max()) >= 64
+
+
+# K11 over a batch: one launch per 128 lanes, each lane's table and slots
+# separate tensors, ids/valid/ok (B, N).
+
+def _gather_lanes(dev, b, n, rings=64, cap=1024, seed=0):
+    """(tables, ids, pos, valid, ok) of b lanes of n points: labels in
+    {0, 1, 2}, ids and slots partly outside the table (negative ones
+    too), the gate off on every third lane."""
+    rng = np.random.default_rng(seed)
+    tables = [torch.from_numpy(rng.integers(0, 3, (rings, cap)).astype(
+        np.int32)).to(dev) for _ in range(b)]
+    ids = torch.from_numpy(rng.integers(-3, rings + 3, (b, n)).astype(
+        np.int32)).to(dev)
+    pos = [torch.from_numpy(rng.integers(-3, cap + 3, n).astype(
+        np.int32)).to(dev) for _ in range(b)]
+    valid = torch.from_numpy(rng.random((b, n)) < 0.7).to(dev)
+    ok = torch.from_numpy(np.arange(b) % 3 != 2).to(dev)
+    return tables, ids, pos, valid, ok
+
+
+@pytest.mark.parametrize("b", [1, 3, 128, 129, 257])
+@pytest.mark.parametrize("n", [4099, 16384])
+def test_gather_pack_batch_kernel(dev, b, n):
+    tables, ids, pos, valid, ok = _gather_lanes(dev, b, n, seed=b)
+    before = _build.launch_counts()["gather_pack"]
+    got = gather_pack_batch(tables, ids, pos, valid, ok, 10)
+    assert _build.launch_counts()["gather_pack"] == before + -(-b // 128)
+    _assert_same(got, gather_pack_batch_plain(tables, ids, pos, valid, ok,
+                                              10))
+    assert all(t.shape == (b, n) for t in got)
+    # probably_road_ring equal to the ring count flags no point.
+    got = gather_pack_batch(tables, ids, pos, valid, ok, 64)
+    _assert_same(got, gather_pack_batch_plain(tables, ids, pos, valid, ok,
+                                              64))
+    assert not bool(got[2].any())
+
+
+def test_gather_pack_batch_lane_heads(dev):
+    # n odd: lane b's streams start b * n points into their buffers, off a
+    # 4-point boundary for b > 0.  Slot vectors cut from one buffer the
+    # same way share that offset, so the lane runs its vector loop after a
+    # head of 1-3 points; slot vectors of their own do not, so it goes
+    # point by point.
+    n = 4101
+    tables, ids, pos, valid, ok = _gather_lanes(dev, 4, n)
+    flat = torch.cat(pos)
+    for lanes_pos in (pos, [flat[k * n:(k + 1) * n] for k in range(4)]):
+        got = gather_pack_batch(tables, ids, lanes_pos, valid, ok, 10)
+        _assert_same(got, gather_pack_batch_plain(tables, ids, lanes_pos,
+                                                  valid, ok, 10))
+
+
+# K1: one device op per call, whatever the batch, layout and stride.
+
+def _k1_points(b, n, seed=0):
+    """(b, n, 4) float32 rows around the ROI: about half inside, points on
+    its bounds, points whose x + y + z is 0, and an all-invalid last scan
+    when b > 1."""
+    rng = np.random.default_rng(seed)
+    pts = np.empty((b, n, 4), np.float32)
+    pts[..., 0] = rng.uniform(-5.0, 35.0, (b, n))
+    pts[..., 1] = rng.uniform(-12.0, 12.0, (b, n))
+    pts[..., 2] = rng.uniform(-3.5, -0.5, (b, n))
+    pts[..., 3] = rng.uniform(0.0, 100.0, (b, n))
+    pts[:, ::7, :3] = (1.0, 2.0, -3.0)  # in every bound; x + y + z == 0
+    pts[:, 1::11, :3] = (30.0, -10.0, -1.0)  # on the bounds
+    if b > 1:
+        pts[-1, :, 2] = 5.0
+    return pts
+
+
+def _k1_vs_twin(x, y, z, cfg=FilterConfig()):
+    before = _build.launch_counts()["ingest_prep"]
+    got = ingest.ingest_prep(x, y, z, cfg)
+    assert _build.launch_counts()["ingest_prep"] == before + 1
+    _assert_same(got, ingest.ingest_prep_plain(x, y, z, cfg))
+    lean = ingest.ingest_prep(x, y, z, cfg, want_star_keys=False)
+    _assert_same(lean[::3], ingest.ingest_prep_plain(
+        x, y, z, cfg, want_star_keys=False)[::3])
+    return got
+
+
+# Rows of 4 floats (a float4 per point in calls of 8 points a thread),
+# rows of 3 and rows at a storage offset of 1-3 floats (point by point),
+# planes (a float4 per plane in calls of 8 points a thread); the strided
+# layouts up to B = 3 at 131072 points.
+K1_CASES = [(b, n, layout) for b in (1, 3, 128) for n in (1, 3, 4097, 131072)
+            for layout in ("rows", "rows3", "offset1", "offset2", "offset3",
+                           "planar")
+            if b * n <= 3 * 131072 or layout in ("rows", "planar")]
+
+
+@pytest.mark.parametrize("b,n,layout", K1_CASES)
+def test_ingest_prep_layouts(dev, b, n, layout):
+    pts = torch.from_numpy(_k1_points(b, n, seed=b + n)).to(dev)
+    if layout == "planar":
+        xyz = pts[..., :3].permute(2, 0, 1).contiguous()
+        x, y, z = xyz[0], xyz[1], xyz[2]
+    elif layout == "rows3":
+        rows = pts[..., :3].contiguous()
+        x, y, z = rows[..., 0], rows[..., 1], rows[..., 2]
+    elif layout.startswith("offset"):
+        off = int(layout[-1])
+        flat = torch.zeros(off + pts.numel(), device=dev)
+        flat[off:] = pts.flatten()
+        rows = flat[off:].view(b, n, 4)
+        x, y, z = rows[..., 0], rows[..., 1], rows[..., 2]
+    else:
+        x, y, z = pts[..., 0], pts[..., 1], pts[..., 2]
+    valid, _, _, piece = _k1_vs_twin(x, y, z)
+    if b > 1:
+        assert int(piece[-1]) == 0 and not bool(valid[-1].any())
+
+
+def test_ingest_prep_tickets_across_grids(dev):
+    """200 launches alternating B = 1, B = 128 and the SP call's shape
+    (one 262144-point scan): each launch's first block zeroes the counts
+    the others add to, so piece is exact on every call."""
+    cfg = FilterConfig()
+    shapes = [(1, 131072), (128, 131072), (1, 262144)]
+    inputs = []
+    for k, (b, n) in enumerate(shapes):
+        pts = torch.from_numpy(_k1_points(b, n, seed=k)).to(dev)
+        want = ingest.ingest_prep_plain(pts[..., 0], pts[..., 1],
+                                        pts[..., 2], cfg)[3]
+        inputs.append((pts, want))
+    for call in range(200):
+        pts, want = inputs[call % 3]
+        piece = ingest.ingest_prep(pts[..., 0], pts[..., 1], pts[..., 2],
+                                   cfg)[3]
+        assert torch.equal(piece, want), call
+
+
+def test_ingest_prep_is_one_device_op(dev):
+    cfg = FilterConfig()
+    for b, n in ((1, 131072), (128, 131072), (1, 262144)):
+        pts = torch.from_numpy(_k1_points(b, n)).to(dev)
+        planar = pts[..., :3].permute(2, 0, 1).contiguous()
+        for x, y, z in ((pts[..., 0], pts[..., 1], pts[..., 2]),
+                        tuple(planar)):
+            ops = _build.device_ops(lambda: ingest.ingest_prep(x, y, z, cfg))
+            assert ops == 1, (b, n, ops)
+            torch.cuda.synchronize()
+            piece = ingest.ingest_prep(x, y, z, cfg)[3]
+            want = ingest.ingest_prep_plain(x, y, z, cfg)[3]
+            assert torch.equal(piece, want), (b, n)
+
+
+def test_gather_pack_batch_is_one_device_op_per_128_lanes(dev):
+    for b in (1, 128, 129):
+        args = _gather_lanes(dev, b, 4097)
+        ops = _build.device_ops(lambda: gather_pack_batch(*args, 10))
+        assert ops == -(-b // 128), (b, ops)
+
+
+def test_ticketed_kernel_refuses_a_second_busy_stream(dev):
+    cfg = FilterConfig()
+    pts = torch.from_numpy(_k1_points(1, 4097)).to(dev)
+    x, y, z = pts[..., 0], pts[..., 1], pts[..., 2]
+    ingest.ingest_prep(x, y, z, cfg)
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream(dev)
+    with torch.cuda.stream(side):
+        torch.cuda._sleep(200_000_000)  # keeps the side stream busy
+        ingest.ingest_prep(x, y, z, cfg)
+    with pytest.raises(RuntimeError, match="two streams at once"):
+        ingest.ingest_prep(x, y, z, cfg)
+    side.synchronize()
+    piece = ingest.ingest_prep(x, y, z, cfg)[3]
+    assert torch.equal(piece, ingest.ingest_prep_plain(x, y, z, cfg)[3])

@@ -41,12 +41,15 @@ def record(name: str, rows: int, fields, at: str = "blockIdx.x") -> str:
 
 def clocked(tool: str, source: str, patches, reader: str, name: str,
             rows: int) -> str:
-    """csrc/<source> with its patches applied and the reader appended."""
+    """csrc/<source> with its patches applied and the reader appended (none
+    when reader is None)."""
     src = (CSRC / source).read_text()
     for anchor, text in patches:
         if anchor not in src:
             raise SystemExit(f"{tool}: {source} lacks {anchor!r}")
         src = src.replace(anchor, text, 1)
+    if reader is None:
+        return src
     return src + (f'\nextern "C" int {reader}(unsigned long long* host) {{\n'
                   f"  return (int)cudaMemcpyFromSymbol(host, {name}, "
                   f"sizeof(unsigned long long) * {rows} * 16);\n}}\n")
@@ -54,8 +57,8 @@ def clocked(tool: str, source: str, patches, reader: str, name: str,
 
 def build(tool: str, parts, plain=(), entries=()) -> ctypes.CDLL:
     """The clocked library, loaded.  parts: (source, patches, reader, name,
-    rows) per clocked source; plain: csrc sources linked in as they are;
-    entries: the urf_* functions the wrappers call, given the port's C
+    rows) per clocked source (reader None: patched, not clocked); plain:
+    csrc sources linked in as they are; entries: the urf_* functions the wrappers call, given the port's C
     signatures (urf_error_string must be in one of the sources)."""
     from urban_road_filter_torch import _build
 
@@ -83,6 +86,8 @@ def build(tool: str, parts, plain=(), entries=()) -> ctypes.CDLL:
     lib.urf_error_string.argtypes = (ctypes.c_int,)
     lib.urf_error_string.restype = ctypes.c_char_p
     for _, _, reader, _, _ in parts:
+        if reader is None:
+            continue
         getattr(lib, reader).argtypes = (ctypes.c_void_p,)
         getattr(lib, reader).restype = ctypes.c_int
     return lib

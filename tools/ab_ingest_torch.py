@@ -4,7 +4,8 @@ the star search (K4), rank and placement (K5, K6), the flood fill (K8,
 K9, K12), the marker table (K10) and state (K14), and the end-to-end
 metrics of the PyTorch port.
 
-    python tools/ab_ingest_torch.py TREE [TREE ...] [--out F.json]
+    python tools/ab_ingest_torch.py TREE [TREE ...] [--e2e-only]
+                                    [--out F.json]
 
 Each TREE is a checkout of this repository (the working tree ".", or a
 commit unpacked with ``git archive`` into the gitignored ``chip_tree/``).
@@ -31,7 +32,8 @@ measures:
   calls each tree's K4 and K6 in the form that tree takes);
 - scan latency p50 (packed_scan on the 9 scans of phase 3, default and
   star off), scans/s at batch 128 (phase 4's timing) and SP latency p50
-  (8 wedges on the OS1-128 scan, default and star off), host to host.
+  (8 wedges on the OS1-128 scan, default and star off), host to host;
+  with ``--e2e-only`` only these.
 
 The scans and the timing helpers come from this checkout's chip_smoke.py.
 Prints the card's name and power limit and one JSON line per tree.  Needs
@@ -63,7 +65,7 @@ def _module(name: str, path: str):
     return mod
 
 
-def measure(tree: str) -> dict:
+def measure(tree: str, e2e_only: bool = False) -> dict:
     root = Path(tree).resolve()
     sys.path.insert(0, str(root))
     import numpy as np
@@ -73,16 +75,31 @@ def measure(tree: str) -> dict:
 
     assert Path(urf.__file__).resolve().is_relative_to(root), urf.__file__
     from urban_road_filter_torch import (
-        FilterConfig, PipelineDims, ScanResult, _build, pad_scan,
-        planarize_batch, process_batch)
-    from urban_road_filter_torch.ops import geometry, ingest
-    from urban_road_filter_torch.parallel.azimuth_parallel import (
-        make_azimuth_pipeline)
+        FilterConfig, PipelineDims, _build, pad_scan, planarize_batch)
 
     c = _module("chip_smoke_helpers", "chip_smoke.py")
     _build.library()
     dev = torch.device("cuda", 0)
     cfg = FilterConfig(star_shaped_method=False)
+    out = {"tree": tree}
+    _, sp_dims, sp_scan, _ = c.sp_deployments()[0]
+    sp_host = pad_scan(sp_scan, sp_dims.max_points)
+    bench_dims = PipelineDims(max_points=131072, rings=64,
+                              ring_capacity=2048, beam_capacity=512)
+    batch = planarize_batch(np.stack([pad_scan(s, bench_dims.max_points)
+                                      for s in c.bench_scans(c.BATCH)]))
+    if not e2e_only:
+        out.update(kernel_times(c, dev, cfg, sp_dims, sp_host, batch))
+    e2e(out, c, dev, cfg, sp_dims, sp_host, bench_dims, batch)
+    return out
+
+
+def kernel_times(c, dev, cfg, sp_dims, sp_host, batch) -> dict:
+    """The kernel rows of the docstring, CUDA-event times."""
+    import torch
+
+    from urban_road_filter_torch import PipelineDims, pad_scan
+    from urban_road_filter_torch.ops import geometry, ingest
 
     def kernels(x, y, z, rings, alpha=None, valid=None):
         valid0 = ingest.ingest_prep(x, y, z, cfg)[0]
@@ -98,22 +115,16 @@ def measure(tree: str) -> dict:
             "assign_rings": c.cuda_ms(lambda: ingest.assign_rings(
                 alpha, valid, angles, cfg.interval))}
 
-    out = {"tree": tree}
+    out = {}
     n64 = PipelineDims.for_sensor("os1-64").max_points
     for what, scan in (("b1", c.os1_64_scan()),
                        ("ring_major", c.ring_major(c.os1_64_scan()))):
         pts = torch.from_numpy(pad_scan(scan, n64)).to(dev)
         x, y, z, _ = geometry.xyz_of(pts, "rows")
         out[what] = kernels(x[None], y[None], z[None], 64)
-    _, sp_dims, sp_scan, _ = c.sp_deployments()[0]
-    sp_host = pad_scan(sp_scan, sp_dims.max_points)
     xyz, alpha, ring_valid = c.sp_ring_inputs(dev, cfg, sp_host)
     out["sp"] = kernels(*xyz, sp_dims.rings, alpha, ring_valid)
 
-    bench_dims = PipelineDims(max_points=131072, rings=64,
-                              ring_capacity=2048, beam_capacity=512)
-    batch = planarize_batch(np.stack([pad_scan(s, bench_dims.max_points)
-                                      for s in c.bench_scans(c.BATCH)]))
     planar = torch.from_numpy(batch).to(dev)
     out["b128"] = kernels(*geometry.xyz_of(planar, "planar",
                                            batched=True)[:3], 64)
@@ -129,6 +140,17 @@ def measure(tree: str) -> dict:
                       "flood_labeled", "marker_points", "flood_road",
                       "marker_state")
                      if k in calls}
+    return out
+
+
+def e2e(out, c, dev, cfg, sp_dims, sp_host, bench_dims, batch) -> None:
+    """The end-to-end rows of the docstring, into out."""
+    import torch
+
+    from urban_road_filter_torch import (
+        FilterConfig, PipelineDims, ScanResult, process_batch)
+    from urban_road_filter_torch.parallel.azimuth_parallel import (
+        make_azimuth_pipeline)
 
     configs = {"default": FilterConfig(), "star_off": cfg}
     runs, _ = c.phase_pipeline(dev, PipelineDims.for_sensor("os1-64"),
@@ -159,13 +181,14 @@ def measure(tree: str) -> dict:
             times.append(time.perf_counter() - t0)
         out["sp_latency_p50_ms"][cname] = (statistics.median(times[1:])
                                            * 1e3)
-    return out
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("trees", nargs="+", help="checkouts, in turns")
     ap.add_argument("--out", default=None, help="write all results as JSON")
+    ap.add_argument("--e2e-only", action="store_true",
+                    help="only the end-to-end metrics")
     ap.add_argument("--one", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
     import torch
@@ -173,7 +196,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         sys.exit("ab_ingest_torch: needs a CUDA device")
     if args.one:
-        print(json.dumps(measure(args.trees[0])), flush=True)
+        print(json.dumps(measure(args.trees[0], args.e2e_only)), flush=True)
         return 0
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -183,7 +206,9 @@ def main() -> int:
     results = []
     for tree in args.trees:
         res = subprocess.run([sys.executable, os.path.abspath(__file__),
-                              "--one", tree], capture_output=True,
+                              "--one", tree,
+                              *(["--e2e-only"] if args.e2e_only else [])],
+                             capture_output=True,
                              text=True, timeout=1200)
         if res.returncode != 0:
             sys.stderr.write(res.stdout + res.stderr)

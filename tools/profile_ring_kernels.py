@@ -12,7 +12,12 @@ chip_smoke.py's phase 2:
   B = 1 (as process_scan calls them) and reordered ring-major, at the SP
   call's shape (262144 points, 128 rings, valid0 & fits), on two merged
   multi-LiDAR scans (262144 points, 128 rings) and on the phase-4 batch
-  (B = 128); the ingest prep (K1) at B = 1 and B = 128;
+  (B = 128, also as rows of 4 floats, "b128_rows"); the ingest prep (K1)
+  at B = 1, at the SP call's shape and at B = 128 (planes and rows);
+- the gather + pack (K11) of the phase-4 batch (128 lanes of 64 x 2048),
+  replayed from one process_batch run of the tree: 128 single-scan calls
+  in trees before the batched gather, one call over the batch since (and
+  there the same lanes as 128 single-scan calls, "gather_pack_lanes");
 - the per-scan kernels K4-K14 (star search, rank, place, x/z-zero, flood
   fill, markers, gather + pack, road mask, marker keys, marker state) on
   the OS1-64 scan (64 rings x 4096 slots), a bench lane (64 x 2048) and a
@@ -162,6 +167,32 @@ def scan_calls(dev, dims, cfg, scan) -> dict:
     }
 
 
+def batch_gather_calls(c, planar) -> dict:
+    """{"gather_pack": the gather + pack (K11) of one process_batch run on
+    the phase-4 batch (128 planar scans, 64 x 2048, default configuration),
+    replayed as the tree's batch path makes it: one call per lane in trees
+    before the batched gather, one call over the batch since; there also
+    "gather_pack_lanes", the same lanes as 128 single-scan calls}."""
+    from urban_road_filter_torch import (
+        FilterConfig, PipelineDims, pipeline, process_batch)
+    from urban_road_filter_torch.ops import gather
+
+    dims = PipelineDims(max_points=131072, rings=64, ring_capacity=2048,
+                        beam_capacity=512)
+    name = ("gather_pack_batch" if hasattr(pipeline, "gather_pack_batch")
+            else "gather_pack")
+    fn = getattr(pipeline, name)
+    recorded = c.recorded_calls(pipeline, name, lambda: process_batch(
+        planar, FilterConfig(), dims, layout="planar"))
+    calls = {"gather_pack": lambda: [fn(*a) for a in recorded]}
+    if name == "gather_pack_batch":
+        (tables, ids, pos, valid, ok, prr), = recorded
+        calls["gather_pack_lanes"] = lambda: [
+            gather.gather_pack(t, ids[b], q, valid[b], ok[b], prr)
+            for b, (t, q) in enumerate(zip(tables, pos))]
+    return calls
+
+
 def sp_wedge_calls(dev, c, cfg) -> dict:
     """{"flood_road": K12 over the wedges of one SP run of phase 5's OS1-128
     scan (configuration ``cfg``), as the SP path calls it (one launch per
@@ -285,19 +316,22 @@ def main() -> int:
         if name == "b1":
             prep[name] = [v[None] for v in geometry.xyz_of(rows, "rows")[:3]]
     _, sp_dims, sp_scan, _ = c.sp_deployments()[0]
-    _, alpha, valid = c.sp_ring_inputs(
+    prep["sp"], alpha, valid = c.sp_ring_inputs(
         dev, cfg, pad_scan(sp_scan, sp_dims.max_points))
     inputs["sp"] = (alpha, valid, sp_dims.rings)
     merged = torch.from_numpy(np.stack([pad_scan(s, 262144) for s in
                                         c.multi_lidar_scans()[:2]])).to(dev)
     inputs["merged_b2"] = (*rows_input(merged), 128)
-    planar = torch.from_numpy(planarize_batch(np.stack(
-        [pad_scan(s, 131072) for s in c.bench_scans(c.BATCH)]))).to(dev)
+    batch = np.stack([pad_scan(s, 131072) for s in c.bench_scans(c.BATCH)])
+    planar = torch.from_numpy(planarize_batch(batch)).to(dev)
     x, y, z, _ = geometry.xyz_of(planar, "planar", batched=True)
     prep["b128"] = (x, y, z)
     valid = geometry.roi_mask_xyz(x, y, z, cfg)
     _, alpha = geometry.vertical_angles(x, y, z)
     inputs["b128"] = (alpha, valid, 64)
+    batch_rows = torch.from_numpy(batch).to(dev)
+    prep["b128_rows"] = geometry.xyz_of(batch_rows, "rows", batched=True)[:3]
+    inputs["b128_rows"] = (*rows_input(batch_rows), 64)
 
     def device_ms(fn):
         """(device ms per call, device ops per call, {op: ms per call});
@@ -341,6 +375,8 @@ def main() -> int:
         return res
 
     out = {"tree": args.tree}
+    print("batch (128 lanes, 64 x 2048)", end=" ")
+    out["batch"] = profiled(batch_gather_calls(c, planar))
     for name, (alpha, valid, rings) in inputs.items():
         k2 = lambda: ingest.discover_rings(alpha, valid, cfg.interval, rings)
         angles, _ = k2()
@@ -351,7 +387,7 @@ def main() -> int:
                                                               cfg)
         print(name, end=" ")
         out[name] = profiled(calls)
-    del planar, merged
+    del planar, merged, batch_rows
     out["per_scan"] = {}
     for name, dims, host in scan_shapes(c):
         print(f"{name} ({dims.rings} x {dims.ring_capacity})", end=" ")

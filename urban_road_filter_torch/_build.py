@@ -9,7 +9,8 @@ imported, so the CPU tests import every module without ``nvcc``.
 
 Every kernel wrapper in ``ops/`` counts one launch here each time it
 launches its kernel, and nowhere else; ``launch_counts`` shows whether a
-run really went through the kernels.
+run really went through the kernels, and ``device_ops`` how many device
+ops one call enqueues.
 """
 
 from __future__ import annotations
@@ -66,7 +67,7 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _L = ctypes.c_longlong
 _SIGNATURES = {
-    "urf_ingest_prep": (_P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F,
+    "urf_ingest_prep": (_P, _P, _P, _I, _I, _L, _L, _F, _F, _F, _F, _F, _F,
                         _F, _I, _P, _P, _P, _P, _P, _P),
     "urf_discover_rings": (_P, _P, _I, _I, _F, _I, _P, _P, _P, _P, _P),
     "urf_assign_rings": (_P, _P, _P, _I, _I, _I, _F, _P, _P, _P),
@@ -80,15 +81,21 @@ _SIGNATURES = {
     "urf_flood_labeled": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _P, _P, _P),
     "urf_marker_points": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _I,
                           _P, _P),
-    "urf_gather_pack": (_P, _I, _I, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P,
-                        _P),
+    "urf_gather_pack": (_P, _P, _I, _I, _I, _P, _P, _P, _I, _I, _P, _P, _P,
+                        _P, _P),
     "urf_flood_road": (_P, _P, _P, _P, _P, _I, _I, _F, _P, _P),
     "urf_marker_first_nonroad": (_P, _P, _P, _P, _I, _I, _P, _P),
     "urf_marker_state": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I,
                          _P, _I, _P, _P),
 }
 
+# Kernels whose blocks take tickets from per-device counters that run on
+# across launches (K1 csrc/ingest.cu, K9 csrc/flood.cu): two launches of
+# one of them in flight at once, on two streams, would break its results.
+TICKETED = ("ingest_prep", "flood_labeled")
+
 _launches = dict.fromkeys(KERNELS, 0)
+_last_stream: dict = {}  # (ticketed kernel, device) -> its latest stream
 _lib = None
 
 
@@ -213,14 +220,62 @@ def ptr(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 
 
+def _one_stream(kernel: str, device: torch.device, stream) -> None:
+    """Raise if a ticketed kernel is issued on another stream than its
+    latest launch while that stream may still be running it."""
+    key = (kernel, device.index)
+    last = _last_stream.get(key)
+    if (last is not None and last.cuda_stream != stream.cuda_stream
+            and not torch.cuda.is_current_stream_capturing()
+            and not last.query()):
+        raise RuntimeError(
+            f"{kernel}: its launches take tickets from per-device counters, "
+            f"so it must not run on two streams at once; the stream of its "
+            f"latest launch is still busy (synchronize it first)")
+    _last_stream[key] = stream
+
+
 def launch(kernel: str, fn: str, device: torch.device, *args) -> None:
     """Call C entry ``fn`` on ``device``'s current stream, raise on a CUDA
-    error, and count one launch of ``kernel``."""
+    error, and count one launch of ``kernel``.  A TICKETED kernel raises
+    instead when its latest launch's stream is another one and still
+    busy."""
     lib = library()
     with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = getattr(lib, fn)(*args, ctypes.c_void_p(stream))
+        stream = torch.cuda.current_stream(device)
+        if kernel in TICKETED:
+            _one_stream(kernel, device, stream)
+        err = getattr(lib, fn)(*args, ctypes.c_void_p(stream.cuda_stream))
     if err != 0:
         raise RuntimeError(f"{kernel}: CUDA error {err}: "
                            f"{lib.urf_error_string(err).decode()}")
     _launches[kernel] += 1
+
+
+def device_ops(fn) -> int:
+    """Device ops (kernels, memsets, copies) that one call of fn enqueues,
+    counted exactly: fn is called once, then captured once into a CUDA
+    graph (which runs nothing), whose kernel, memcpy and memset nodes are
+    counted through libcuda."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fn()
+    cu = ctypes.CDLL("libcuda.so.1")
+    handle = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    if cu.cuGraphGetNodes(handle, None, ctypes.byref(n)) != 0:
+        raise RuntimeError("cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * n.value)()
+    if n.value and cu.cuGraphGetNodes(handle, nodes, ctypes.byref(n)) != 0:
+        raise RuntimeError("cuGraphGetNodes failed")
+    kind = ctypes.c_int(0)
+    ops = 0  # CU_GRAPH_NODE_TYPE_KERNEL, _MEMCPY and _MEMSET are 0, 1, 2
+    for node in nodes:
+        if cu.cuGraphNodeGetType(ctypes.c_void_p(node),
+                                 ctypes.byref(kind)) != 0:
+            raise RuntimeError("cuGraphNodeGetType failed")
+        ops += kind.value in (0, 1, 2)
+    graph.reset()
+    return ops

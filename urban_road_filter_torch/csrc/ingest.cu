@@ -15,9 +15,19 @@
 //
 // What bounds them on Hopper, and why the designs are exact.
 //   * K1 and K3 are memory streams: K1 reads 12 bytes and writes 9 per
-//     point; K3 reads 5 and writes 4 (per thread two float4s of alpha, 4
-//     valid bytes in one 32-bit load each, two int4 stores, with streaming
-//     cache hints), against a <= 1 KB table in shared memory.
+//     point.  A batch (bytes bound it) takes 8 points a thread, planes a
+//     float4 per plane and 4 points, rows of 4 floats a float4 per point,
+//     4 valid bytes in one 32-bit store, int4 / float4 stores of the keys.
+//     A call that fits one wave of blocks at two points a thread (one
+//     scan: its float64 atan2's ~0.5 us latency and the launch bound it)
+//     takes two points a thread, point by point.  Each
+//     block adds its in-ROI count with one atomicAdd; the counts are
+//     zeroed by the launch's first block (counts_ready), so a call is one
+//     device op.  The atan2 runs only on points in the ROI.  K3 reads 5
+//     and writes 4 (per
+//     thread two float4s of alpha, 4 valid bytes in one 32-bit load each,
+//     two int4 stores, with streaming cache hints), against a <= 1 KB
+//     table in shared memory.
 //   * K2, one launch with grid (S, B): S segments per scan, one wave of
 //     blocks (S = 124 for one 131072-point scan, 1 at B = 128).  Every
 //     block runs the greedy over its scan's first P = 4096 points (the
@@ -85,7 +95,6 @@ constexpr int kStarRep = 360;
 constexpr int kMaxRings = 128;
 constexpr int kSearch = 2 * kMaxRings;            // padded table: a power
 constexpr int kSearchSlots = kSearch + kSearch / 32;  // of two > rings
-constexpr int kPrepThreads = 256;
 constexpr int kDiscoverThreads = 1024;
 constexpr int kWarps = kDiscoverThreads / 32;
 constexpr int kItems = 4;  // points per thread in a discovery chunk
@@ -107,48 +116,272 @@ struct Roi {
   float min_x, max_x, min_y, max_y, min_z, max_z;
 };
 
-// One thread per point; grid (ceil(n / kPrepThreads), B).  x/y/z are read
-// through a scan stride and a point stride, so rows (B, N, C) and planar
-// (3, B, N) input both arrive without a copy.  piece must be zeroed.
-__global__ void ingest_prep_kernel(const float* __restrict__ x,
-                                   const float* __restrict__ y,
-                                   const float* __restrict__ z,
-                                   long long scan_stride,
-                                   long long point_stride, int n, Roi roi,
-                                   float kfi, int want_keys,
-                                   bool* __restrict__ valid,
-                                   int* __restrict__ fk,
-                                   float* __restrict__ r_key,
-                                   int* __restrict__ piece) {
-  const int b = blockIdx.y;
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  bool v = false;
-  if (i < n) {
-    const long long off = (long long)b * scan_stride + i * point_stride;
-    const float xx = x[off];
-    const float yy = y[off];
-    const float zz = z[off];
-    v = (xx >= roi.min_x) & (xx <= roi.max_x) & (yy >= roi.min_y) &
-        (yy <= roi.max_y) & (zz >= roi.min_z) & (zz <= roi.max_z) &
-        (__fadd_rn(__fadd_rn(xx, yy), zz) != 0.0f);
-    const long long o = (long long)b * n + i;
-    valid[o] = v;
-    if (want_keys) {
-      int f = kStarRep;
-      float r = INFINITY;
-      if (v) {
-        r = __fsqrt_rn(__fadd_rn(__fmul_rn(xx, xx), __fmul_rn(yy, yy)));
-        float fi = __double2float_rn(atan2((double)yy, (double)xx));
-        if (fi < 0.0f) fi = __double2float_rn((double)fi + kTwoPi);
-        // A sector of 360 (fi a few ulps below 2 pi) is beam 0's.
-        f = (int)__fmul_rn(fi, kfi) % kStarRep;
-      }
-      fk[o] = f;
-      r_key[o] = r;
+// K1's per-device block tickets (K9's pattern, csrc/flood.cu; these
+// counters are K1's own, see counts_ready).  Like K9's, they need no host
+// value, so a captured CUDA graph replays them, but two K1 launches on
+// one device must not run at once on two streams (the wrapper raises when
+// a launch's stream differs from the last one's and that one is still
+// busy, _build.TICKETED).  They sit on L2 lines of their own, so the tickets'
+// atomics and the polling of g_prep_first do not contend for one line.
+__device__ __align__(128) unsigned long long g_prep_ticket = 0ULL;
+__device__ __align__(128) unsigned long long g_prep_first = 0ULL;
+
+__device__ __forceinline__ unsigned long long load_acquire(
+    const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.acquire.gpu.u64 %0, [%1];" : "=l"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void store_release(unsigned long long* p,
+                                              unsigned long long v) {
+  asm volatile("st.release.gpu.u64 [%0], %1;" ::"l"(p), "l"(v) : "memory");
+}
+
+// How K1 reads a scan's points: point by point through the strides; as
+// planes (point stride 1), one float4 per plane and 4 points; or as rows
+// of 4 floats (x, y, z, intensity), one float4 per point.
+enum PrepMode { kStrided = 0, kPlanar = 1, kRows4 = 2 };
+
+__device__ __forceinline__ bool in_roi(float xx, float yy, float zz,
+                                       const Roi& roi) {
+  return (xx >= roi.min_x) & (xx <= roi.max_x) & (yy >= roi.min_y) &
+         (yy <= roi.max_y) & (zz >= roi.min_z) & (zz <= roi.max_z) &
+         (__fadd_rn(__fadd_rn(xx, yy), zz) != 0.0f);
+}
+
+// The star sector and radius key of a point in the ROI.
+__device__ __forceinline__ void star_key(float xx, float yy, float kfi,
+                                         int& f, float& r) {
+  r = __fsqrt_rn(__fadd_rn(__fmul_rn(xx, xx), __fmul_rn(yy, yy)));
+  float fi = __double2float_rn(atan2((double)yy, (double)xx));
+  if (fi < 0.0f) fi = __double2float_rn((double)fi + kTwoPi);
+  // A sector of 360 (fi a few ulps below 2 pi) is beam 0's.
+  f = (int)__fmul_rn(fi, kfi) % kStarRep;
+}
+
+// Points from p until p + size * i sits on a 4-element boundary, or -1
+// when p is not aligned to its element.
+__device__ __forceinline__ int head_of(const void* p, unsigned size) {
+  const uintptr_t a = (uintptr_t)p;
+  if (a % size) return -1;
+  return (int)(((4u * size - a % (4u * size)) % (4u * size)) / size);
+}
+
+// The in-ROI counts without a fill, so a call is one device op.  Each
+// block has one warp besides its point warps; its lane 0 takes a ticket
+// as the block starts, while the point warps work.  Tickets run on across
+// launches, and g_prep_first holds the first ticket of the launch that has
+// not yet zeroed its counts.  The block holding the launch's first ticket
+// zeroes piece[0..B) and publishes the next launch's first ticket (its
+// own plus this launch's block count) with a release store; every other
+// block waits, acquire loads, until that ticket has passed its own.  The
+// same lane adds the block's count after the point warps' barrier.  The
+// first block took its ticket, so it is resident and waits on nothing: no
+// deadlock.  The lane's round trips (~1.6 us for one scan's 256 blocks,
+// tools/clock_ingest_prep.py) run beside the point work.
+__device__ __forceinline__ void counts_ready(int* piece) {
+  const unsigned long long ticket = atomicAdd(&g_prep_ticket, 1ULL);
+  if (load_acquire(&g_prep_first) == ticket) {
+    for (int k = 0; k < (int)gridDim.y; ++k) piece[k] = 0;
+    // The release orders this thread's zeroes before the publication.
+    store_release(&g_prep_first,
+                  ticket + (unsigned long long)gridDim.x * gridDim.y);
+  } else {
+    while (load_acquire(&g_prep_first) <= ticket) {
     }
   }
-  const int cnt = __syncthreads_count(v);
-  if (threadIdx.x == 0 && cnt > 0) atomicAdd(&piece[b], cnt);
+}
+
+// K1's point threads per block, and its block (those and a ticket warp):
+// threads of 2 points in blocks of 512 (fewer blocks take fewer tickets),
+// vector threads in blocks of 256 (their registers).
+template <int kPts>
+struct Prep {
+  static constexpr int kThreads = kPts == 2 ? 512 : 256;
+  static constexpr int kBlock = kThreads + 32;
+};
+
+// Point i's coordinates, read through the strides.
+__device__ __forceinline__ void load_point(const float* xb, const float* yb,
+                                           const float* zb, int i,
+                                           long long point_stride, float& xx,
+                                           float& yy, float& zz) {
+  const long long off = (long long)i * point_stride;
+  xx = xb[off];
+  yy = yb[off];
+  zz = zb[off];
+}
+
+// Point i's ROI flag and star keys, stored; returns the flag.
+__device__ __forceinline__ bool finish_point(float xx, float yy, float zz,
+                                             int i, const Roi& roi,
+                                             float kfi, int want_keys,
+                                             bool* vb, int* fb, float* rb) {
+  const bool v = in_roi(xx, yy, zz, roi);
+  vb[i] = v;
+  if (want_keys) {
+    int f = kStarRep;
+    float r = INFINITY;
+    if (v) star_key(xx, yy, kfi, f, r);
+    fb[i] = f;
+    rb[i] = r;
+  }
+  return v;
+}
+
+// The point work of thread t (of X * Prep<kPts>::kThreads point threads)
+// of scan b; returns its count of points in the ROI.  kPts 2, for calls
+// that fit in one wave of blocks (one scan: the float64 atan2's latency,
+// ~0.5 us, then bounds a thread), point by point in kStrided mode: thread
+// t takes points t and t + the thread count, their loads in flight
+// together.
+// kPts 8, for batches (bytes bound them): each thread takes 8 points, two
+// groups of 4 consecutive points whose loads are in flight together (a
+// float4 per plane, or one per row of 4 floats), stored as 4 valid bytes
+// in one 32-bit store and int4 / float4 stores of fk and r_key; points
+// before the scan's first common 4-point boundary of the streams, and
+// the tail, go point by point (in kStrided mode, and when the streams
+// share no boundary, the whole scan).
+template <int kMode, int kPts>
+__device__ __forceinline__ int prep_points(
+    const float* __restrict__ x, const float* __restrict__ y,
+    const float* __restrict__ z, long long scan_stride,
+    long long point_stride, int n, const Roi& roi, float kfi, int want_keys,
+    bool* __restrict__ valid, int* __restrict__ fk,
+    float* __restrict__ r_key, int b, int tid, int stride) {
+  const long long base = (long long)b * scan_stride;
+  const float* xb = x + base;
+  const float* yb = y + base;
+  const float* zb = z + base;
+  const size_t row = (size_t)b * n;
+  bool* vb = valid + row;
+  int* fb = want_keys ? fk + row : nullptr;
+  float* rb = want_keys ? r_key + row : nullptr;
+  int cnt = 0;
+  if constexpr (kPts == 2) {
+    static_assert(kMode == kStrided, "two-point threads read point by point");
+    float px[kPts], py[kPts], pz[kPts];
+#pragma unroll
+    for (int u = 0; u < kPts; ++u)
+      if (tid + u * stride < n)
+        load_point(xb, yb, zb, tid + u * stride, point_stride, px[u], py[u],
+                   pz[u]);
+#pragma unroll
+    for (int u = 0; u < kPts; ++u)
+      if (tid + u * stride < n)
+        cnt += finish_point(px[u], py[u], pz[u], tid + u * stride, roi, kfi,
+                            want_keys, vb, fb, rb);
+    return cnt;
+  }
+  int head = n;
+  if (kMode != kStrided) {
+    int h[6] = {head_of(vb, 1), -2, -2, -2, -2, -2};  // -2: free
+    if (want_keys) {
+      h[1] = head_of(fb, 4);
+      h[2] = head_of(rb, 4);
+    }
+    if (kMode == kPlanar) {
+      h[3] = head_of(xb, 4);
+      h[4] = head_of(yb, 4);
+      h[5] = head_of(zb, 4);
+    }
+    head = h[0];
+#pragma unroll
+    for (int k = 1; k < 6; ++k)
+      if (h[k] != -2 && h[k] != h[0]) head = -1;
+    head = head < 0 || head > n ? n : head;
+  }
+  // In kRows4 mode the scan's last point goes point by point.
+  const int nvec = max(n - head - (kMode == kRows4 ? 1 : 0), 0) >> 2;
+  for (int q = tid; q < nvec; q += 2 * stride) {
+    float px[2][4], py[2][4], pz[2][4];
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int i = head + 4 * min(q + u * stride, nvec - 1);
+      if constexpr (kMode == kPlanar) {
+        const float4 a = *reinterpret_cast<const float4*>(xb + i);
+        const float4 c = *reinterpret_cast<const float4*>(yb + i);
+        const float4 d = *reinterpret_cast<const float4*>(zb + i);
+        px[u][0] = a.x; px[u][1] = a.y; px[u][2] = a.z; px[u][3] = a.w;
+        py[u][0] = c.x; py[u][1] = c.y; py[u][2] = c.z; py[u][3] = c.w;
+        pz[u][0] = d.x; pz[u][1] = d.y; pz[u][2] = d.z; pz[u][3] = d.w;
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float4 a = *reinterpret_cast<const float4*>(xb + 4 * (i + e));
+          px[u][e] = a.x;
+          py[u][e] = a.y;
+          pz[u][e] = a.z;
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      if (q + u * stride >= nvec) break;
+      const int i = head + 4 * (q + u * stride);
+      unsigned v4 = 0u;
+      int f[4];
+      float r[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const bool v = in_roi(px[u][e], py[u][e], pz[u][e], roi);
+        v4 |= (unsigned)v << (8 * e);
+        cnt += v;
+        f[e] = kStarRep;
+        r[e] = INFINITY;
+        if (want_keys && v) star_key(px[u][e], py[u][e], kfi, f[e], r[e]);
+      }
+      *reinterpret_cast<unsigned*>(vb + i) = v4;
+      if (want_keys) {
+        *reinterpret_cast<int4*>(fb + i) = make_int4(f[0], f[1], f[2], f[3]);
+        *reinterpret_cast<float4*>(rb + i) =
+            make_float4(r[0], r[1], r[2], r[3]);
+      }
+    }
+  }
+  // Point by point: [0, head), then [head + 4 nvec, n).
+  for (int t = tid; t < n - 4 * nvec; t += stride) {
+    const int i = t < head ? t : t + 4 * nvec;
+    float xx, yy, zz;
+    load_point(xb, yb, zb, i, point_stride, xx, yy, zz);
+    cnt += finish_point(xx, yy, zz, i, roi, kfi, want_keys, vb, fb, rb);
+  }
+  return cnt;
+}
+
+// Grid (X, B), blocks of Prep<kPts>::kThreads point threads and one
+// ticket warp.  The point warps sum their in-ROI points (warp sums, then
+// the warps'), and the ticket lane adds the block's sum once counts_ready
+// returned.
+template <int kMode, int kPts>
+__global__ void __launch_bounds__(Prep<kPts>::kBlock, 3)
+    ingest_prep_kernel(const float* __restrict__ x,
+                       const float* __restrict__ y,
+                       const float* __restrict__ z, long long scan_stride,
+                       long long point_stride, int n, Roi roi, float kfi,
+                       int want_keys, bool* __restrict__ valid,
+                       int* __restrict__ fk, float* __restrict__ r_key,
+                       int* __restrict__ piece) {
+  constexpr int kThreads = Prep<kPts>::kThreads;
+  __shared__ int warp_cnt[kThreads / 32];
+  if (threadIdx.x >= kThreads) {  // the ticket warp
+    if (threadIdx.x == kThreads) counts_ready(piece);
+  } else {
+    int cnt = prep_points<kMode, kPts>(
+        x, y, z, scan_stride, point_stride, n, roi, kfi, want_keys, valid,
+        fk, r_key, blockIdx.y, blockIdx.x * kThreads + threadIdx.x,
+        gridDim.x * kThreads);
+    cnt = __reduce_add_sync(0xffffffffu, cnt);
+    if ((threadIdx.x & 31) == 0) warp_cnt[threadIdx.x >> 5] = cnt;
+  }
+  __syncthreads();
+  if (threadIdx.x == kThreads) {
+    int total = 0;
+#pragma unroll
+    for (int w = 0; w < kThreads / 32; ++w) total += warp_cnt[w];
+    if (total > 0) atomicAdd(&piece[blockIdx.y], total);
+  }
 }
 
 __device__ __forceinline__ bool matches(float a, float t, float tol) {
@@ -709,16 +942,17 @@ __global__ void __launch_bounds__(kAssignThreads)
   }
 }
 
-// SM count and resident blocks per SM of the two kernels, per device.
+// SM count and resident blocks per SM of K2, K3 and K1's one-wave form,
+// per device.
 struct Fill {
-  int sms = 0, discover_per_sm = 1, assign_per_sm = 1;
+  int sms = 0, discover_per_sm = 1, assign_per_sm = 1, prep_per_sm = 1;
 };
 
 Fill fill_of_current_device() {
   static Fill cache[64];
   int dev = 0;
   if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64)
-    return Fill{1, 1, 1};
+    return Fill{1, 1, 1, 1};
   Fill& f = cache[dev];
   if (f.sms == 0) {
     Fill g;
@@ -733,6 +967,10 @@ Fill fill_of_current_device() {
             &g.assign_per_sm, assign_kernel, kAssignThreads, 0) !=
             cudaSuccess || g.assign_per_sm < 1)
       g.assign_per_sm = 1;
+    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &g.prep_per_sm, ingest_prep_kernel<kStrided, 2>,
+            Prep<2>::kBlock, 0) != cudaSuccess || g.prep_per_sm < 1)
+      g.prep_per_sm = 1;
     cudaGetLastError();  // a failed query must not fail the launch
     f = g;
   }
@@ -744,23 +982,52 @@ Fill fill_of_current_device() {
 // Each entry point writes the grid it launched to grid[0..2) (x, y), or
 // zeros when it launched nothing.
 
+template <int kMode, int kPts>
+void launch_prep(dim3 grid, cudaStream_t s, const float* x, const float* y,
+                 const float* z, long long scan_stride,
+                 long long point_stride, int n, const Roi& roi, float kfi,
+                 int want_keys, bool* valid, int* fk, float* r_key,
+                 int* piece) {
+  ingest_prep_kernel<kMode, kPts><<<grid, Prep<kPts>::kBlock, 0, s>>>(
+      x, y, z, scan_stride, point_stride, n, roi, kfi, want_keys, valid, fk,
+      r_key, piece);
+}
+
+// x, y, z: the (b, n) coordinate views, one stride pattern.  Rows of 4
+// floats whose x is 16-byte aligned are read a float4 per point, planes a
+// float4 per 4 points (batches), anything else point by point.
 extern "C" int urf_ingest_prep(const float* x, const float* y, const float* z,
-                               int b, int n, int scan_stride,
-                               int point_stride, float min_x, float max_x,
-                               float min_y, float max_y, float min_z,
-                               float max_z, float kfi, int want_keys,
-                               bool* valid, int* fk, float* r_key, int* piece,
-                               int* grid_out, void* stream) {
+                               int b, int n, long long scan_stride,
+                               long long point_stride, float min_x,
+                               float max_x, float min_y, float max_y,
+                               float min_z, float max_z, float kfi,
+                               int want_keys, bool* valid, int* fk,
+                               float* r_key, int* piece, int* grid_out,
+                               void* stream) {
   grid_out[0] = grid_out[1] = 0;
-  if (b > 0 && n > 0) {
-    const Roi roi = {min_x, max_x, min_y, max_y, min_z, max_z};
-    const dim3 grid((n + kPrepThreads - 1) / kPrepThreads, b);
-    ingest_prep_kernel<<<grid, kPrepThreads, 0, (cudaStream_t)stream>>>(
-        x, y, z, scan_stride, point_stride, n, roi, kfi, want_keys, valid, fk,
-        r_key, piece);
-    grid_out[0] = (int)grid.x;
-    grid_out[1] = (int)grid.y;
-  }
+  if (b <= 0) return (int)cudaGetLastError();
+  const Roi roi = {min_x, max_x, min_y, max_y, min_z, max_z};
+  const Fill f = fill_of_current_device();
+  // Two points a thread, point by point, while the call's blocks fit in
+  // one wave, else 8; at least one block per scan (it counts, and may
+  // zero, when n is 0).
+  const long long resident = (long long)f.sms * f.prep_per_sm;
+  const long long m = n > 0 ? n : 1, t2 = 2 * Prep<2>::kThreads;
+  const int pts = (m + t2 - 1) / t2 * b <= resident ? 2 : 8;
+  const long long per_block = pts == 2 ? t2 : 8 * Prep<8>::kThreads;
+  const dim3 grid((unsigned)((m + per_block - 1) / per_block), b);
+  const cudaStream_t s = (cudaStream_t)stream;
+  const bool rows4 = point_stride == 4 && y == x + 1 && z == x + 2 &&
+                     ((uintptr_t)x & 15u) == 0 && scan_stride % 4 == 0;
+  decltype(&launch_prep<kStrided, 2>) launch = &launch_prep<kStrided, 2>;
+  if (pts == 8)
+    launch = point_stride == 1 ? &launch_prep<kPlanar, 8>
+             : rows4           ? &launch_prep<kRows4, 8>
+                               : &launch_prep<kStrided, 8>;
+  launch(grid, s, x, y, z, scan_stride, point_stride, n, roi, kfi, want_keys,
+         valid, fk, r_key, piece);
+  grid_out[0] = (int)grid.x;
+  grid_out[1] = (int)grid.y;
   return (int)cudaGetLastError();
 }
 

@@ -12,10 +12,11 @@ functions at B = 1.
 Each function launches its hand-written kernel (csrc/ingest.cu) on a CUDA
 tensor, or raises; on a CPU tensor it runs its plain PyTorch twin
 (``*_plain``), which the tests hold against the JAX package.  Each launch
-is one kernel (K2 also zeroes its arrival counters with a memset, and sorts
-its table itself: no ``torch.sort``); ``last_grid`` keeps the grid of each
-kernel's latest launch.  Every threshold is rounded to float32 on the host
-first, as the JAX package does.
+is one kernel (K1 zeroes its in-ROI counts itself; K2 zeroes its arrival
+counters with a memset, and sorts its table itself: no ``torch.sort``);
+``last_grid`` keeps the grid of each kernel's latest launch.  Every
+threshold is rounded to float32 on the host first, as the JAX package
+does.
 
 The sector follows the oracle's binning, not the JAX package's: the float64
 atan2 rounded to float32 (the JAX package fed the kernel an f32 XLA atan2
@@ -75,7 +76,10 @@ def ingest_prep(x, y, z, cfg: FilterConfig, want_star_keys: bool = True):
 
     valid is the ROI mask; fk the star sector of each ROI point, STAR_REP
     elsewhere; r_key its 2-D radius, +inf elsewhere; piece the in-ROI count
-    per scan.  ``want_star_keys=False`` skips fk and r_key (None)."""
+    per scan.  ``want_star_keys=False`` skips fk and r_key (None).  On the
+    card one device op: a batch's planes and rows of 4 floats are read a
+    float4 at a time; other strides, and calls that fit one wave of
+    blocks (a single scan), point by point."""
     if _build.on_cpu(x):
         return ingest_prep_plain(x, y, z, cfg, want_star_keys)
     if x.ndim != 2:
@@ -90,7 +94,7 @@ def ingest_prep(x, y, z, cfg: FilterConfig, want_star_keys: bool = True):
                              f"{t.dtype} {tuple(t.shape)} on {t.device} "
                              f"with strides {t.stride()}")
     valid = torch.empty((b, n), dtype=torch.bool, device=dev)
-    piece = torch.zeros((b,), dtype=I32, device=dev)
+    piece = torch.empty((b,), dtype=I32, device=dev)  # zeroed by the launch
     fk = r_key = None
     keys = (ctypes.c_void_p(None), ctypes.c_void_p(None))
     if want_star_keys:

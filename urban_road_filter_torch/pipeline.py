@@ -18,7 +18,9 @@ Dataflow, on the card (or, for ``device="cpu"``, through the plain twins):
       -> blind-spot flood fill, with the markers' first pass
                                        (K8, K9 ops.blind_spots)
       -> markers on the unsorted layout (K10 ops.markers)
-      -> labels back to input order, gated and packed (K11 ops.gather)
+    then once over the batch:
+      -> labels back to input order, gated and packed (K11 ops.gather;
+         one launch per 128 scans)
 
 Nothing here reads a value back to the host, so a CUDA scan or batch is
 enqueued without a synchronisation.
@@ -35,7 +37,7 @@ from urban_road_filter_torch.config import FilterConfig, PipelineDims
 from urban_road_filter_torch.constants import MIN_POINTS
 from urban_road_filter_torch.ops import geometry, ingest
 from urban_road_filter_torch.ops.blind_spots import blind_spots
-from urban_road_filter_torch.ops.gather import gather_pack
+from urban_road_filter_torch.ops.gather import gather_pack, gather_pack_batch
 from urban_road_filter_torch.ops.markers import marker_points
 from urban_road_filter_torch.ops.star import star_hits, star_labels
 from urban_road_filter_torch.ops.stencil_kernels import fused_xz_zero
@@ -66,10 +68,11 @@ class ScanResult(NamedTuple):
     probably_road: torch.Tensor  # (N,) bool: cfg.probably_road_ring members
 
 
-def _stages(x, y, z, valid, keys, ok, ring_id, num_rings, cfg: FilterConfig,
+def _stages(x, y, z, valid, keys, ring_id, num_rings, cfg: FilterConfig,
             dims: PipelineDims):
-    """(ScanResult, packed uint8 plane) of one scan after the ingest; keys
-    are its star keys (fk, r_key), None with the star search off."""
+    """(label table, pos, counts, max_distance, markers, overflow) of one
+    scan after the ingest, up to its markers; keys are its star keys (fk,
+    r_key), None with the star search off."""
     rings = dims.rings
     hp = None
     if keys is not None:
@@ -88,22 +91,13 @@ def _stages(x, y, z, valid, keys, ok, ring_id, num_rings, cfg: FilterConfig,
         rl, kf = blind_spots(rl, max_dist, num_rings, cfg)
     with _stage("markers"):
         markers = marker_points(rl, num_rings, kf)
-    with _stage("gather"):
-        labels, roi, probably_road, packed = gather_pack(
-            rl.label, ring_id, pos, valid, ok, int(cfg.probably_road_ring))
-        markers = torch.where(ok, markers, 0.0)
-    res = ScanResult(
-        ok=ok, roi=roi, labels=labels, ring_id=ring_id, num_rings=num_rings,
-        counts=rl.counts, max_distance=max_dist, markers=markers,
-        overflow=rl.overflow,
-        star_overflow=torch.zeros((), dtype=I32, device=x.device),
-        probably_road=probably_road)
-    return res, packed
+    return rl.label, pos, rl.counts, max_dist, markers, rl.overflow
 
 
-def _lanes(x, y, z, cfg: FilterConfig, dims: PipelineDims):
-    """[(ScanResult, packed uint8 plane)] of each scan of (B, N) coordinate
-    views: the ingest once over the batch, then the per-scan stages."""
+def _ingest(x, y, z, cfg: FilterConfig, dims: PipelineDims):
+    """(valid, fk, r_key, ring_id, num_rings, ok) of the scans of (B, N)
+    coordinate views: K1-K3 once over the batch; fk and r_key are None with
+    the star search off."""
     if x.dtype != torch.float32:
         raise TypeError(f"points must be float32, got {x.dtype}")
     with _stage("ingest"):
@@ -113,11 +107,7 @@ def _lanes(x, y, z, cfg: FilterConfig, dims: PipelineDims):
         angles, num_rings = ingest.discover_rings(alpha, valid, cfg.interval,
                                                   dims.rings)
         ring_id = ingest.assign_rings(alpha, valid, angles, cfg.interval)
-    ok = piece >= MIN_POINTS
-    return [_stages(x[b], y[b], z[b], valid[b],
-                    None if fk is None else (fk[b], r_key[b]), ok[b],
-                    ring_id[b], num_rings[b], cfg, dims)
-            for b in range(x.shape[0])]
+    return valid, fk, r_key, ring_id, num_rings, piece >= MIN_POINTS
 
 
 def on_device(pts, device=None) -> torch.Tensor:
@@ -135,9 +125,27 @@ def on_device(pts, device=None) -> torch.Tensor:
 
 
 def _scan(pts, cfg: FilterConfig, dims: PipelineDims, layout: str, device):
-    """(ScanResult, packed uint8 plane) of one scan: a batch of one."""
+    """(ScanResult, packed uint8 plane) of one scan: the batch path's
+    kernels at B = 1 (the ingest over a batch of one, the gather + pack of
+    one lane), on the scan's own views."""
     x, y, z, _ = geometry.xyz_of(on_device(pts, device), layout)
-    return _lanes(x[None], y[None], z[None], cfg, dims)[0]
+    valid, fk, r_key, ring_id, num_rings, ok = (
+        f if f is None else f[0]
+        for f in _ingest(x[None], y[None], z[None], cfg, dims))
+    table, pos, counts, max_dist, markers, overflow = _stages(
+        x, y, z, valid, None if fk is None else (fk, r_key), ring_id,
+        num_rings, cfg, dims)
+    with _stage("gather"):
+        labels, roi, probably_road, packed = gather_pack(
+            table, ring_id, pos, valid, ok, int(cfg.probably_road_ring))
+        markers = torch.where(ok, markers, 0.0)
+    res = ScanResult(
+        ok=ok, roi=roi, labels=labels, ring_id=ring_id, num_rings=num_rings,
+        counts=counts, max_distance=max_dist, markers=markers,
+        overflow=overflow,
+        star_overflow=torch.zeros((), dtype=I32, device=x.device),
+        probably_road=probably_road)
+    return res, packed
 
 
 def process_scan(pts, cfg: FilterConfig, dims: PipelineDims,
@@ -146,7 +154,10 @@ def process_scan(pts, cfg: FilterConfig, dims: PipelineDims,
     (pad_scan), ``"planar"`` for (3, N) coordinate planes
     (pad_scan_planar).  The orientation is never guessed from the shape.
     Runs on ``device`` (default "cuda"; "cpu" for the plain twins), where
-    the points are moved first."""
+    the points are moved first.  On the card, issue one device's scans
+    from one stream at a time: K1 and K9 count their blocks with
+    per-device tickets, and a launch on a second stream while the first
+    is still busy raises (_build.TICKETED)."""
     return _scan(pts, cfg, dims, layout, device)[0]
 
 
@@ -164,17 +175,35 @@ def process_batch(pts, cfg: FilterConfig, dims: PipelineDims,
                   layout: str = "rows", device=None) -> ScanResult:
     """Label a batch of padded scans: ``layout="rows"`` for (B, N, >=3)
     points, ``"planar"`` for (3, B, N) coordinate planes (planarize_batch).
-    The ingest (K1-K3) runs once over the (B, N) streams; the later stages
-    run per scan on views of them, and nothing reads a value back to the
-    host.  Returns a ScanResult with a leading B axis on every field (ok,
-    num_rings, overflow and star_overflow are (B,); markers (B, 361, 6)).
-    Lane b equals process_scan of scan b.  ``device`` as for process_scan."""
+    The ingest (K1-K3) runs once over the (B, N) streams, the stages up to
+    the markers per scan on views of them, and the gather + pack (K11)
+    once over the batch; nothing reads a value back to the host.  Returns
+    a ScanResult with a leading B axis on every field (ok, num_rings,
+    overflow and star_overflow are (B,); markers (B, 361, 6)): the per-point
+    fields are the gather's (B, N) outputs themselves, so lane b of a field
+    is a view of the batch's tensor (writing into it writes into the
+    batch).  Lane b equals process_scan of scan b.  ``device`` and the
+    one-stream rule as for process_scan."""
     x, y, z, _ = geometry.xyz_of(on_device(pts, device), layout,
                                  batched=True)
     if x.shape[0] == 0:
         raise ValueError(f"empty batch: {tuple(pts.shape)}")
-    lanes = [res for res, _ in _lanes(x, y, z, cfg, dims)]
-    return ScanResult(*(torch.stack(f) for f in zip(*lanes)))
+    valid, fk, r_key, ring_id, num_rings, ok = _ingest(x, y, z, cfg, dims)
+    tables, pos, counts, max_dist, markers, overflow = zip(*(
+        _stages(x[b], y[b], z[b], valid[b],
+                None if fk is None else (fk[b], r_key[b]), ring_id[b],
+                num_rings[b], cfg, dims)
+        for b in range(x.shape[0])))
+    with _stage("gather"):
+        labels, roi, probably_road, _ = gather_pack_batch(
+            tables, ring_id, pos, valid, ok, int(cfg.probably_road_ring))
+        markers = torch.where(ok[:, None, None], torch.stack(markers), 0.0)
+    return ScanResult(
+        ok=ok, roi=roi, labels=labels, ring_id=ring_id, num_rings=num_rings,
+        counts=torch.stack(counts), max_distance=torch.stack(max_dist),
+        markers=markers, overflow=torch.stack(overflow),
+        star_overflow=torch.zeros(ok.shape, dtype=I32, device=x.device),
+        probably_road=probably_road)
 
 
 def unpack_planes(packed):
