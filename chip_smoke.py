@@ -50,8 +50,9 @@
    slots of the OS1-128 scan, one launch each over all wedges), timed.
    On the OS1-64 scan the unfused path (blind_spots(want_marker_f=False),
    K8 + K12, then marker_points(kf=None), K13 + K10) must equal the fused
-   one bit for bit.  Prints median CUDA-event times of kernel, twin and, where
-   one PyTorch call computes the same function, that call; and each
+   one bit for bit; K13 must be one device op a call (no fill).  Prints
+   median CUDA-event times of kernel, twin and, where one PyTorch call
+   computes the same function, that call; and each
    kernel's bound, the larger of its bytes over the HBM rate and its
    operations over the FP32 rate, from this run's inputs.
 3. Drives the single-scan pipeline (packed_scan) on 9 full-size scans, the
@@ -86,7 +87,20 @@
    must launch K8 once and K14 twice.  K12 and K13 are held against their
    twins again at the per-wedge shapes, K8 and K14 over the stacked
    wedges, K14 with the run's own g_offset and f_init.
-6. Prints one JSON line of per-kernel results (K1-K3 with their grid and
+6. Drives the port's replay harness (io.replay.ReplayHarness) on the card:
+   (a) the three recorded-style PCD fixtures of tests/fixtures (16384
+   points, binary_compressed, NaN rows sent as they are), read by the
+   native reader (which must have built; equal to the Python reader),
+   replayed through pcd_dir_source: each scan ok, no overflow, no NaN row
+   labelled, and the oracle gate as in phase 3; (b) 30 emulated OS1-64
+   drive scans at 10 Hz in drop mode at depth 1, then flat out at depth
+   2: no errors, no drops, the depth-2 outputs equal depth 1's field by
+   field; latency p50 / p99, scans/s and drops printed; (c) SP mode (8
+   wedges) on 3 OS1-128 drive scans: the topics equal those built from
+   make_azimuth_pipeline's own results; (d) a bag of 3 drive scans
+   written, read back bit-equal and replayed through bag_source.  Launch
+   counters as in phase 3, per part.
+7. Prints one JSON line of per-kernel results (K1-K3 with their grid and
    their times at B = 1, "b1", at the SP call's shape, "sp", and, K2 and
    K3, on the ring-major scan, "ring_major"; K11's over the phase-4 batch,
    "b128") and, last,
@@ -590,7 +604,7 @@ def phase_kernels(dev, dims, cfg, scan, what, timed=True):
     host array) padded to dims, and the unfused flood/marker path against
     the fused one.  Timed, the CUDA-event times of kernel, twin and library
     call are taken and returned with each kernel's bound."""
-    from urban_road_filter_torch import launch_counts, pad_scan
+    from urban_road_filter_torch import _build, launch_counts, pad_scan
     from urban_road_filter_torch import reset_launch_counts
     from urban_road_filter_torch.ops import blind_spots as bs
     from urban_road_filter_torch.ops import geometry, ingest
@@ -805,11 +819,27 @@ def phase_kernels(dev, dims, cfg, scan, what, timed=True):
     record("marker_points", (markers,), (p10(),), k10, p10,
            nbytes=12 * active + 4 * r + 361 * 8 + 361 * 24, ops=10 * active)
 
-    # K13: the markers' first-pass keys on their own.
+    # K13: the markers' first-pass keys on their own, one device op a
+    # call.  The bound counts alpha and label of the active slots read
+    # once (as K10's) and kf written.  The library call: one
+    # scatter_reduce_ "amin" of the precomputed keys (the dump bin for
+    # road or invalid slots) into a buffer that holds NO_KEY.
     k13 = lambda: mk.marker_first_nonroad(road, num_rings)
     p13 = lambda: mk.first_nonroad_keys(road, num_rings)
+    a_ok13, bin13 = mk._bins(road, num_rings)
+    idx13 = torch.where(a_ok13 & (road.label != 1), bin13, mk.N_BINS
+                        ).reshape(-1)
+    keys13 = mk.marker_keys(road.alpha).reshape(-1)
+    buf13 = torch.full((mk.N_BINS + 1,), mk.NO_KEY, dtype=torch.int64,
+                       device=dev)
+    l13 = lambda: buf13.scatter_reduce_(0, idx13, keys13, "amin")
+    assert torch.equal(l13()[:mk.N_BINS], p13())
+    ops13 = _build.device_ops(k13)
+    assert ops13 == 1, f"K13 must be one device op (no fill): {ops13}"
     record("marker_first_nonroad", (k13(), k13()), (p13(), kf), k13, p13,
-           nbytes=8 * r * p + 4 * r + 361 * 8, ops=5 * r * p)
+           nbytes=8 * active + 4 * r + 4 + 361 * 8, ops=5 * active,
+           library=l13)
+    out["marker_first_nonroad"]["device_ops"] = ops13
 
     # K14: the marker state on the sorted layout, with the default offsets
     # and, untimed, with offsets and a floor of the SP path's form.  The
@@ -1290,6 +1320,168 @@ def phase_sp(dev, configs, smi, device_parity_gate):
     return total
 
 
+def same_outputs(got, want, what: str) -> None:
+    """Two runs' ScanOutputs equal field by field: the clouds bit for bit,
+    the marker strips (id, color, points), ok and the stats' counts."""
+    assert [o.seq for o in got] == [o.seq for o in want], what
+    for a, b in zip(got, want):
+        assert a.ok == b.ok, (what, a.seq)
+        for f in ("road", "curb", "roi", "road_probably"):
+            x, y = getattr(a, f), getattr(b, f)
+            assert x.shape == y.shape and np.array_equal(
+                x.view(np.int32), y.view(np.int32)), (what, a.seq, f)
+        assert len(a.marker_strips) == len(b.marker_strips), (what, a.seq)
+        for u, v in zip(a.marker_strips, b.marker_strips):
+            assert (u.id, u.color) == (v.id, v.color), (what, a.seq)
+            assert np.array_equal(u.points, v.points), (what, a.seq)
+        for f in ("points_in", "points_roi", "num_rings", "road_points",
+                  "curb_points", "marker_count", "overflow"):
+            assert getattr(a.stats, f) == getattr(b.stats, f), (what, f)
+
+
+def phase_replay(dev, smi, device_parity_gate) -> dict:
+    """The port's replay harness (io.replay.ReplayHarness) on the card:
+    (a) the three recorded-style PCD fixtures, read by the native reader,
+    with their NaN rows; (b) ~30 emulated OS1-64 drive scans at 10 Hz in
+    drop mode at depth 1, then flat out at depth 2, equal field by field;
+    (c) SP mode (8 wedges) on OS1-128 drive scans against the topics of
+    make_azimuth_pipeline's own results; (d) a bag of 3 scans written and
+    replayed.  Launch counters are zeroed before each part and read after
+    it.  Returns the launch counts summed over the parts."""
+    import glob
+    import os
+    import tempfile
+
+    from urban_road_filter_torch import (
+        FilterConfig, PipelineDims, ScanResult, launch_counts,
+        pad_scan_planar, reset_launch_counts)
+    from urban_road_filter_torch.io import make_drive, read_bag, write_bag
+    from urban_road_filter_torch.io.pcd import read_pcd
+    from urban_road_filter_torch.io.replay import (
+        ReplayHarness, bag_source, pcd_dir_source)
+    from urban_road_filter_torch.parallel.azimuth_parallel import (
+        azimuth_sorted, make_azimuth_pipeline)
+    from urban_road_filter_torch.runtime import native
+
+    class Recording(ReplayHarness):
+        """Keeps each scan's fetched host outputs beside its topics."""
+
+        def _postprocess(self, raw, host_out, *args, **kw):
+            out = super()._postprocess(raw, host_out, *args, **kw)
+            self.fetched.append((raw, host_out, out))
+            return out
+
+    def replay(source, **kw):
+        h = Recording(device=dev, **kw)
+        h.fetched = []
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        m = h.run(source)
+        torch.cuda.synchronize()
+        launches = launch_counts()
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        s = m.summary()
+        assert s["errors"] == 0, (s, m.last_error)
+        return h, s, launches
+
+    total = {}
+    cfg = FilterConfig()
+    # (a) The fixtures: 16384 points, binary_compressed, NaN rows.
+    fixtures = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "tests", "fixtures")
+    paths = sorted(glob.glob(os.path.join(fixtures, "*.pcd")))
+    assert len(paths) == 3, paths
+    assert native.get_lib() is not None, "the native PCD reader must build"
+    for path in paths:
+        fast = native.read_pcd_native(path)
+        assert fast is not None and np.array_equal(
+            fast.view(np.int32), read_pcd(path, use_native=False).view(
+                np.int32)), path
+    fdims = PipelineDims(16384, 64, 1024, 256)
+    h, s, launches = replay(pcd_dir_source(fixtures), cfg=cfg, dims=fdims)
+    assert_launched(launches, SCAN_KERNELS, "the replay of the fixtures")
+    assert s["scans"] == 3 and s["not_ok"] == 0, s
+    for path, (raw, host_out, out) in zip(paths, h.fetched):
+        labels, markers, overflow = host_out[0], host_out[3], host_out[6]
+        nan = np.isnan(raw[:, 0])
+        assert nan.sum() > 100 and not labels[:len(raw)][nan].any()
+        assert out.ok and int(overflow) == 0
+        assert not np.isnan(out.road).any() and not np.isnan(out.curb).any()
+        agree, n_sys = device_parity_gate(raw, labels, markers, cfg,
+                                          os.path.basename(path))
+        print(f"  fixture {os.path.basename(path)}: {len(raw)} points, "
+              f"{int(nan.sum())} NaN rows, parity {agree:.6f}, systematic "
+              f"{n_sys}, rings {out.stats.num_rings}, overflow 0, "
+              f"latency {out.stats.latency_ms:.3f} ms", flush=True)
+        assert agree >= 0.999 and n_sys == 0, (path, agree, n_sys)
+
+    # (b) The OS1-64 drive at 10 Hz (drop mode, depth 1), then flat out at
+    # depth 2: the same outputs.
+    dims = PipelineDims.for_sensor("os1-64")
+    drive = list(make_drive(30, sensor="os1_64", seed=43))
+    runs = {}
+    for what, kw in (("10 Hz depth 1", dict(rate_hz=10.0)),
+                     ("flat out depth 2", dict(pipeline_depth=2))):
+        got = []
+        h, s, launches = replay(iter(drive), cfg=cfg, dims=dims,
+                                on_scan=got.append, **kw)
+        assert_launched(launches, SCAN_KERNELS, f"the replay {what}")
+        assert s["not_ok"] == 0 and s["dropped"] == 0, (what, s)
+        runs[what] = got
+        lat = s["latency_ms"]
+        print(f"  OS1-64 drive, {what}: {s['scans']} scans, {s['dropped']} "
+              f"dropped, {s['errors']} errors, latency p50 {lat['p50']} ms, "
+              f"p99 {lat['p99']} ms, {s['scans_per_sec']} scans/s on {smi}",
+              flush=True)
+    same_outputs(runs["flat out depth 2"], runs["10 Hz depth 1"],
+                 "depth 2 vs depth 1")
+    print("  depth 2 outputs equal depth 1's field by field", flush=True)
+
+    # (c) SP mode: 8 wedges on OS1-128 drive scans; topics equal those of
+    # make_azimuth_pipeline's own results, postprocessed in order.
+    _, sdims, _, _ = sp_deployments()[0]
+    sp_scans = [azimuth_sorted(p) for p in
+                make_drive(3, sensor="os1_128", seed=31, firings=2048)]
+    got = []
+    h, s, launches = replay(iter(sp_scans), cfg=cfg, dims=sdims,
+                            azimuth_shard=WEDGES, on_scan=got.append)
+    assert_launched(launches, SP_KERNELS, "the SP replay")
+    assert launches["flood_blocked"] == 3 and launches["marker_state"] == 6
+    run = make_azimuth_pipeline(WEDGES, cfg, sdims, device=dev)
+    ref = ReplayHarness(cfg=cfg, dims=sdims, device=dev)
+    want = []
+    for k, scan in enumerate(sp_scans):
+        res = run(torch.from_numpy(pad_scan_planar(scan, sdims.max_points))
+                  .to(dev), layout="planar")
+        assert isinstance(res, ScanResult)
+        host = tuple(t.cpu().numpy() for t in (
+            res.labels, res.roi, res.probably_road, res.markers, res.ok,
+            res.num_rings, res.overflow))
+        ref._seq = k
+        want.append(ref._postprocess(scan, host, 0.0))
+    same_outputs(got, want, "SP replay")
+    print(f"  SP replay ({WEDGES} wedges, {len(sp_scans)} OS1-128 scans of "
+          f"{len(sp_scans[0])} points): topics equal make_azimuth_pipeline's"
+          f"; latency p50 {s['latency_ms']['p50']} ms", flush=True)
+
+    # (d) A bag of 3 scans, written and replayed.
+    with tempfile.TemporaryDirectory() as tmp:
+        bag = os.path.join(tmp, "drive.bag")
+        write_bag(bag, drive[:3], topic="/os1/points")
+        back = list(read_bag(bag))
+        for a, b in zip(drive[:3], back):
+            assert np.array_equal(a[:, :4], b)
+        got = []
+        h, s, launches = replay(bag_source(bag), cfg=cfg, dims=dims,
+                                on_scan=got.append)
+    assert s["scans"] == 3 and s["not_ok"] == 0, s
+    same_outputs(got, runs["10 Hz depth 1"][:3], "bag replay")
+    print("  bag of 3 scans: read back bit-equal, replayed, outputs equal "
+          "the drive's", flush=True)
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False")
@@ -1403,6 +1595,11 @@ def main() -> int:
           flush=True)
     sp_launches = phase_sp(dev, configs, smi, device_parity_gate)
     print(f"  launches: {sp_launches}")
+    assert_no_jax()
+
+    print("phase 6: the replay harness on the card", flush=True)
+    replay_launches = phase_replay(dev, smi, device_parity_gate)
+    print(f"  launches: {replay_launches}")
     assert_no_jax()
     # Every kernel ran on some path: K1-K11 on the scan and batch paths,
     # K12 and K14 on the SP path, K13 on the unfused one.

@@ -21,7 +21,10 @@ mixed gates and lanes off a 4-point boundary; K1 at 1 to 131072 points,
 B = 1, 3 and 128, on rows of 4 and 3 floats, rows at storage offsets of
 1-3 floats and planes, one device op a call, its in-ROI counts exact over
 200 launches alternating B = 1, B = 128 and the SP call's shape (its
-first-block tickets).  Run on a machine with the card
+first-block tickets); the marker keys (K13) at 64 x 4096, 128 x 2048, one
+slot past a row's pass of 2048 slots and of two, and over 4000 rows (2000
+blocks, its first-block tickets), one device op a call.  Run on a machine with the
+card
 (tests/conftest.py imports jax, which a GPU host without JAX skips with
 --noconftest):
 
@@ -1175,3 +1178,72 @@ def test_ticketed_kernel_refuses_a_second_busy_stream(dev):
     side.synchronize()
     piece = ingest.ingest_prep(x, y, z, cfg)[3]
     assert torch.equal(piece, ingest.ingest_prep_plain(x, y, z, cfg)[3])
+
+
+def _first_layout(dev, r, p, seed=0):
+    """A ring layout for K13: azimuth-ordered rows with NaN, negative and
+    past-360 azimuths, ties, -0.0, ragged counts (some past p, some
+    negative) and labels of all three kinds."""
+    rng = np.random.default_rng(seed)
+    alpha = np.sort(rng.uniform(-2.0, 362.0, (r, p)).astype(np.float32), 1)
+    pick = rng.random((r, p))
+    alpha[pick < 0.03] = np.nan
+    alpha[(pick >= 0.03) & (pick < 0.05)] = np.float32(10.5)
+    alpha[(pick >= 0.05) & (pick < 0.06)] = np.float32(-0.0)
+    label = rng.choice(np.array([0, 1, 1, 1, 2], np.int32), (r, p))
+    counts = rng.integers(-1, p + 3, r).astype(np.int32)
+    counts[:2] = p
+    zero = torch.zeros((r, p), dtype=torch.float32, device=dev)
+    return geometry.RingLayout(
+        zero, zero, zero, zero, torch.from_numpy(alpha).to(dev),
+        torch.from_numpy(label).to(dev),
+        torch.full((r, p), -1, dtype=torch.int32, device=dev),
+        torch.from_numpy(counts).to(dev),
+        torch.zeros((), dtype=torch.int32, device=dev))
+
+
+@pytest.mark.parametrize("r,p,nr", [(64, 4096, 64), (128, 2048, 128),
+                                    (8, 2049, 8), (7, 4097, 7), (8, 4097, 3),
+                                    (3, 1, 3), (4000, 64, 4000), (16, 512, 0)])
+def test_marker_first_nonroad_kernel(dev, r, p, nr):
+    """K13 bit-equal to its twin and one device op a call: the OS1-64 and
+    merged shapes, rows one slot past one and two passes of 2048 slots (the
+    rows then start off a 16-byte boundary; an odd row count), 2000 blocks
+    taking tickets, num_rings below the rows and 0."""
+    lay = _first_layout(dev, r, p, seed=r + p)
+    num_rings = torch.tensor(nr, dtype=torch.int32, device=dev)
+    got = mk.marker_first_nonroad(lay, num_rings)
+    _assert_same((got,), (mk.first_nonroad_keys(lay, num_rings),))
+    if nr == 0:
+        assert bool((got == mk.NO_KEY).all())
+    elif p >= 64:
+        assert bool((got != mk.NO_KEY).any())
+    ops = _build.device_ops(lambda: mk.marker_first_nonroad(lay, num_rings))
+    assert ops == 1, ops
+
+
+def test_marker_first_nonroad_all_road_and_empty(dev):
+    lay = _first_layout(dev, 64, 4096, seed=3)
+    num_rings = torch.tensor(64, dtype=torch.int32, device=dev)
+    for case in (lay._replace(label=torch.ones_like(lay.label)),
+                 lay._replace(counts=torch.zeros_like(lay.counts)),
+                 lay._replace(alpha=torch.full_like(lay.alpha, float("nan")))):
+        got = mk.marker_first_nonroad(case, num_rings)
+        _assert_same((got,), (mk.first_nonroad_keys(case, num_rings),))
+        assert bool((got == mk.NO_KEY).all())
+
+
+def test_marker_first_nonroad_refuses_a_second_busy_stream(dev):
+    lay = _first_layout(dev, 64, 4096, seed=4)
+    num_rings = torch.tensor(64, dtype=torch.int32, device=dev)
+    mk.marker_first_nonroad(lay, num_rings)
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream(dev)
+    with torch.cuda.stream(side):
+        torch.cuda._sleep(200_000_000)  # keeps the side stream busy
+        mk.marker_first_nonroad(lay, num_rings)
+    with pytest.raises(RuntimeError, match="two streams at once"):
+        mk.marker_first_nonroad(lay, num_rings)
+    side.synchronize()
+    _assert_same((mk.marker_first_nonroad(lay, num_rings),),
+                 (mk.first_nonroad_keys(lay, num_rings),))

@@ -522,12 +522,19 @@ class TestGather:
 
 
 def test_port_imports_no_jax():
-    """Importing the port, its oracle, its parity gate, its SP path and
-    chip_smoke loads neither JAX nor the JAX package."""
+    """Importing the port, its oracle, its parity gate, its SP path, its
+    replay harness and host modules, chip_smoke and the port's soak tool
+    loads neither JAX nor the JAX package."""
     code = ("import sys; import urban_road_filter_torch, "
             "urban_road_filter_torch.convert, urban_road_filter_torch.oracle, "
             "urban_road_filter_torch.utils.parity, "
-            "urban_road_filter_torch.parallel.azimuth_parallel, chip_smoke; "
+            "urban_road_filter_torch.parallel.azimuth_parallel, chip_smoke, "
+            "urban_road_filter_torch.io.replay, "
+            "urban_road_filter_torch.io.pcd, urban_road_filter_torch.io.rosbag, "
+            "urban_road_filter_torch.runtime.native, "
+            "urban_road_filter_torch.postprocess, urban_road_filter_torch.viz, "
+            "urban_road_filter_torch.utils.metrics; "
+            "sys.path.insert(0, 'tools'); import soak_stream_torch; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'urban_road_filter_tpu')); "
             "assert not bad, bad")
@@ -538,14 +545,19 @@ def test_port_imports_no_jax():
 
 
 def test_port_sources_never_import_the_jax_package():
-    """No source file of the port, and not chip_smoke.py, imports the JAX
-    package, even a module of it that does not import JAX."""
-    pattern = re.compile(r"^\s*(import|from)\s+urban_road_filter_tpu\b",
-                         re.MULTILINE)
+    """No source file of the port, not chip_smoke.py and not the port's
+    soak tool imports JAX or the JAX package, even a module of it that
+    does not import JAX."""
+    pattern = re.compile(
+        r"^\s*(import|from)\s+(urban_road_filter_tpu|jax|jaxlib)\b",
+        re.MULTILINE)
     root = pathlib.Path(REPO)
     files = sorted((root / "urban_road_filter_torch").rglob("*.py"))
-    files.append(root / "chip_smoke.py")
+    files += [root / "chip_smoke.py", root / "tools" / "soak_stream_torch.py"]
     assert len(files) > 20
+    for name in ("io/replay.py", "io/pcd.py", "io/rosbag.py", "viz.py",
+                 "postprocess.py", "runtime/native.py", "utils/metrics.py"):
+        assert root / "urban_road_filter_torch" / name in files, name
     bad = [str(f.relative_to(root)) for f in files
            if pattern.search(f.read_text())]
     assert not bad, bad

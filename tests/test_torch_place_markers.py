@@ -17,6 +17,14 @@ against the port's plain twins and the JAX package:
     R blocks and chunks down to one quad, the model must equal
     ``marker_points_plain`` bit for bit, and the JAX ``marker_points`` on
     the azimuth-sorted layout.
+  * K13 does the same for a minimum alone: each block owns a ring row
+    (the model takes any number of rows a block), folds the runs of one
+    bin within a quad of its non-road keys into per-bin minima in shared
+    memory, then folds those into kf with atomicMin (a minimum, in any
+    order).  The model must equal ``first_nonroad_keys`` at 1, 2, 7 and R
+    rows per block and passes down to one quad, and its kf through the
+    K10 twin must give the table of the interpreted
+    ``marker_points_unsorted_pallas(kf=None)``.
 
 Exact equality is the demand throughout: the same numpy inputs go to
 every side, and none of the steps rounds.
@@ -35,6 +43,8 @@ from urban_road_filter_tpu.io.synthetic import SCENES, make_scan
 from urban_road_filter_tpu.ops import blind_spots as jbs
 from urban_road_filter_tpu.ops import geometry as jgeo
 from urban_road_filter_tpu.ops import markers as jmk
+from urban_road_filter_tpu.ops.marker_scan import (
+    marker_points_unsorted_pallas)
 from urban_road_filter_tpu.ops.xzero import x_zero as jx_zero
 from urban_road_filter_tpu.ops.zzero import z_zero as jz_zero
 from urban_road_filter_torch.convert import layout_from_numpy, to_numpy
@@ -51,6 +61,7 @@ NO_KEY = np.iinfo(np.int64).max
 N_BINS = 361
 ZERO_QUADS = 256  # quads per zero unit (csrc/group_place.cu kZeroQuads)
 MARK_CHUNK = 1024  # quads per K10 chunk (kMarkThreads * kMarkQuads)
+FIRST_PASS = 512  # quads of a row per K13 pass (kFirstPass: 256 x 2)
 
 
 def _t(a):
@@ -404,3 +415,173 @@ class TestMarkerRule:
         kf = np.where(rng.random(N_BINS) < 0.5, NO_KEY,
                       rng.choice(keys, N_BINS)).astype(np.int64)
         _model_vs_twin(lay, nr, kf, chunks=(MARK_CHUNK, 1))
+
+
+# --------------------------------------------------------------- K13 model
+
+
+def first_nonroad_model(lay, num_rings, rows_per_block, chunk=FIRST_PASS,
+                        seed=0):
+    """csrc/markers.cu's first_nonroad_kernel on the host: blocks of
+    ``rows_per_block`` whole rows; each reads its rows' counted slots in
+    passes of ``chunk`` aligned quads of the flat arrays and folds each run
+    of one bin within a quad into one minimum (one shared atomic); then
+    the blocks fold their 361 minima into kf in a shuffled order (global
+    atomicMin).  Returns (kf, shared atomics made)."""
+    alpha, label = lay.alpha, lay.label
+    r_all, p = alpha.shape
+    nr = min(int(num_rings), r_all)
+    keys = marker_keys_np(alpha)
+    blocks = max(1, -(-r_all // rows_per_block))
+    part = np.empty((N_BINS, blocks), np.int64)
+    atomics = 0
+    for g in range(blocks):
+        s_key = np.full(N_BINS, NO_KEY, np.int64)
+        for r in range(g * rows_per_block,
+                       min((g + 1) * rows_per_block, max(nr, 0))):
+            cnt = min(max(int(lay.counts[r]), 0), p)
+            if cnt == 0:
+                continue
+            q_lo = (r * p) // 4
+            nq = (r * p + cnt - 1) // 4 - q_lo + 1
+            for c in range(0, nq, chunk):
+                e_lo, e_hi = 4 * (q_lo + c), 4 * (q_lo + min(c + chunk, nq))
+                s = np.arange(max(e_lo, r * p), min(e_hi, r * p + cnt)) - r * p
+                a = alpha[r, s]
+                with np.errstate(invalid="ignore"):
+                    ok = (a >= 0) & (a <= 360) & (label[r, s] != 1)
+                s, a = s[ok], a[ok]
+                if s.size == 0:
+                    continue
+                bins = np.floor(a).astype(np.int64)
+                quad = (r * p + s) // 4
+                new_run = np.ones(s.size, bool)
+                new_run[1:] = (quad[1:] != quad[:-1]) | (bins[1:] != bins[:-1])
+                starts = np.flatnonzero(new_run)
+                run_min = np.minimum.reduceat(keys[r, s], starts)
+                np.minimum.at(s_key, bins[starts], run_min)
+                atomics += starts.size
+        part[:, g] = s_key
+    order = np.random.default_rng(seed).permutation(blocks)
+    kf = np.full(N_BINS, NO_KEY, np.int64)
+    for g in order:
+        kf = np.minimum(kf, part[:, g])
+    return kf, atomics
+
+
+def _first_vs_twin(lay, num_rings, chunks=(FIRST_PASS, 1, 3)):
+    """The K13 model at 1, 2, 7 and R rows per block against the twin;
+    returns the twin's kf."""
+    tl = layout_from_numpy(lay)
+    want = tmk.first_nonroad_keys(tl, _t(np.int32(num_rings))).numpy()
+    r = lay.alpha.shape[0]
+    for blocks in sorted({1, 2, 7, r}):
+        for chunk in chunks:
+            got, _ = first_nonroad_model(lay, num_rings, blocks, chunk,
+                                         seed=blocks + chunk)
+            np.testing.assert_array_equal(got, want,
+                                          err_msg=f"{blocks} blocks")
+    return want
+
+
+def _pallas_table(layout, num_rings):
+    """The interpreted marker_points_unsorted_pallas(kf=None): K13's and
+    K10's TPU kernels in one call."""
+    return np.asarray(marker_points_unsorted_pallas(
+        layout, jnp.int32(num_rings), interpret=True))
+
+
+def _first_vs_pallas(layout, num_rings):
+    """The model's kf through the K10 twin equals the interpreted Pallas
+    table; returns the model's kf."""
+    lay = jgeo.RingLayout(*map(np.asarray, layout))
+    kf = _first_vs_twin(lay, num_rings)
+    got = tmk.marker_points(layout_from_numpy(lay),
+                            _t(np.int32(num_rings)), _t(kf)).numpy()
+    np.testing.assert_array_equal(_bits(got),
+                                  _bits(_pallas_table(layout, num_rings)))
+    return kf
+
+
+class TestFirstNonroadRule:
+    @pytest.mark.parametrize("scene", ["two_curbs", "curb_gap"])
+    def test_scenes_match_twin_and_pallas(self, scene):
+        layout, num_rings = _jax_flooded(scene, 7, FilterConfig())
+        kf = _first_vs_pallas(layout, int(num_rings))
+        assert (kf != NO_KEY).sum() > 50
+
+    def test_runs_fold_into_one_atomic_per_bin_and_quad(self):
+        # An azimuth-ordered row at 8 slots a degree (an OS1 ring at 2880
+        # firings): neighbours share a bin, so a quad makes one atomic.
+        rings, p = 4, 2880
+        alpha = np.tile(np.linspace(0, 359.99, p, dtype=F32), (rings, 1))
+        zero = np.zeros((rings, p), F32)
+        lay = jgeo.RingLayout(zero, zero, zero, zero, alpha,
+                              np.zeros((rings, p), I32),
+                              np.full((rings, p), -1, I32),
+                              np.full(rings, p - 5, I32), np.int32(0))
+        kf, atomics = first_nonroad_model(lay, rings, 1)
+        assert atomics <= rings * (p // 4 + 361), atomics
+        np.testing.assert_array_equal(kf, _first_vs_twin(lay, rings))
+        assert (kf != NO_KEY).sum() == 360
+
+    def test_ties_keep_the_smallest_key(self):
+        # Equal azimuths in several rings and slots of a bin: the smallest
+        # ring, then the smallest slot, wins.
+        layout = _tie_layout(seed=4)
+        lay = jgeo.RingLayout(*map(np.array, layout))
+        lay.label[:] = 2
+        lay.alpha[:, :] = np.where(np.arange(256) % 3 == 0, F32(10.5),
+                                   lay.alpha)
+        layout = jgeo.RingLayout(*map(jnp.asarray, lay))
+        kf = _first_vs_pallas(layout, 8)
+        valid = np.arange(256)[None, :] < lay.counts[:, None]
+        at = valid & (lay.alpha == F32(10.5))
+        ring = np.flatnonzero(at.any(1))[0]
+        slot = np.flatnonzero(at[ring])[0]
+        assert kf[10] == marker_keys_np(lay.alpha)[ring, slot]
+
+    def test_all_road_and_empty_layouts(self):
+        layout = _tie_layout(seed=5)  # every slot road
+        kf = _first_vs_pallas(layout, 8)
+        assert (kf == NO_KEY).all()
+        empty = layout._replace(counts=jnp.zeros(8, jnp.int32),
+                                label=jnp.zeros_like(layout.label))
+        assert (_first_vs_pallas(empty, 8) == NO_KEY).all()
+
+    @pytest.mark.parametrize("num_rings", [0, 1, 5])
+    def test_num_rings_below_rows(self, num_rings):
+        layout, _ = _jax_flooded("blind_spot", 3, FilterConfig())
+        kf = _first_vs_pallas(layout, num_rings)
+        assert ((kf != NO_KEY).any()) == (num_rings > 0)
+
+    def test_nan_and_out_of_range_azimuths(self):
+        layout, num_rings = _jax_flooded("two_curbs", 9, FilterConfig())
+        lay = jgeo.RingLayout(*map(np.array, layout))
+        rng = np.random.default_rng(11)
+        pick = rng.random(lay.alpha.shape) < 0.2
+        lay.alpha[pick] = rng.choice(
+            np.array([np.nan, -0.0, -1e-7, 360.0, 360.00003, -5.0], F32),
+            int(pick.sum()))
+        lay.label[rng.random(lay.label.shape) < 0.3] = 0
+        kf = _first_vs_pallas(jgeo.RingLayout(*map(jnp.asarray, lay)),
+                              int(num_rings))
+        assert kf[360] != NO_KEY and kf[0] != NO_KEY
+
+    @settings(max_examples=30, deadline=None)
+    @given(seed=st.integers(0, 2 ** 31 - 1), rings=st.integers(1, 9),
+           p=st.integers(1, 40), nr=st.integers(0, 10))
+    def test_property(self, seed, rings, p, nr):
+        rng = np.random.default_rng(seed)
+        alpha = rng.choice(np.array([np.nan, -3.0, 360.0, -0.0, 0.0, 5.5,
+                                     5.25, 359.9, 200.0], F32),
+                           (rings, p))
+        alpha = np.where(rng.random((rings, p)) < 0.5, alpha,
+                         rng.uniform(0, 361, (rings, p))).astype(F32)
+        label = rng.choice(np.array([0, 1, 1, 2], I32), (rings, p))
+        counts = rng.integers(-1, p + 3, rings).astype(I32)
+        zero = np.zeros((rings, p), F32)
+        lay = jgeo.RingLayout(zero, zero, zero, zero, alpha, label,
+                              np.full((rings, p), -1, I32), counts,
+                              np.int32(0))
+        _first_vs_twin(lay, nr, chunks=(FIRST_PASS, 1))

@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
-"""Where the blocked bits (K8) and the SP marker state (K14) spend their
-time, phase by phase, on one CUDA card.
+"""Where the blocked bits (K8), the SP marker state (K14) and the marker
+keys (K13) spend their time, phase by phase, on one CUDA card.
 
     python tools/clock_flood_markers.py [--out F.json]
 
 Writes copies of urban_road_filter_torch/csrc/flood.cu and markers.cu with
 %globaltimer reads (the card's nanosecond clock) at the phase boundaries
-of blocked_kernel and marker_state_kernel into the gitignored build
+of blocked_kernel, marker_state_kernel and first_nonroad_kernel into the
+gitignored build
 directory, compiles them with the port's nvcc flags into a library of
 their own and runs the port's wrappers on it, on the inputs of
 tools/profile_ring_kernels.py: K8 and K14 on the OS1-64 drive scan (64
@@ -23,7 +24,11 @@ starts, its warp, the warps' totals) and the compares with their stores;
 K14's phase 1 (loads, the per-bin minima), the write of its f partials,
 the spread of arrivals at the first grid barrier and its release, phase 2
 (merging f from the partials, the max of d, forgetting, the two key
-passes, the partials' writes), the second barrier and phase 3.  Beside
+passes, the partials' writes), the second barrier and phase 3; K13's
+ticket warp (its ticket, when the first block published kf, when the
+other blocks' polls saw it), its slot threads' loads and fold (the
+shared minima), the barrier and the issue of the global atomics (K13 on
+the OS1-64 scan).  Beside
 them the CUDA-event time of the clocked and the unclocked launch (median
 of 20), so the clocks' own cost shows.  The clocks are patched in by
 text (tools/_clock.py): the tool fails loudly when a source no longer has
@@ -117,6 +122,34 @@ MARKERS = (
      "  const unsigned long long t_p2 = gtime();\n"
      "  cooperative_groups::this_grid().sync();\n"
      "  const unsigned long long t_s2 = gtime();\n\n  // Phase 3"),
+    # K13 (first_nonroad_kernel) records into the same array: each case
+    # reads the rows of its own last launch.  s_clk: 0 start, 1 the
+    # ticket known, 2 the first block's kf published or a block's poll
+    # done, 3 the last slot thread's fold done (atomicMax).
+    ("  __shared__ unsigned long long s_key[kBins];\n"
+     "  const int tid = threadIdx.x;\n",
+     "  __shared__ unsigned long long s_key[kBins];\n"
+     "  __shared__ unsigned long long s_clk[4];\n"
+     "  const int tid = threadIdx.x;\n"
+     "  if (tid == 0) { s_clk[0] = gtime(); s_clk[2] = 0; s_clk[3] = 0; }\n"),
+    ("    first_ticket = __shfl_sync(~0u, first_ticket, 0);\n",
+     "    first_ticket = __shfl_sync(~0u, first_ticket, 0);\n"
+     "    if (lane == 0) s_clk[1] = gtime();\n"),
+    ("      while (load_acquire(&g_mf_first) <= ticket) {\n      }\n    }\n",
+     "      while (load_acquire(&g_mf_first) <= ticket) {\n      }\n    }\n"
+     "    if (lane == 0) s_clk[2] = gtime() | (first ? 1ULL << 63 : 0ULL);\n"),
+    ("      first_fold(w, c, av, lv, s_key);\n    }\n  }\n  __syncthreads();\n",
+     "      first_fold(w, c, av, lv, s_key);\n    }\n"
+     "    atomicMax(&s_clk[3], gtime());\n  }\n  __syncthreads();\n"
+     "  const unsigned long long t_sync = gtime();\n"),
+    ("    if (s_key[b] != kNoKey) atomicMin(&kf[b], s_key[b]);\n}\n",
+     "    if (s_key[b] != kNoKey) atomicMin(&kf[b], s_key[b]);\n"
+     "  __syncthreads();\n  if (tid == 0) {\n"
+     + _clock.record("g_clk_state", ROWS,
+                     ("s_clk[0]", "s_clk[1]", "s_clk[2] & ~(1ULL << 63)",
+                      "s_clk[3]", "t_sync", "gtime()", "s_clk[2] >> 63",
+                      "gridDim.x"))
+     + "  }\n}\n"),
     ("    A.state[(size_t)pair * 6 + sub] = val;\n  }\n}\n",
      "    A.state[(size_t)pair * 6 + sub] = val;\n  }\n  __syncthreads();\n"
      "  if (tid == 0) {\n"
@@ -152,7 +185,8 @@ def main() -> int:
         [("flood.cu", FLOOD, "urf_clock_blocked", "g_clk_blocked", ROWS),
          ("markers.cu", MARKERS, "urf_clock_state", "g_clk_state", ROWS)],
         plain=("group_place.cu",),
-        entries=("urf_flood_blocked", "urf_marker_state"))
+        entries=("urf_flood_blocked", "urf_marker_state",
+                 "urf_marker_first_nonroad"))
     smi = _clock.card()
     print(smi, flush=True)
 
@@ -166,7 +200,8 @@ def main() -> int:
               sp_calls["flood_blocked"]),
              (f"K14 {name}", "state", scan_calls["marker_state"]),
              ("K14 SP scan, pass 2 (8 x 128 x 384)", "state",
-              sp_calls["marker_state"])]
+              sp_calls["marker_state"]),
+             (f"K13 {name}", "first", scan_calls["marker_first_nonroad"])]
 
     on = _clock.on
 
@@ -181,10 +216,27 @@ def main() -> int:
         got = flat(on(clocked_lib, fn))
         assert all(torch.equal(g, w) for g, w in zip(got, want)), what
         torch.cuda.synchronize()
-        r = _clock.read(clocked_lib, f"urf_clock_{kind}", ROWS)
+        r = _clock.read(clocked_lib, "urf_clock_blocked" if kind ==
+                        "blocked" else "urf_clock_state", ROWS)
         grid = int(r[0, 6 if kind == "blocked" else 7])
         r = r[:min(grid, ROWS)]
-        if kind == "blocked":
+        if kind == "first":
+            t0, tt, tp, tf, tsync, te = (r[:, j] for j in range(6))
+            one = r[:, 6] == 1
+            rest = ~one
+            res = {"grid": grid, "span_ns": int(te.max() - t0.min()),
+                   "start_spread_ns": int(t0.max() - t0.min()),
+                   "ticket_ns": int((tt - t0).max()),
+                   "first_block_published_at_ns": int(tp[one].max()
+                                                      - t0.min()),
+                   "poll_done_at_ns": int(tp[rest].max() - t0.min())
+                   if rest.any() else 0,
+                   "fold_ns": int((tf - t0).max()),
+                   "last_fold_done_at_ns": int(tf.max() - t0.min()),
+                   "barrier_ns": int((tsync - np.maximum(tf, tp)).max()),
+                   "atomics_issue_ns": int((te - tsync).max()),
+                   "median_block_ns": int(np.median(te - t0))}
+        elif kind == "blocked":
             t0, tl, tc, t1, ts, te = (r[:, j] for j in range(6))
             res = {"grid": grid, "span_ns": int(te.max() - t0.min()),
                    "start_spread_ns": int(t0.max() - t0.min()),

@@ -9,14 +9,16 @@ for ``sm_90a`` on first use (``_build.py``).
 Entry points run on the card: ``pipeline.process_scan`` /
 ``pipeline.packed_scan`` for one scan, ``pipeline.process_batch`` for a
 batch, ``parallel.azimuth_parallel.make_azimuth_pipeline`` for one scan cut
-into azimuth wedges.  Each takes ``device=None`` ("cuda"); only an explicit
+into azimuth wedges, and ``io.replay.ReplayHarness`` (``python -m
+urban_road_filter_torch.io.replay``) for a stream of scans.  Each takes ``device=None`` ("cuda"); only an explicit
 ``device="cpu"`` runs the kernels' plain PyTorch twins.  Below the entry
 points each kernel wrapper in ``ops/`` launches its kernel on a CUDA tensor
 and runs its twin on a CPU tensor.
 
 Imports neither JAX nor the JAX package: the port carries its own copies
 of the JAX-free modules it needs (``config``, ``constants``, ``io``,
-``oracle``, ``utils.parity``).
+``oracle``, ``postprocess``, ``runtime.native``, ``utils.parity``,
+``utils.metrics``, ``viz``).
 """
 
 from urban_road_filter_torch.config import FilterConfig, PipelineDims

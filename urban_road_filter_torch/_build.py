@@ -90,9 +90,10 @@ _SIGNATURES = {
 }
 
 # Kernels whose blocks take tickets from per-device counters that run on
-# across launches (K1 csrc/ingest.cu, K9 csrc/flood.cu): two launches of
-# one of them in flight at once, on two streams, would break its results.
-TICKETED = ("ingest_prep", "flood_labeled")
+# across launches (K1 csrc/ingest.cu, K9 csrc/flood.cu, K13
+# csrc/markers.cu): two launches of one of them in flight at once, on two
+# streams, would break its results.
+TICKETED = ("ingest_prep", "flood_labeled", "marker_first_nonroad")
 
 _launches = dict.fromkeys(KERNELS, 0)
 _last_stream: dict = {}  # (ticketed kernel, device) -> its latest stream

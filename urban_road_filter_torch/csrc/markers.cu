@@ -72,8 +72,43 @@
 //   at 64 x 4096, 64 x 2048 and 128 x 2048 alike, against a bound below
 //   1 us: fixed costs (launch, two shared-memory passes with their
 //   barriers per row, the grid barrier, the merge), not bytes, set it.
-// K13 is a kernel behind a fill: first_nonroad_kernel (a 64-bit atomicMin
-// per non-road slot) into a kf the caller fills with kNoKey.
+// K13 design: one launch, no fill, so a call is one device op (it was a
+// kNoKey fill of kf, then a grid of (256-slot tiles, rings) blocks, most of
+// them idle past counts[r], each ending in up to 361 global 64-bit atomics
+// on the same 361 words).
+//   Each block owns one ring row, with kFirstThreads slot threads, and
+//   reads alpha and label of its slots, kFirstQuads aligned 16-byte quads
+//   a thread a pass (4-byte loads at the row's ends or where the bases are
+//   not 16-byte aligned).  (One row and two quads a thread timed best
+//   against two rows a block and one to four quads a thread; PERF.md
+//   section 6.)  The first pass's loads
+//   are issued before counts[r] and num_rings arrive (its slots below p;
+//   the fold masks them), later passes read only slots below counts[r].
+//   A non-road slot with a valid azimuth, below counts[r] on a ring below
+//   num_rings, has the key (ring << 48) | (bits(alpha) << 16) | slot; a
+//   thread folds each run of one bin within a quad into one shared 64-bit
+//   atomicMin (an azimuth-ordered row keeps neighbours in one bin), so the
+//   block makes at most 361 global atomicMins into kf.
+//   kf's initial value comes from the launch itself, as K9's does
+//   (csrc/flood.cu), but from one extra warp per block, as K1's tickets do
+//   (csrc/ingest.cu), so the slot threads never wait for it: its lane 0
+//   reads the launch's first ticket and takes the block's ticket from
+//   K13's own per-device counters, both in flight at once (only the block
+//   holding the first ticket publishes the next, so the order of the two
+//   reads does not matter).  In the block holding the first ticket the
+//   warp writes kNoKey to kf, fences and publishes the next launch's first
+//   ticket with a release store; in every other block it waits for that
+//   (an acquire load; the first block took its ticket, so it is resident:
+//   no deadlock).  A block barrier then orders the global atomics after
+//   both.  The counters run on across launches, so K13 launches on one
+//   device must not overlap on two streams (_build.TICKETED).  A minimum
+//   is exact in any order, so kf equals the twin's.
+// What bounds it: launch latency, the chain of the first block's ticket,
+// its write of kf and the release its peers wait on.  It reads alpha and
+// label of the active slots once (8 bytes a slot, ~0.5 MB for an OS1-64
+// scan); its first pass may read slots past counts[r] besides.
+// (tools/clock_flood_markers.py times the phases; PERF.md section 6 has
+// the designs tried.)
 //
 // K14 design: one cooperative launch over any number of azimuth wedges (the
 // sharded path's stacked layout: wedge w's ring k at row w * R + k), with
@@ -311,27 +346,168 @@ __global__ void __launch_bounds__(kMarkThreads)
   }
 }
 
-// K13.  Grid: (slot tiles, rings).  kf must hold kNoKey on entry.
-__global__ void first_nonroad_kernel(const float* __restrict__ alpha,
-                                     const int* __restrict__ label,
-                                     const int* __restrict__ counts,
-                                     const int* __restrict__ num_rings,
-                                     int p,
-                                     unsigned long long* __restrict__ kf) {
-  __shared__ unsigned long long blk[kBins];
-  for (int b = threadIdx.x; b < kBins; b += blockDim.x) blk[b] = kNoKey;
+// K13.
+constexpr int kFirstThreads = 256;  // slot threads; one ticket warp more
+constexpr int kFirstBlock = kFirstThreads + 32;
+constexpr int kFirstQuads = 2;  // quads per slot thread per pass
+constexpr int kFirstPass = kFirstThreads * kFirstQuads;  // quads a pass
+
+// K13's per-device block tickets: every K13 block takes the next one as it
+// starts, and the first ticket of the launch that initialises kf next.
+__device__ unsigned long long g_mf_ticket = 0ULL;
+__device__ unsigned long long g_mf_first = 0ULL;
+
+__device__ __forceinline__ unsigned long long load_relaxed(
+    const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.relaxed.gpu.u64 %0, [%1];" : "=l"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ unsigned long long load_acquire(
+    const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.acquire.gpu.u64 %0, [%1];" : "=l"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void store_release(unsigned long long* p,
+                                              unsigned long long v) {
+  asm volatile("st.release.gpu.u64 [%0], %1;" ::"l"(p), "l"(v) : "memory");
+}
+
+struct FirstRow {
+  const float* alpha;
+  const int* label;
+  size_t row;
+  int r, t, cnt;
+  bool vec;
+};
+
+// One pass of a thread's quads of its row: alpha and label of the row's
+// slots [0, lim) (alpha -1 and label road elsewhere).  Quad qi holds slots
+// 4 qi .. 4 qi + 3 of the row when the row starts on a quad; otherwise
+// the quads are those of the flat arrays that cover the row.
+__device__ __forceinline__ void first_load(const FirstRow& w, int c, int lim,
+                                           float (&av)[kFirstQuads][4],
+                                           int (&lv)[kFirstQuads][4]) {
+  const size_t q_lo = w.row / 4;
+#pragma unroll
+  for (int u = 0; u < kFirstQuads; ++u) {
+    const size_t e = 4 * (q_lo + (size_t)(c + w.t + u * kFirstThreads));
+    if (w.vec && e >= w.row && e + 4 <= w.row + lim) {
+      const float4 a4 = __ldg(reinterpret_cast<const float4*>(w.alpha) +
+                              e / 4);
+      const int4 l4 = __ldg(reinterpret_cast<const int4*>(w.label) + e / 4);
+      av[u][0] = a4.x, av[u][1] = a4.y, av[u][2] = a4.z, av[u][3] = a4.w;
+      lv[u][0] = l4.x, lv[u][1] = l4.y, lv[u][2] = l4.z, lv[u][3] = l4.w;
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const bool in = e + j >= w.row && e + j < w.row + lim;
+        av[u][j] = in ? __ldg(w.alpha + e + j) : -1.0f;
+        lv[u][j] = in ? __ldg(w.label + e + j) : kRoad;
+      }
+    }
+  }
+}
+
+// Folds a pass into the block's shared minima: the row's non-road slots
+// below cnt with a valid azimuth, one atomicMin per run of one bin within
+// a quad.
+__device__ __forceinline__ void first_fold(const FirstRow& w, int c,
+                                           const float (&av)[kFirstQuads][4],
+                                           const int (&lv)[kFirstQuads][4],
+                                           unsigned long long* s_key) {
+  const size_t q_lo = w.row / 4;
+#pragma unroll
+  for (int u = 0; u < kFirstQuads; ++u) {
+    const size_t e = 4 * (q_lo + (size_t)(c + w.t + u * kFirstThreads));
+    int run_bin = -1;
+    unsigned long long run = kNoKey;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float v = av[u][j];
+      const long long s = (long long)(e + j) - (long long)w.row;
+      if (s >= w.cnt || !(v >= 0.0f && v <= 360.0f) || lv[u][j] == kRoad)
+        continue;
+      const int bin = (int)floorf(v);
+      const unsigned long long k = marker_key(w.r, v, (int)s);
+      if (bin == run_bin) {
+        run = min(run, k);
+      } else {
+        if (run_bin >= 0) atomicMin(&s_key[run_bin], run);
+        run_bin = bin;
+        run = k;
+      }
+    }
+    if (run_bin >= 0) atomicMin(&s_key[run_bin], run);
+  }
+}
+
+__global__ void __launch_bounds__(kFirstBlock)
+    first_nonroad_kernel(const float* __restrict__ alpha,
+                         const int* __restrict__ label,
+                         const int* __restrict__ counts,
+                         const int* __restrict__ num_rings, int rings, int p,
+                         bool vec, unsigned long long* __restrict__ kf) {
+  __shared__ unsigned long long s_key[kBins];
+  const int tid = threadIdx.x;
+  for (int b = tid; b < kBins; b += kFirstBlock) s_key[b] = kNoKey;
   __syncthreads();
-  const int r = blockIdx.y;
-  const int s = blockIdx.x * blockDim.x + threadIdx.x;
-  if (s < p && s < counts[r] && r < *num_rings) {
-    const size_t at = (size_t)r * p + s;
-    const float a = alpha[at];
-    if (a >= 0.0f && a <= 360.0f && label[at] != kRoad)
-      atomicMin(&blk[(int)floorf(a)], marker_key(r, a, s));
+
+  if (tid >= kFirstThreads) {
+    // The ticket warp.  Which ticket is the launch's first does not depend
+    // on the order of the two reads (only the block holding it publishes
+    // the next one), so both are in flight at once.
+    const int lane = tid - kFirstThreads;
+    unsigned long long ticket = 0ULL, first_ticket = 0ULL;
+    if (lane == 0) {
+      first_ticket = load_relaxed(&g_mf_first);
+      ticket = atomicAdd(&g_mf_ticket, 1ULL);
+    }
+    ticket = __shfl_sync(~0u, ticket, 0);
+    first_ticket = __shfl_sync(~0u, first_ticket, 0);
+    const bool first = ticket == first_ticket;
+    if (first) {  // kf's initial value, before any block's atomics
+      for (int b = lane; b < kBins; b += 32) kf[b] = kNoKey;
+      __threadfence();
+      __syncwarp();
+      if (lane == 0) store_release(&g_mf_first, ticket + gridDim.x);
+    } else if (lane == 0) {
+      // Wait (rarely long: the first block initialises kf as it starts)
+      // until kf holds its initial value.
+      while (load_acquire(&g_mf_first) <= ticket) {
+      }
+    }
+  } else {
+    // The slot threads, on the block's row.  The first pass's loads do not
+    // wait for counts: they read the row's first pass of slots below p and
+    // the fold masks them by counts.
+    FirstRow w;
+    w.alpha = alpha;
+    w.label = label;
+    w.r = blockIdx.x;
+    w.t = tid;
+    w.row = (size_t)w.r * p;
+    w.vec = vec;
+    const bool on = w.r < rings;
+    float av[kFirstQuads][4];
+    int lv[kFirstQuads][4];
+    first_load(w, 0, on ? min(p, 4 * kFirstPass) : 0, av, lv);
+    const int nr = min(__ldg(num_rings), rings);
+    w.cnt = w.r < nr ? min(max(__ldg(counts + w.r), 0), p) : 0;
+    first_fold(w, 0, av, lv, s_key);
+    const int nq = w.cnt > 0
+                       ? (int)((w.row + w.cnt - 1) / 4 - w.row / 4 + 1) : 0;
+    for (int c = kFirstPass; c < nq; c += kFirstPass) {
+      first_load(w, c, w.cnt, av, lv);
+      first_fold(w, c, av, lv, s_key);
+    }
   }
   __syncthreads();
-  for (int b = threadIdx.x; b < kBins; b += blockDim.x)
-    if (blk[b] != kNoKey) atomicMin(&kf[b], blk[b]);
+  for (int b = tid; b < kBins; b += kFirstBlock)
+    if (s_key[b] != kNoKey) atomicMin(&kf[b], s_key[b]);
 }
 
 // K14.  The ordered integer image of a float: unsigned order == float
@@ -822,16 +998,24 @@ extern "C" int urf_marker_points(const float* x, const float* y,
   return (int)cudaGetLastError();
 }
 
-// kf (361,) uint64: filled with kNoKey by the caller; per bin, the smallest
-// marker key of a non-road slot (valid azimuth, ring < num_rings) (K13).
+// K13.  kf (361,) uint64, written whole by the launch: per bin, the
+// smallest marker key of a non-road slot with a valid azimuth, slot <
+// counts[ring] and ring < num_rings; kNoKey where there is none.  One
+// launch of a block a ring (at least 1); its blocks take tickets
+// from per-device counters, so K13 launches on one device must not run
+// concurrently on two streams.
 extern "C" int urf_marker_first_nonroad(const float* alpha, const int* label,
                                         const int* counts,
                                         const int* num_rings, int rings, int p,
                                         unsigned long long* kf, void* stream) {
-  if (rings > 0 && p > 0)
-    first_nonroad_kernel<<<dim3((p + 255) / 256, rings), 256, 0,
-                           (cudaStream_t)stream>>>(alpha, label, counts,
-                                                   num_rings, p, kf);
+  if (rings < 0 || p < 0) return (int)cudaErrorInvalidValue;
+  const int grid = max(1, rings);
+  auto is16 = [](const void* ptr) {
+    return reinterpret_cast<uintptr_t>(ptr) % 16 == 0;
+  };
+  first_nonroad_kernel<<<grid, kFirstBlock, 0, (cudaStream_t)stream>>>(
+      alpha, label, counts, num_rings, rings, p, is16(alpha) && is16(label),
+      kf);
   return (int)cudaGetLastError();
 }
 

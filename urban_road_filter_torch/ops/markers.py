@@ -16,7 +16,8 @@ input order, as the reference's stable sort does), so per bin:
   kf[b]    = min key of a non-road point   (on CUDA computed inside the
              flood fill, ops/blind_spots.py, K9, or by its own kernel
              ``marker_first_nonroad``, K13, replacing
-             marker_scan._marker_f_kernel, when marker_points gets no kf)
+             marker_scan._marker_f_kernel, when marker_points gets no kf:
+             one launch, its first block writing kf's initial value)
   maxd[b]  = max d2 of road points with key < kf[b]
   winner   = min key among those at maxd[b]
 
@@ -84,7 +85,12 @@ def first_nonroad_keys(layout: RingLayout, num_rings) -> torch.Tensor:
 
 def marker_first_nonroad(layout: RingLayout,
                          num_rings: torch.Tensor) -> torch.Tensor:
-    """first_nonroad_keys through its kernel on a CUDA layout (K13)."""
+    """first_nonroad_keys through its kernel on a CUDA layout (K13): one
+    launch that writes kf's initial value itself (its first block, by a
+    ticket), so one device op a call.  Its tickets are per-device
+    counters: issue one device's calls from one stream at a time (a
+    launch on a second stream while the first is busy raises,
+    _build.TICKETED)."""
     if _build.on_cpu(layout.alpha):
         return first_nonroad_keys(layout, num_rings)
     r, p = layout.alpha.shape
@@ -94,7 +100,7 @@ def marker_first_nonroad(layout: RingLayout,
     _build.check(layout.label, "label", I32, (r, p), dev)
     _build.check(layout.counts, "counts", I32, (r,), dev)
     _build.check(num_rings, "num_rings", I32, (), dev)
-    kf = torch.full((N_BINS,), NO_KEY, dtype=I64, device=dev)
+    kf = torch.empty((N_BINS,), dtype=I64, device=dev)  # the launch fills it
     _build.launch("marker_first_nonroad", "urf_marker_first_nonroad", dev,
                   _build.ptr(layout.alpha), _build.ptr(layout.label),
                   _build.ptr(layout.counts), _build.ptr(num_rings), r, p,

@@ -110,18 +110,23 @@ def _ingest(x, y, z, cfg: FilterConfig, dims: PipelineDims):
     return valid, fk, r_key, ring_id, num_rings, piece >= MIN_POINTS
 
 
-def on_device(pts, device=None) -> torch.Tensor:
-    """The entry points' input on the device they run on: ``device=None``
-    means "cuda".  Without a CUDA device that raises unless the caller asked
-    for the CPU (``device="cpu"``), the only way to run the plain twins.
-    ``pts`` may be a tensor or a host array."""
+def target_device(device=None) -> torch.device:
+    """The device the entry points run on: ``device=None`` means "cuda".
+    Without a CUDA device that raises unless the caller asked for the CPU
+    (``device="cpu"``), the only way to run the plain twins."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: pass device='cpu' to run the "
                            "plain PyTorch twins on the CPU")
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
-    return torch.as_tensor(pts).to(dev)
+    return dev
+
+
+def on_device(pts, device=None) -> torch.Tensor:
+    """The entry points' input on target_device(device); ``pts`` may be a
+    tensor or a host array."""
+    return torch.as_tensor(pts).to(target_device(device))
 
 
 def _scan(pts, cfg: FilterConfig, dims: PipelineDims, layout: str, device):
@@ -221,12 +226,19 @@ def pad_scan(points, n: int) -> np.ndarray:
     return pts
 
 
-def pad_scan_planar(points, n: int) -> np.ndarray:
-    """pad_scan's planar twin: (M, >=3) -> (3, n) float32 x/y/z planes."""
-    pts = np.zeros((3, n), np.float32)
+def pad_scan_planar(points, n: int, out: np.ndarray | None = None
+                    ) -> np.ndarray:
+    """pad_scan's planar twin: (M, >=3) -> (3, n) float32 x/y/z planes,
+    written into ``out`` (a (3, n) float32 array, e.g. a pinned buffer's
+    view) when given."""
     m = min(len(points), n)
-    pts[:, :m] = np.asarray(points, np.float32)[:m, :3].T
-    return pts
+    src = np.asarray(points, np.float32)[:m, :3].T
+    if out is None:
+        out = np.zeros((3, n), np.float32)
+    else:
+        out[:, m:] = 0.0
+    out[:, :m] = src
+    return out
 
 
 def planarize_batch(batch) -> np.ndarray:

@@ -1,1 +1,2 @@
-"""Host helpers: parity.py, the oracle gate (a copy of the JAX package's)."""
+"""Host helpers: parity.py, the oracle gate, and metrics.py, the per-scan
+and stream statistics (copies of the JAX package's)."""
