@@ -45,9 +45,15 @@
    the ring count (no point may be flagged).  K11 also over the phase-4
    batch as process_batch calls it (128 lanes in one launch, one device
    op), timed beside one indexed gather of the stacked tables.
-   K8 also with every slot a curb (its worst case, timed).  K8 and K14's
-   two passes also at the SP path's stacked shape (8 wedges of 128 x 384
-   slots of the OS1-128 scan, one launch each over all wedges), timed.
+   K7 in place (marks written into the table it is given, one device
+   op, timed on one table: its marks ignore the label) and, returning a
+   new table, at window sizes 3, 10 and 30; its bound counts the slots it
+   must read and the marks it writes, printed with the byte formula.
+   K8 also with every slot a curb (its worst case, timed).  K7's SP entry
+   (the stencils over every wedge's ring segments with their halo points,
+   in place, one device op), K8 and K14's two passes also at the SP
+   path's stacked shape (8 wedges of 128 x 384 slots of the OS1-128 scan,
+   one launch each over all wedges), timed.
    On the OS1-64 scan the unfused path (blind_spots(want_marker_f=False),
    K8 + K12, then marker_points(kf=None), K13 + K10) must equal the fused
    one bit for bit; K13 must be one device op a call (no fill).  Prints
@@ -84,9 +90,10 @@
    scan, or differ only at an integer degree (the count is printed); the
    oracle gate as in phase 3 (128 channels for the 128-ring scan); no
    overflow.  Prints the SP scan latency p50 host to host.  Each SP scan
-   must launch K8 once and K14 twice.  K12 and K13 are held against their
-   twins again at the per-wedge shapes, K8 and K14 over the stacked
-   wedges, K14 with the run's own g_offset and f_init.
+   must launch K7 and K8 once and K14 twice.  K12 and K13 are held
+   against their twins again at the per-wedge shapes, K7's SP entry, K8
+   and K14 over the stacked wedges, K14 with the run's own g_offset and
+   f_init; the sp_xz_zero stage's device ops are printed (torch.profiler).
 6. Drives the port's replay harness (io.replay.ReplayHarness) on the card:
    (a) the three recorded-style PCD fixtures of tests/fixtures (16384
    points, binary_compressed, NaN rows sent as they are), read by the
@@ -102,8 +109,8 @@
    counters as in phase 3, per part.
 7. Prints one JSON line of per-kernel results (K1-K3 with their grid and
    their times at B = 1, "b1", at the SP call's shape, "sp", and, K2 and
-   K3, on the ring-major scan, "ring_major"; K11's over the phase-4 batch,
-   "b128") and, last,
+   K3, on the ring-major scan, "ring_major"; K7's SP entry, "sp"; K11's
+   over the phase-4 batch, "b128") and, last,
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Any failure raises (exit code 1).  Without a CUDA device, or outside a
@@ -178,6 +185,22 @@ def cuda_ms(fn, reps: int = REPS) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def profiled_ops(fn) -> int:
+    """Device ops (kernels, copies, memsets) of one call of fn as
+    torch.profiler sees them: for code untried in a CUDA-graph capture
+    (the SP halo exchange makes a tensor from a host value)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA)
 
 
 def max_abs_err(got, want) -> float:
@@ -618,9 +641,8 @@ def phase_kernels(dev, dims, cfg, scan, what, timed=True):
         group_place, group_place_plain)
     from urban_road_filter_torch.ops.rank import (
         group_positions, group_positions_plain)
-    from urban_road_filter_torch.ops.stencil_kernels import fused_xz_zero
-    from urban_road_filter_torch.ops.xzero import x_zero
-    from urban_road_filter_torch.ops.zzero import z_zero
+    from urban_road_filter_torch.ops.stencil_kernels import (
+        fused_xz_zero, fused_xz_zero_, xz_zero_plain)
 
     r, p, n = dims.rings, dims.ring_capacity, dims.max_points
     print(f"  {what}: N={n}, {r} rings x {p} slots", flush=True)
@@ -723,18 +745,32 @@ def phase_kernels(dev, dims, cfg, scan, what, timed=True):
            nbytes=20 * n + 4 * (r + 1) + 12 * r * p + 4, ops=2 * n,
            library=l6)
 
-    # K7: both stencils on the placed layout, at window sizes 3, 10 and 5.
+    # K7: both stencils on the placed layout, at window sizes 3, 10 and 30
+    # (the returning form) and 5, in place on one table: the marks ignore
+    # the label, so the timed launches rewrite the same marks.  The bound
+    # counts x/y/z of the slots below counts read once, counts read and
+    # each mark written once.
     layout, _ = geometry.tensorize(x, y, z, ring_id, p, rings=r)
-    for cp in (3, 10):
+    for cp in (3, 10, 30):
         c = cfg.replace(curb_points=cp)
         max_abs_err((fused_xz_zero(layout, c).label,),
-                    (z_zero(x_zero(layout, c), c).label,))
-    k7 = lambda: fused_xz_zero(layout, cfg).label
-    p7 = lambda: z_zero(x_zero(layout, cfg), cfg).label
-    marked = k7()
-    assert int((marked == 2).sum()) > 0, "the scan must trigger curb marks"
-    record("xz_zero", (marked,), (p7(),), k7, p7, nbytes=20 * r * p + 4 * r,
-           ops=(60 + 8 * int(cfg.curb_points)) * r * p)
+                    (xz_zero_plain(layout, c).label,))
+    marked = layout.label.clone()
+    k7 = lambda: fused_xz_zero_(layout._replace(label=marked), cfg)
+    p7 = lambda: xz_zero_plain(layout, cfg).label
+    ops7 = _build.device_ops(k7)
+    assert ops7 == 1, f"K7 must be one device op: {ops7}"
+    n_marks = int((marked == 2).sum())
+    assert n_marks > 0, "the scan must trigger curb marks"
+    counted = int(torch.clamp(layout.counts, 0, p).sum())
+    nbytes7 = 12 * counted + 4 * r + 4 * n_marks
+    if timed:
+        print(f"    xz_zero bound: 12 B x {counted} slots below counts + 4 B "
+              f"x {r} counts + 4 B x {n_marks} marks = {nbytes7} B (every "
+              f"slot: {20 * r * p + 4 * r} B)", flush=True)
+    record("xz_zero", (marked,), (p7(),), k7, p7,
+           nbytes=nbytes7, ops=(60 + 8 * int(cfg.curb_points)) * counted)
+    out["xz_zero"]["device_ops"] = ops7
 
     # K8: the flood fill's blocked bits on the stenciled layout.
     stenciled = layout._replace(label=marked)
@@ -749,7 +785,6 @@ def phase_kernels(dev, dims, cfg, scan, what, timed=True):
     blocked = k8()
     assert bool(blocked[0].any()), "the curbs must block some windows"
     # The bound counts alpha and label of the counted slots read once.
-    counted = int(torch.clamp(layout.counts, 0, p).sum())
     record("flood_blocked", blocked, p8(), k8, p8,
            nbytes=8 * counted + 8 * r + 2 * r * 362,
            ops=4 * n_curb + 2 * 362 * r * 20)
@@ -1136,10 +1171,11 @@ def boundary_flips(got, want, pts) -> int:
 
 
 def wedge_kernels(probe, rings: int, cfg) -> None:
-    """K4, K5, K8 and K12-K14 against their twins on the inputs of a real
-    SP run: K4 on each wedge's star keys, K5 on the ids of its two calls,
-    K8 and K14 over the stacked sorted layout (both passes of K14, with
-    its g_offset and f_init), K12 and K13 on each wedge's layout with its
+    """K4, K5, K7, K8 and K12-K14 against their twins on the inputs of a
+    real SP run: K4 on each wedge's star keys, K5 on the ids of its two
+    calls, K7's SP entry on the stacked layout before the stencils, K8 and
+    K14 over the stacked sorted layout (both passes of K14, with its
+    g_offset and f_init), K12 and K13 on each wedge's layout with its
     reach and window widths."""
     from urban_road_filter_torch.ops import blind_spots as bs
     from urban_road_filter_torch.ops import markers as mk
@@ -1158,6 +1194,9 @@ def wedge_kernels(probe, rings: int, cfg) -> None:
     for groups, ids in probe["rank_ids"].items():
         max_abs_err(group_positions(ids, groups),
                     group_positions_plain(ids, groups))
+    k7, p7, table = sp_stencil_calls(probe, cfg)
+    k7()
+    max_abs_err((table,), (p7(),))
     nr = probe["num_rings"]
     reach = (probe["reach_f"], probe["reach_b"])
     for call, _ in sp_stacked_calls(probe, bz).values():
@@ -1218,11 +1257,28 @@ def sp_stacked_calls(probe, bz) -> dict:
     }
 
 
-def phase_sp_stacked(dev, cfg) -> None:
-    """K8 and K14's two passes at the SP path's stacked shape (8 wedges of
-    the OS1-128 scan's 128 x 384 slots) against their twins, on the inputs
-    of one SP run, timed beside their bounds."""
-    from urban_road_filter_torch import pad_scan
+def sp_stencil_calls(probe, cfg):
+    """(kernel, plain, table): K7's SP entry on the stacked layout of an SP
+    run before its stencils, in place on ``table`` (a copy of that
+    layout's label; the marks ignore the label, so calls repeat them), and
+    its plain twin, which returns the new table."""
+    from urban_road_filter_torch.ops.stencil_kernels import (
+        fused_xz_zero_halo, xz_zero_halo_plain)
+
+    lay, left, right, prefix, total = probe["halo"]
+    table = lay.label.clone()
+    return (lambda: fused_xz_zero_halo(lay._replace(label=table), left,
+                                       right, prefix, total, cfg),
+            lambda: xz_zero_halo_plain(lay, left, right, prefix, total, cfg),
+            table)
+
+
+def phase_sp_stacked(dev, cfg) -> dict:
+    """K7's SP entry, K8 and K14's two passes at the SP path's stacked
+    shape (8 wedges of the OS1-128 scan's 128 x 384 slots) against their
+    twins, on the inputs of one SP run, timed beside their bounds; returns
+    K7's entry's results (its "sp" entry of the kernels line)."""
+    from urban_road_filter_torch import _build, pad_scan
     from urban_road_filter_torch.parallel.azimuth_parallel import (
         make_azimuth_pipeline)
 
@@ -1232,6 +1288,29 @@ def phase_sp_stacked(dev, cfg) -> None:
         torch.from_numpy(pad_scan(scan, dims.max_points)).to(dev),
         probe=probe)
     rows, p = probe["layout"].alpha.shape
+    # K7's SP entry.  The bound counts x/y/z of the slots below counts and
+    # of the valid halo points read once, counts, the halo counts and
+    # prefix (16 B a row) and total read, and each new mark written once.
+    k7, p7, table = sp_stencil_calls(probe, cfg)
+    ops7 = _build.device_ops(k7)
+    assert ops7 == 1, f"K7's SP entry must be one device op: {ops7}"
+    lay, left, right, _, _ = probe["halo"]
+    err = max_abs_err((table,), (p7(),))
+    counted = int(torch.clamp(lay.counts, 0, p).sum())
+    halo_pts = int(left["n"].sum() + right["n"].sum())
+    n_marks = int(((table == 2) & (lay.label != 2)).sum())
+    nbytes = 12 * (counted + halo_pts) + 16 * rows + 4 * dims.rings + (
+        4 * n_marks)
+    res = {"max_abs_err": err, "ms": cuda_ms(k7), "plain_ms": cuda_ms(p7),
+           **bound(nbytes, (60 + 8 * int(cfg.curb_points)) * counted),
+           "library_ms": None, "device_ops": ops7}
+    print(f"    xz_zero SP entry at the SP shape ({name}, {WEDGES} wedges x "
+          f"{rows // WEDGES} x {p}): bit-equal, 1 device op, kernel "
+          f"{res['ms']:.4f} ms, plain {res['plain_ms']:.4f} ms, bound "
+          f"{res['bound_ms']:.5f} ms ({res['bound_by']}: 12 B x ({counted} "
+          f"slots + {halo_pts} halo points) + 16 B x {rows} rows + 4 B x "
+          f"{dims.rings} totals + 4 B x {n_marks} new marks = {nbytes} B)",
+          flush=True)
     for what, (call, (nbytes, ops)) in sp_stacked_calls(
             probe, cfg.beam_zone).items():
         max_abs_err(call(False), call(True))
@@ -1241,6 +1320,7 @@ def phase_sp_stacked(dev, cfg) -> None:
               f"{cuda_ms(lambda: call(False)):.4f} ms, plain "
               f"{cuda_ms(lambda: call(True)):.4f} ms, bound "
               f"{b['bound_ms']:.4f} ms ({b['bound_by']})", flush=True)
+    return res
 
 
 def phase_sp(dev, configs, smi, device_parity_gate):
@@ -1249,6 +1329,7 @@ def phase_sp(dev, configs, smi, device_parity_gate):
     from urban_road_filter_torch import (
         ScanResult, launch_counts, pad_scan, process_scan,
         reset_launch_counts)
+    from urban_road_filter_torch.parallel import azimuth_parallel as ap
     from urban_road_filter_torch.parallel.azimuth_parallel import (
         make_azimuth_pipeline)
     from urban_road_filter_torch.utils.parity import marker_rows_boundary_ok
@@ -1277,9 +1358,10 @@ def phase_sp(dev, configs, smi, device_parity_gate):
             want = SP_KERNELS if cfg.star_shaped_method else tuple(
                 k for k in SP_KERNELS if k != "star_walk")
             assert_launched(launches, want, f"the SP path ({name} {cname})")
-            runs = 1 + SCAN_REPS  # K8 once and K14 twice per SP scan
+            runs = 1 + SCAN_REPS  # K7 and K8 once, K14 twice per SP scan
             assert launches["flood_blocked"] == runs, launches
             assert launches["marker_state"] == 2 * runs, launches
+            assert launches["xz_zero"] == runs, launches
             assert int(fetched.overflow) == 0, "SP overflow"
             assert bool(fetched.ok) and int(fetched.num_rings) > 0
             labels = fetched.labels.numpy()
@@ -1313,10 +1395,17 @@ def phase_sp(dev, configs, smi, device_parity_gate):
         run(host.to(dev), probe=probe)
         wedge_kernels(probe, dims.rings, configs["default"])
         print(f"  {name}: K4 ({per_wedge} points), K12, K13 ({dims.rings} "
-              f"x {probe['layout'].x.shape[1]} slots) on each wedge, K8 and "
-              f"K14 over the {WEDGES} stacked wedges and K5 at "
+              f"x {probe['layout'].x.shape[1]} slots) on each wedge, K7, K8 "
+              f"and K14 over the {WEDGES} stacked wedges and K5 at "
               f"{sorted(probe['rank_ids'])} groups bit-equal to their "
               f"twins", flush=True)
+        # The sp_xz_zero stage (halo exchange, then K7), again in place on
+        # the probe's copy of its layout.
+        ops = profiled_ops(lambda: ap._halo_stencils(
+            ap.LocalWedges(WEDGES), probe["halo"][0], dims.rings,
+            configs["default"]))
+        print(f"  {name}: the sp_xz_zero stage: {ops} device ops per SP "
+              f"scan (torch.profiler), K7 one of them", flush=True)
     return total
 
 
@@ -1530,7 +1619,7 @@ def main() -> int:
                                                         bench_dims)
     del planar
     assert set(kernels) == set(_build.KERNELS), sorted(kernels)
-    phase_sp_stacked(dev, FilterConfig())
+    kernels["xz_zero"]["sp"] = phase_sp_stacked(dev, FilterConfig())
     # The per-scan kernels again at the shapes the batch path gives them
     # in phase 4: a bench lane and a merged multi-LiDAR scan (128 rings).
     phase_kernels(dev, bench_dims, cfg, bench[0][1], "bench lane",

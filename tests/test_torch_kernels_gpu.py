@@ -23,7 +23,11 @@ B = 1, 3 and 128, on rows of 4 and 3 floats, rows at storage offsets of
 200 launches alternating B = 1, B = 128 and the SP call's shape (its
 first-block tickets); the marker keys (K13) at 64 x 4096, 128 x 2048, one
 slot past a row's pass of 2048 slots and of two, and over 4000 rows (2000
-blocks, its first-block tickets), one device op a call.  Run on a machine with the
+blocks, its first-block tickets), one device op a call; the curb stencils
+(K7) in place at 64 x 4096, 64 x 2048 and 128 x 2048 with star labels on
+the table and its SP entry on one SP run's stacked wedges (8 x 128 x
+384), at window sizes 3 to 30, one device op and idempotent, the
+returning form leaving its input as it was.  Run on a machine with the
 card
 (tests/conftest.py imports jax, which a GPU host without JAX skips with
 --noconftest):
@@ -55,7 +59,9 @@ from urban_road_filter_torch.ops.gather import (
 from urban_road_filter_torch.ops.place import group_place, group_place_plain
 from urban_road_filter_torch.ops.rank import (
     group_positions, group_positions_plain)
-from urban_road_filter_torch.ops.stencil_kernels import fused_xz_zero
+from urban_road_filter_torch.ops.stencil_kernels import (
+    fused_xz_zero, fused_xz_zero_, fused_xz_zero_halo, xz_zero_halo_plain,
+    xz_zero_plain)
 from urban_road_filter_torch.ops.xzero import x_zero
 from urban_road_filter_torch.ops.zzero import z_zero
 
@@ -304,6 +310,98 @@ def test_xz_zero_empty_and_short_rings(dev):
     got = fused_xz_zero(layout, cfg).label
     _assert_same((got,), (z_zero(x_zero(layout, cfg), cfg).label,))
     assert int(got[1:].max()) == 0
+
+
+@pytest.fixture(scope="module")
+def stencil_layouts(dev):
+    """{shape: placed layout} at phase 2's three shapes: an OS1-64 drive
+    scan (64 x 4096), a bench lane (64 x 2048) and a merged multi-LiDAR
+    scan (128 x 2048), with star labels on 3 % of the slots."""
+    smoke = _smoke()
+    cfg = FilterConfig()
+    rng = np.random.default_rng(7)
+    out = {}
+    for name, scan, n, rings, cap in (
+            ("64x4096", smoke.os1_64_scan(), 131072, 64, 4096),
+            ("64x2048", smoke.bench_scans(1)[0], 131072, 64, 2048),
+            ("128x2048", smoke.multi_lidar_scans()[0], 262144, 128, 2048)):
+        pts = torch.from_numpy(pad_scan(scan, n)).to(dev)
+        x, y, z, _ = geometry.xyz_of(pts, "rows")
+        x, y, z = x.contiguous(), y.contiguous(), z.contiguous()
+        valid = geometry.roi_mask_xyz(x, y, z, cfg)
+        _, alpha = geometry.vertical_angles(x, y, z)
+        angles, num_rings = geometry.discover_rings(alpha, valid,
+                                                    cfg.interval, rings=rings)
+        ring_id = geometry.assign_rings(alpha, valid, angles, cfg.interval)
+        layout, _ = geometry.tensorize(x, y, z, ring_id, cap, rings=rings)
+        star = np.where(rng.random((rings, cap)) < 0.03, 2, 0)
+        out[name] = layout._replace(label=torch.from_numpy(
+            star.astype(np.int32)).to(dev))
+    return out
+
+
+@pytest.mark.parametrize("cp", [3, 5, 10, 30])
+@pytest.mark.parametrize("shape", ["64x4096", "64x2048", "128x2048"])
+def test_xz_zero_in_place_full_size(dev, stencil_layouts, shape, cp):
+    """K7 in place at phase 2's shapes: one launch and one device op a
+    call, bit-equal to its twin, idempotent; the returning form leaves its
+    input's label as it was."""
+    cfg = FilterConfig(curb_points=cp)
+    layout = stencil_layouts[shape]
+    star = layout.label.clone()
+    want = xz_zero_plain(layout, cfg).label
+    table = layout.label.clone()
+    lay = layout._replace(label=table)
+    before = _build.launch_counts()["xz_zero"]
+    fused_xz_zero_(lay, cfg)
+    assert _build.launch_counts()["xz_zero"] == before + 1
+    _assert_same((table,), (want,))
+    assert _build.device_ops(lambda: fused_xz_zero_(lay, cfg)) == 1
+    _assert_same((table,), (want,))
+    _assert_same((fused_xz_zero(layout, cfg).label,), (want,))
+    _assert_same((layout.label,), (star,))
+    assert int(((want == 2) & (star != 2)).sum()) > 0
+
+
+@pytest.fixture(scope="module")
+def sp_halo_inputs(dev):
+    """K7's SP inputs from one SP run of phase 5's OS1-128 scan (8 wedges of
+    128 x 384 slots): (layout before the stencils, left, right, prefix,
+    total)."""
+    from urban_road_filter_torch.parallel.azimuth_parallel import (
+        make_azimuth_pipeline)
+
+    _, dims, scan, _ = _smoke().sp_deployments()[0]
+    probe = {}
+    make_azimuth_pipeline(8, FilterConfig(), dims)(
+        torch.from_numpy(pad_scan(scan, dims.max_points)).to(dev),
+        probe=probe)
+    return probe["halo"], dims.rings
+
+
+@pytest.mark.parametrize("cp", [3, 5, 10, 30])
+def test_xz_zero_halo_kernel(dev, sp_halo_inputs, cp):
+    """K7's SP entry at the phase-5 stacked shape, the halo rebuilt for
+    each window size: one launch and one device op, bit-equal to its
+    plain twin, idempotent."""
+    from urban_road_filter_torch.parallel.azimuth_parallel import (
+        LocalWedges, _halo)
+
+    (lay, left, right, prefix, total), rings = sp_halo_inputs
+    cfg = FilterConfig(curb_points=cp)
+    if cp != left["x"].shape[-1]:
+        left, right = _halo(LocalWedges(8), lay, rings, cp)
+    want = xz_zero_halo_plain(lay, left, right, prefix, total, cfg)
+    table = lay.label.clone()
+    got = lay._replace(label=table)
+    before = _build.launch_counts()["xz_zero"]
+    fused_xz_zero_halo(got, left, right, prefix, total, cfg)
+    assert _build.launch_counts()["xz_zero"] == before + 1
+    _assert_same((table,), (want,))
+    assert _build.device_ops(lambda: fused_xz_zero_halo(
+        got, left, right, prefix, total, cfg)) == 1
+    _assert_same((table,), (want,))
+    assert int(((want == 2) & (lay.label != 2)).sum()) > 0
 
 
 def _stenciled(dev, scene, cfg):
@@ -827,7 +925,7 @@ def test_xz_zero_ladder_kernel(dev):
 def test_sp_equals_process_scan(dev, cfg):
     """The 8-wedge SP path on an azimuth-sorted scan equals process_scan
     on every field; K8 and K14 launch once per pass over all wedges, K12
-    once per wedge."""
+    once per wedge, K7 once over all wedges."""
     from urban_road_filter_torch.parallel.azimuth_parallel import (
         azimuth_sorted, make_azimuth_pipeline)
 
@@ -839,7 +937,7 @@ def test_sp_equals_process_scan(dev, cfg):
     got = make_azimuth_pipeline(8, cfg, dims)(pts)
     counts = _build.launch_counts()
     assert counts["flood_road"] == 8 and counts["marker_state"] == 2
-    assert counts["flood_blocked"] == 1
+    assert counts["flood_blocked"] == 1 and counts["xz_zero"] == 1
     want = process_scan(pts, cfg, dims)
     for g, w in zip(got, want):
         _assert_same((g,), (w,))

@@ -33,6 +33,11 @@ chip_smoke.py's phase 2:
   its K8 and K14 calls of one scan (8 and 16 per-wedge calls in trees
   before the wedge axis, 1 and 2 since), the last four replayed from the
   calls a run of the tree's SP path made;
+- the SP path's sp_xz_zero stage of one scan (its halo exchange and
+  stencils: halo rows in memory and two K7 launches in older trees, one
+  K7 launch on the halo blocks since, "sp_xz_zero"), replayed from a run,
+  and there K7's SP entry alone ("xz_zero_halo"); K7 is called in the
+  form the tree's pipeline calls it (in place since it is one);
 - beside K4 the whole star stage as the pipeline calls it ("star_stage":
   star_hits with the scan's K1 keys), and, in trees whose K4 walks sorted
   streams, the two stable sorts on their own ("beam_streams").
@@ -92,7 +97,7 @@ def scan_calls(dev, dims, cfg, scan) -> dict:
     from urban_road_filter_torch.ops.marker_state import marker_state
     from urban_road_filter_torch.ops.place import group_place
     from urban_road_filter_torch.ops.rank import group_positions
-    from urban_road_filter_torch.ops.stencil_kernels import fused_xz_zero
+    from urban_road_filter_torch.ops import stencil_kernels
 
     r, p, n = dims.rings, dims.ring_capacity, dims.max_points
     pts = torch.from_numpy(pad_scan(scan, n)).to(dev)
@@ -111,7 +116,14 @@ def scan_calls(dev, dims, cfg, scan) -> dict:
     rvalid = geometry.roi_mask_xyz(rx, ry, rz, cfg)
     pos, counts = group_positions(ring_id, r + 1)
     layout, _ = geometry.tensorize(x, y, z, ring_id, p, rings=r)
-    stenciled = layout._replace(label=fused_xz_zero(layout, cfg).label)
+    stenciled = layout._replace(
+        label=stencil_kernels.fused_xz_zero(layout, cfg).label)
+    if hasattr(stencil_kernels, "fused_xz_zero_"):  # K7 in place
+        table = layout.label.clone()
+        xz_zero = lambda: stencil_kernels.fused_xz_zero_(
+            layout._replace(label=table), cfg)
+    else:
+        xz_zero = lambda: stencil_kernels.fused_xz_zero(layout, cfg)
     bz = cfg.beam_zone
     w = bs.window_widths(geometry.max_distance(layout), bz)
     blocked = bs.flood_blocked(stenciled, w, bz)
@@ -151,7 +163,7 @@ def scan_calls(dev, dims, cfg, scan) -> dict:
         "group_rank": lambda: group_positions(ring_id, r + 1),
         "group_place": place,
         "index_put": index_put,
-        "xz_zero": lambda: fused_xz_zero(layout, cfg),
+        "xz_zero": xz_zero,
         "flood_blocked": lambda: bs.flood_blocked(stenciled, w, bz),
         "flood_blocked_all_curbs": lambda: bs.flood_blocked(curbs, w, bz),
         "flood_labeled": lambda: bs.flood_labeled(stenciled, *reach, w, bz,
@@ -219,7 +231,7 @@ def sp_wedge_calls(dev, c, cfg) -> dict:
     reach = (probe["reach_f"], probe["reach_b"])
 
     owner = {"star_hits": ap, "group_positions": ap, "marker_state": ap,
-             "flood_blocked": bs}
+             "flood_blocked": bs, "_halo_stencils": ap}
     recorded = {name: [] for name in owner}
 
     def recording(name):
@@ -257,6 +269,17 @@ def sp_wedge_calls(dev, c, cfg) -> dict:
     # calls per scan) or over the wedge axis (1 and 2).
     calls["flood_blocked"] = replay("flood_blocked")
     calls["marker_state"] = replay("marker_state")
+    # The sp_xz_zero stage (halo exchange and stencils; in place since K7
+    # took the halo rows, an idempotent rewrite of the recorded table), and
+    # K7's SP entry alone where the tree has one.
+    calls["sp_xz_zero"] = replay("_halo_stencils")
+    if "halo" in probe:
+        from urban_road_filter_torch.ops.stencil_kernels import (
+            fused_xz_zero_halo)
+
+        lay, left, right, prefix, total = probe["halo"]
+        calls["xz_zero_halo"] = lambda: fused_xz_zero_halo(
+            lay, left, right, prefix, total, cfg)
     calls["star_stage"] = replay("star_hits")
     return calls
 

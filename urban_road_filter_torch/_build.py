@@ -75,8 +75,10 @@ _SIGNATURES = {
     "urf_group_rank": (_P, _I, _I, _P, _P, _P, _P),
     "urf_group_place": (_P, _P, _P, _I, _I, _P, _P, _P, _L, _L, _L, _I, _I,
                         _P, _P, _P),
-    "urf_xz_zero": (_P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _F,
-                    _F, _F, _P),
+    "urf_xz_zero": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F,
+                    _F, _P),
+    "urf_xz_zero_halo": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                         _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _F, _P),
     "urf_flood_blocked": (_P, _P, _P, _P, _I, _I, _I, _F, _P, _P, _P),
     "urf_flood_labeled": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _P, _P, _P),
     "urf_marker_points": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _I,

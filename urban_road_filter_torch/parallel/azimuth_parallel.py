@@ -18,7 +18,7 @@ wedge, with collectives where a dependency crosses wedges:
 Here the wedges live on ONE card.  Their collectives are those of
 ``LocalWedges``: every per-wedge value is stacked on a leading wedge axis
 and reduced over it.  The kernels run once over all wedges where a kernel
-takes a wedge axis (K8, K14), a batch (K3) or groups (K5, K6, K7: a ring
+takes a wedge axis (K7, K8, K14), a batch (K3) or groups (K5, K6: a ring
 of wedge w is group w * rings + ring), and per wedge, on views of the
 stacked tensors, otherwise (K4, K12).
 
@@ -54,7 +54,7 @@ from urban_road_filter_torch.ops.markers import N_BINS
 from urban_road_filter_torch.ops.place import group_place
 from urban_road_filter_torch.ops.rank import group_positions
 from urban_road_filter_torch.ops.star import star_hits
-from urban_road_filter_torch.ops.stencil_kernels import fused_xz_zero
+from urban_road_filter_torch.ops.stencil_kernels import fused_xz_zero_halo
 from urban_road_filter_torch.pipeline import ScanResult, _stage, on_device
 
 
@@ -138,7 +138,12 @@ def _halo(lw: LocalWedges, layout: RingLayout, rings: int, cp: int):
         a = getattr(layout, name).view(d, rings, cap)
         tails[name] = lw.all_gather(torch.where(
             tail_valid, torch.gather(a, 2, tail_idx), 0.0))
-        heads[name] = lw.all_gather(a[:, :, :cp])
+        # Rows shorter than cp (a ring capacity under curb_points) give a
+        # head block of cp columns all the same; the columns past the row
+        # are invalid (head_valid), so zeros fill them.
+        heads[name] = lw.all_gather(
+            a[:, :, :cp] if cap >= cp else
+            torch.nn.functional.pad(a, (0, cp - cap)))
     me = lw.index(dev)
     wedge = lw.index(dev)
 
@@ -171,73 +176,20 @@ def _halo(lw: LocalWedges, layout: RingLayout, rings: int, cp: int):
 
 
 def _halo_stencils(lw: LocalWedges, layout: RingLayout, rings: int,
-                   cfg: FilterConfig) -> torch.Tensor:
-    """Curb labels of the stacked layout after the x/z-zero stencils over
-    halo-extended rows [cp dummy | left halo | local P | right halo], with
-    the reference's j-range gate and the newY ladder at GLOBAL ring
-    positions (the JAX _extend_with_halo, _x_zero_halo, _z_zero_halo).  The
-    stencils themselves are K7, run once for x-zero and once for z-zero
-    over all wedges' extended rows; the halo gates are tensor code."""
+                   cfg: FilterConfig, probe=None) -> None:
+    """The x/z-zero curb marks of the stacked layout, written into its
+    label: every wedge's ring segment with the halo points around it, the
+    reference's j-range gate and the newY ladder at GLOBAL ring positions
+    (the JAX _extend_with_halo, _x_zero_halo, _z_zero_halo), K7 in one
+    launch over all wedges."""
     d = lw.size
-    cp = int(cfg.curb_points)
-    cap = layout.x.shape[1]
-    p_ext = cap + 3 * cp
-    dev = layout.x.device
-    left, right = _halo(lw, layout, rings, cp)
-    counts = layout.counts.view(d, rings, 1)
-    col = torch.arange(p_ext, device=dev)
-    s = col - 2 * cp  # local slot; negative = left halo
-    kr = s - counts  # right-halo index of a column past the local points
-    in_right = (kr >= 0) & (kr < right["n"][..., None])
-    ext = {}
-    for name in ("x", "y", "z"):
-        loc = getattr(layout, name).view(d, rings, cap)
-        e = torch.cat([torch.zeros((d, rings, cp), dtype=F32, device=dev),
-                       left[name], loc,
-                       torch.zeros((d, rings, cp), dtype=F32, device=dev)],
-                      dim=2)
-        rv = torch.gather(right[name], 2,
-                          torch.clamp(kr, 0, cp - 1).expand(d, rings, p_ext))
-        ext[name] = torch.where(in_right, rv, e).reshape(d * rings, p_ext)
-    label = torch.nn.functional.pad(layout.label, (2 * cp, cp))
+    left, right = _halo(lw, layout, rings, int(cfg.curb_points))
     counts_g = lw.all_gather(layout.counts.view(d, rings))
-    prefix = lw.before(counts_g)  # (D, R) global position of local slot 0
-    total = lw.psum(counts_g)  # (R,)
-    ext_layout = layout._replace(
-        x=ext["x"], y=ext["y"], z=ext["z"],
-        label=torch.zeros_like(label),
-        counts=torch.full((d * rings,), p_ext, dtype=I32, device=dev))
-
-    g = prefix[..., None] + s  # (D, R, p_ext) global ring position
-    n_local = counts
-    exists = ((s >= -left["n"][..., None])
-              & (s < n_local + right["n"][..., None]))
-    g_gate = (g >= cp) & (g <= total[:, None] - 1 - cp)
-    in_row = s + 3 * cp < p_ext  # the window end col + cp stays in the row
-    local = (s >= 0) & (s < n_local)
-
-    def flat(m):
-        return m.reshape(d * rings, p_ext)
-
-    if cfg.x_zero_method:
-        marks = fused_xz_zero(
-            ext_layout, cfg.replace(z_zero_method=False),
-            ladder_offset=(prefix - 2 * cp).reshape(-1).to(I32),
-            ladder_len=cap * d).label == LABEL_CURB
-        src_ok = (g_gate & exists & torch.roll(exists, -cp, dims=-1)
-                  & in_row)
-        at_mark = torch.roll(src_ok, cp // 2, dims=-1)
-        label = torch.where(marks & (label != LABEL_CURB) & flat(at_mark)
-                            & flat(local), LABEL_CURB, label)
-    if cfg.z_zero_method:
-        marks = fused_xz_zero(ext_layout, cfg.replace(
-            x_zero_method=False)).label == LABEL_CURB
-        window_ok = (torch.roll(exists, cp, dims=-1)
-                     & torch.roll(exists, -cp, dims=-1) & in_row)
-        label = torch.where(marks & (label != LABEL_CURB)
-                            & flat(local & g_gate & window_ok),
-                            LABEL_CURB, label)
-    return label[:, 2 * cp:-cp]
+    prefix, total = lw.before(counts_g), lw.psum(counts_g)
+    if probe is not None:
+        probe["halo"] = (layout._replace(label=layout.label.clone()), left,
+                         right, prefix, total)
+    fused_xz_zero_halo(layout, left, right, prefix, total, cfg)
 
 
 def _quadrants(lw: LocalWedges, layout: RingLayout, rings: int):
@@ -411,8 +363,7 @@ def _run(x, y, z, cfg: FilterConfig, dims: PipelineDims, lw: LocalWedges,
 
     if cfg.x_zero_method or cfg.z_zero_method:
         with _stage("sp_xz_zero"):
-            layout = layout._replace(
-                label=_halo_stencils(lw, layout, rings, cfg))
+            _halo_stencils(lw, layout, rings, cfg, probe)
 
     with _stage("sp_blind_spots"):
         layout = geometry.sort_by_azimuth(layout, carry_pid=True)
@@ -463,7 +414,9 @@ def make_azimuth_pipeline(n_wedges: int, cfg: FilterConfig,
     ids of the two K5 calls ("rank_ids", {groups: ids}), the star search's
     (D, N / D) wedge streams with the star search on ("star": x, y, z,
     valid, fk, r_key; wedge k is star_hits(x[k], y[k], z[k], valid[k], cfg,
-    (fk[k], r_key[k]))), the stacked sorted layout after the flood fill
+    (fk[k], r_key[k]))), K7's inputs ("halo": the stacked layout before
+    the stencils and fused_xz_zero_halo's left, right, prefix and total),
+    the stacked sorted layout after the flood fill
     ("layout", "num_rings"), the window widths and reach of K12 ("w",
     "reach_f", "reach_b") and K14's per-wedge offsets and global floor
     ("g_offset" (D, R), "f_init").

@@ -40,7 +40,7 @@ from urban_road_filter_torch.ops.blind_spots import blind_spots
 from urban_road_filter_torch.ops.gather import gather_pack, gather_pack_batch
 from urban_road_filter_torch.ops.markers import marker_points
 from urban_road_filter_torch.ops.star import star_hits, star_labels
-from urban_road_filter_torch.ops.stencil_kernels import fused_xz_zero
+from urban_road_filter_torch.ops.stencil_kernels import fused_xz_zero_
 
 I32 = torch.int32
 
@@ -85,8 +85,8 @@ def _stages(x, y, z, valid, keys, ring_id, num_rings, cfg: FilterConfig,
         if hp is not None:
             rl = rl._replace(label=star_labels(hp, ring_id, pos, rings,
                                                dims.ring_capacity))
-    with _stage("xz_zero"):
-        rl = fused_xz_zero(rl, cfg)
+    with _stage("xz_zero"):  # the stage's own table: marked in place
+        fused_xz_zero_(rl, cfg)
     with _stage("blind_spots"):
         rl, kf = blind_spots(rl, max_dist, num_rings, cfg)
     with _stage("markers"):
