@@ -107,7 +107,26 @@
    make_azimuth_pipeline's own results; (d) a bag of 3 drive scans
    written, read back bit-equal and replayed through bag_source.  Launch
    counters as in phase 3, per part.
-7. Prints one JSON line of per-kernel results (K1-K3 with their grid and
+7. Drives the modules of the last slice, each with the launch counters
+   zeroed just before and read just after (K1-K11 must run): (a) checked
+   mode (utils.checked.process_scan_checked) on phase 3's 9 scans x 2
+   configurations, in turns with process_scan: every field bit-equal, the
+   error word clean, both host-to-host p50s printed; then each index
+   contract's predicate on a corrupted copy of one scan's index tensors
+   sets its bit, on the clean ones none; (b) the harness in checked mode
+   on the 3 PCD fixtures and 10 OS1-64 drive scans beside the default
+   harness: 0 errors, the topics equal field by field, as many
+   host-blocking CUDA calls a scan; (c) parallel.data_parallel.
+   make_sharded_pipeline over [cuda:0] and [cuda:0, cuda:0] on phase 4's
+   batch: every field equal to process_batch's; (d) one packed_scan under
+   utils.profiling.device_trace: a trace file written, each launch of
+   K1-K11 in its urf::k::<kernel> range inside its stage's urf::<stage>
+   range on the host and on the device, the stages' device ms with their
+   kernels printed, and 229 device ops (the H2D and D2H of the outputs
+   included), as before the ranges, in a fresh process; (e)
+   examples/demo_torch.py at
+   --render-every 0 on 4 scans with the beam_zone hot swap.
+8. Prints one JSON line of per-kernel results (K1-K3 with their grid and
    their times at B = 1, "b1", at the SP call's shape, "sp", and, K2 and
    K3, on the ring-major scan, "ring_major"; K7's SP entry, "sp"; K11's
    over the phase-4 batch, "b128") and, last,
@@ -1571,6 +1590,374 @@ def phase_replay(dev, smi, device_parity_gate) -> dict:
     return total
 
 
+# Each port-side kernel launch's stage: the urf::<stage> range that must
+# hold its urf::k::<kernel> range (pipeline._stage, _build.launch).
+STAGE_OF = {"ingest_prep": "ingest", "discover_rings": "ingest",
+            "assign_rings": "ingest", "star_walk": "star",
+            "group_rank": "tensorize", "group_place": "tensorize",
+            "xz_zero": "xz_zero", "flood_blocked": "blind_spots",
+            "flood_labeled": "blind_spots", "marker_points": "markers",
+            "gather_pack": "gather"}
+SCAN_DEVICE_OPS = 229  # packed_scan's device ops at the OS1-64 preset,
+# H2D and D2H of its outputs included (PERF.md section 5)
+
+
+def same_result(got, want, what: str) -> None:
+    """Two ScanResults (or tuples of tensors) equal field by field, floats
+    by their bits."""
+    for f, g, w in zip(getattr(want, "_fields", range(len(want))), got,
+                       want):
+        g, w = g.cpu(), w.cpu()
+        if g.dtype == torch.float32:
+            g, w = g.view(torch.int32), w.view(torch.int32)
+        assert g.dtype == w.dtype and torch.equal(g, w), (what, f)
+
+
+def phase_checked(dev, dims, configs, scans, smi) -> dict:
+    """utils.checked.process_scan_checked on phase 3's scans in each
+    configuration, in turns with process_scan: every field bit-equal, the
+    error word clean; the host-to-host p50 of both printed.  Then the
+    negative controls: each contract's predicate on a corrupted copy of one
+    scan's index tensors (its probe) sets its bit, and on the clean ones
+    none.  Returns the checked runs' launch counts."""
+    from urban_road_filter_torch import (
+        FilterConfig, launch_counts, pad_scan, process_scan,
+        reset_launch_counts)
+    from urban_road_filter_torch.ops.markers import NO_KEY
+    from urban_road_filter_torch.utils import checked as ck
+
+    hosts = [torch.from_numpy(pad_scan(pts, dims.max_points)).pin_memory()
+             for _, pts in scans]
+    # Each path's launches are counted from its own calls alone: the
+    # counters are zeroed just before each call and added up after it.
+    tally = {"process_scan": {}, "process_scan_checked": {}}
+
+    def counted(path, fn):
+        reset_launch_counts()
+        out = fn()
+        for k, v in launch_counts().items():
+            tally[path][k] = tally[path].get(k, 0) + v
+        return out
+
+    torch.cuda.synchronize()
+    for cname, cfg in configs.items():
+        times = {"process_scan": [], "process_scan_checked": []}
+        for k, host in enumerate(hosts):
+            for rep in range(1 + SCAN_REPS):
+                t0 = time.perf_counter()
+                want = counted("process_scan", lambda: [
+                    t.cpu() for t in process_scan(
+                        host.to(dev, non_blocking=True), cfg, dims)])
+                t1 = time.perf_counter()
+                err, got = counted(
+                    "process_scan_checked", lambda: ck.process_scan_checked(
+                        host.to(dev, non_blocking=True), cfg, dims,
+                        throw=False))
+                fetched = [t.cpu() for t in (*got, err.word)]
+                t2 = time.perf_counter()
+                if rep:
+                    times["process_scan"].append(t1 - t0)
+                    times["process_scan_checked"].append(t2 - t1)
+            same_result(fetched[:-1], want, (cname, scans[k][0]))
+            msg = ck.CheckError(fetched[-1]).get()
+            assert msg is None, (cname, scans[k][0], msg)
+        p50 = {m: statistics.median(v) * 1e3 for m, v in times.items()}
+        print(f"  {cname}: {len(hosts)} scans equal process_scan field by "
+              f"field, error word clean; host-to-host p50 process_scan "
+              f"{p50['process_scan']:.3f} ms, process_scan_checked "
+              f"{p50['process_scan_checked']:.3f} ms (all outputs fetched, "
+              f"{SCAN_REPS} runs a scan in turns) on {smi}", flush=True)
+    launches = tally["process_scan_checked"]
+    # One launch of each kernel per checked call (the star walk only where
+    # the configuration has it on), as many as process_scan's own calls.
+    calls = len(hosts) * (1 + SCAN_REPS)
+    for name in SCAN_KERNELS:
+        want_n = calls * sum(1 for c in configs.values()
+                             if name != "star_walk" or c.star_shaped_method)
+        assert launches.get(name, 0) == want_n, (name, launches, want_n)
+    assert launches == tally["process_scan"], tally
+
+    # Negative controls on the card, from one clean scan's probe.
+    probe = {}
+    cfg0 = FilterConfig()
+    ck.process_scan_checked(hosts[-1].to(dev), cfg0, dims, probe=probe)
+    rings, cap = dims.rings, dims.ring_capacity
+    valid, ring_id, num_rings = (probe[k] for k in
+                                 ("valid", "ring_id", "num_rings"))
+    pos, hp, lay, kf = (probe[k] for k in ("pos", "hp", "layout", "kf"))
+    w = probe["w"]
+    i = int(torch.nonzero(valid & (ring_id < rings))[0])
+    j = int(torch.nonzero(kf != NO_KEY)[0])
+
+    def with_(t, idx, v):
+        t = t.clone()
+        t[idx] = v
+        return t
+
+    r_j = int(kf[j]) >> 48
+    preds = {
+        "num_rings": lambda c: ck.broken_num_rings(
+            num_rings + (rings + 1 if c else 0), rings),
+        "ring_id": lambda c: ck.broken_ring_id(
+            with_(ring_id, i, rings + 3) if c else ring_id, valid,
+            num_rings, rings),
+        "pos": lambda c: ck.broken_pos(
+            ring_id, with_(pos, i, -1) if c else pos, lay.counts,
+            lay.overflow, rings, cap),
+        "star_pid": lambda c: ck.broken_star_pid(
+            with_(hp, 0, valid.shape[0] + 5) if c else hp, valid),
+        "flood_window": lambda c: ck.broken_flood_window(
+            with_(w, 1, -1.0) if c else w, lay.counts, num_rings),
+        "marker_bin": lambda c: ck.broken_marker_bin(
+            with_(lay.alpha, (0, 0), 400.0) if c else lay.alpha,
+            lay.counts, num_rings),
+        "marker_read": lambda c: ck.broken_marker_read(
+            lay, num_rings, with_(kf, j, (r_j << 48) | int(
+                lay.counts[r_j])) if c else kf, probe["markers"]),
+        "gather_addr": lambda c: ck.broken_gather_addr(
+            ring_id, with_(pos, i, -1) if c else pos, valid, rings, cap),
+    }
+    assert set(preds) == ck.INDEX_ERRORS, sorted(preds)
+    for name, pred in preds.items():
+        for corrupt in (False, True):
+            word = ck._Word(frozenset([name]), dev)
+            word.check(name, lambda: pred(corrupt))
+            want = (1 << ck.CONTRACTS[name][0]) if corrupt else 0
+            assert int(word.word) == want, (name, corrupt, int(word.word))
+    print(f"  negative controls: each of the {len(preds)} contracts' bit set "
+          f"by its corrupted tensor on the card, clear on the clean one",
+          flush=True)
+    return launches
+
+
+def sync_calls(prof) -> int:
+    """Host-blocking CUDA runtime calls in a profiler's trace."""
+    from torch.autograd import DeviceType
+
+    return sum(1 for e in prof.events() if e.device_type == DeviceType.CPU
+               and e.name in ("cudaStreamSynchronize", "cudaEventSynchronize",
+                              "cudaDeviceSynchronize"))
+
+
+def phase_checked_replay(dev, smi) -> dict:
+    """The harness in checked mode on the 3 PCD fixtures and 10 OS1-64
+    drive scans, each beside the default harness: 0 errors, the topics
+    equal field by field, and as many host-blocking calls per scan as the
+    default (the error word rides the one synchronisation).  Returns the
+    checked runs' launch counts."""
+    import os
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from urban_road_filter_torch import (
+        FilterConfig, PipelineDims, launch_counts, reset_launch_counts)
+    from urban_road_filter_torch.io import make_drive
+    from urban_road_filter_torch.io.replay import (
+        ReplayHarness, pcd_dir_source)
+
+    fixtures = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "tests", "fixtures")
+    drive = list(make_drive(10, sensor="os1_64", seed=43))
+    total = {}
+    for what, source, dims in (
+            ("fixtures", lambda: pcd_dir_source(fixtures),
+             PipelineDims(16384, 64, 1024, 256)),
+            ("OS1-64 drive", lambda: iter(drive),
+             PipelineDims.for_sensor("os1-64"))):
+        runs, syncs = {}, {}
+        for checked in (False, True):
+            got = []
+            h = ReplayHarness(cfg=FilterConfig(), dims=dims, device=dev,
+                              on_scan=got.append, checked=checked)
+            h._warm_up()
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                s = h.run(source()).summary()
+            if checked:
+                for k, v in launch_counts().items():
+                    total[k] = total.get(k, 0) + v
+            assert s["errors"] == 0 and s["not_ok"] == 0, (what, s)
+            runs[checked], syncs[checked] = got, sync_calls(prof)
+        same_outputs(runs[True], runs[False], f"checked replay, {what}")
+        n = len(runs[True])
+        assert syncs[True] == syncs[False], (what, syncs)
+        print(f"  checked harness, {what}: {n} scans, 0 errors, topics equal "
+              f"the default harness's field by field; "
+              f"{syncs[True] / n:.1f} host-blocking CUDA calls a scan "
+              f"(default {syncs[False] / n:.1f}) on {smi}", flush=True)
+    return total
+
+
+def phase_data_parallel(dev, cfg, scans, dims) -> dict:
+    """make_sharded_pipeline over [cuda:0] and [cuda:0, cuda:0] on phase
+    4's batch (planar): every field equal to process_batch's; two chunks
+    make two ingest and two gather launches.  Returns the launch counts of
+    the two-chunk run."""
+    from urban_road_filter_torch import (
+        launch_counts, pad_scan, planarize_batch, process_batch,
+        reset_launch_counts)
+    from urban_road_filter_torch.parallel.data_parallel import (
+        make_sharded_pipeline)
+
+    pts = torch.from_numpy(planarize_batch(np.stack(
+        [pad_scan(p, dims.max_points) for _, p in scans]))).to(dev)
+    want = process_batch(pts, cfg, dims, layout="planar")
+    for devices in ([dev], [dev, dev]):
+        run = make_sharded_pipeline(devices, cfg, dims)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        got = run(pts, layout="planar")
+        torch.cuda.synchronize()
+        launches = launch_counts()
+        for f, g, w in zip(want._fields, got, want):
+            try:
+                max_abs_err((g,), (w,))
+            except AssertionError as e:
+                raise AssertionError(f"{len(devices)} devices, field {f}: "
+                                     f"{e}") from None
+        assert launches["ingest_prep"] == len(devices), launches
+        assert launches["gather_pack"] == len(devices), launches
+        print(f"  make_sharded_pipeline over {len(devices)} x {dev}: "
+              f"{pts.shape[1]} lanes equal process_batch's, "
+              f"{launches['ingest_prep']} ingest and "
+              f"{launches['gather_pack']} gather launches", flush=True)
+    return launches
+
+
+def phase_trace(dev, dims, scan):
+    """One packed_scan of a scan under profiling.device_trace: a trace file
+    written; each launch of K1-K11 in a urf::k::<kernel> range whose host
+    parent is its stage's urf::<stage> range, its kernel credited to that
+    stage by utils.profiling.stage_device_time, whose stage windows on the
+    device are disjoint and in pipeline order.  Prints each stage's device
+    ms, its kernels included.  Returns the traced run's launch counts and
+    the names of its device ops (H2D and D2H of the outputs included), a
+    Counter."""
+    import collections
+    import glob
+    import os
+    import tempfile
+
+    from torch.autograd import DeviceType
+
+    from urban_road_filter_torch import (
+        FilterConfig, launch_counts, pad_scan, packed_scan,
+        reset_launch_counts)
+    from urban_road_filter_torch.utils.profiling import (
+        device_trace, stage_device_time)
+
+    cfg = FilterConfig()
+    host = torch.from_numpy(pad_scan(scan, dims.max_points)).pin_memory()
+    for _ in range(2):
+        [t.cpu() for t in packed_scan(host.to(dev), cfg, dims)]
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        reset_launch_counts()
+        with device_trace(tmp) as prof:
+            [t.cpu() for t in packed_scan(host.to(dev, non_blocking=True),
+                                          cfg, dims)]
+        launches = launch_counts()
+        files = glob.glob(os.path.join(tmp, "*.json"))
+        assert len(files) == 1 and os.path.getsize(files[0]) > 0, files
+    events = prof.events()
+    ops = collections.Counter(
+        e.name for e in events if e.device_type == DeviceType.CUDA
+        and not e.name.startswith("urf::"))
+    for e in events:
+        if e.device_type == DeviceType.CPU and e.name.startswith("urf::k::"):
+            parent = e.cpu_parent and e.cpu_parent.name
+            assert parent == f"urf::{STAGE_OF[e.name[8:]]}", (e.name, parent)
+    stages = stage_device_time(events)
+    lost = {st: rec["unmatched"] for st, rec in stages.items()
+            if rec["unmatched"]}
+    assert not lost, f"ranges without a device projection: {lost}"
+    for name in SCAN_KERNELS:
+        us, count = stages[STAGE_OF[name]]["kernels"].get(name, (0.0, 0))
+        assert count == launches[name] > 0 and us > 0, (name, us, count)
+    order = [w for st in dict.fromkeys(STAGE_OF.values())
+             for w in stages[st]["windows"]]
+    assert order == sorted(order) and all(
+        a[1] <= b[0] for a, b in zip(order, order[1:])), order
+    print(f"  device_trace of one packed_scan: a trace file written; every "
+          f"launch of K1-K11 inside its stage's range on the host and in its "
+          f"stage's window on the device, the windows disjoint and in "
+          f"pipeline order; {sum(ops.values())} device ops (H2D and D2H "
+          f"included)", flush=True)
+    for stage, rec in stages.items():
+        ks = ", ".join(f"{k} {us / 1e3:.4f}"
+                       for k, (us, _) in rec["kernels"].items())
+        print(f"    stage {stage}: {rec['device_us'] / 1e3:.4f} ms device, "
+              f"{rec['ops']} ops; kernels (ms): {ks or 'none'}", flush=True)
+    return launches, ops
+
+
+def trace_child() -> None:
+    """phase_trace on the first OS1-64 drive scan, as a fresh process
+    (``python3 -c "import chip_smoke; chip_smoke.trace_child()"``): its
+    last line is {"launches": ..., "ops": {name: count}}."""
+    from urban_road_filter_torch import PipelineDims
+
+    launches, ops = phase_trace(torch.device("cuda", 0),
+                                PipelineDims.for_sensor("os1-64"),
+                                scans_for_pipeline()[-2][1])
+    print(json.dumps({"launches": launches, "ops": ops}))
+
+
+def phase_traces() -> dict:
+    """phase_trace in a fresh process, where packed_scan's device ops must
+    be SCAN_DEVICE_OPS (tools/profile_torch_scan.py counts them in a fresh
+    process too: after phases 1-7 in this one, the profiler has lost an
+    event of the traced scan).  Returns its launch counts."""
+    import os
+
+    out = subprocess.run(
+        [sys.executable, "-c",
+         "import chip_smoke; chip_smoke.trace_child()"],
+        cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+        text=True, timeout=600)
+    print(out.stdout.rsplit("\n", 2)[0], flush=True)
+    assert out.returncode == 0, out.stderr[-3000:]
+    fresh = json.loads(out.stdout.strip().splitlines()[-1])
+    n_ops = sum(fresh["ops"].values())
+    assert n_ops == SCAN_DEVICE_OPS, (n_ops, fresh["ops"])
+    return fresh["launches"]
+
+
+def phase_demo(dev) -> dict:
+    """examples/demo_torch.py on the card at --render-every 0: 4 scans, the
+    beam_zone hot swap at scan 1, no error.  Returns its launch counts."""
+    import contextlib
+    import importlib.util
+    import io
+    import os
+
+    from urban_road_filter_torch import launch_counts, reset_launch_counts
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "examples", "demo_torch.py")
+    spec = importlib.util.spec_from_file_location("demo_torch", path)
+    demo = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(demo)
+    out = io.StringIO()
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    with contextlib.redirect_stdout(out):
+        demo.main(["--device", str(dev), "--render-every", "0", "--scans",
+                   "4", "--swap-at", "1"])
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    lines = out.getvalue().splitlines()
+    summary = json.loads(lines[-1])
+    assert "# hot-swapped beam_zone -> 50.0 at scan 1" in lines, lines
+    assert summary["scans"] == 4 and summary["errors"] == 0, summary
+    print(f"  examples/demo_torch.py: 4 scans on {dev}, beam_zone hot-swapped "
+          f"at scan 1, 0 errors, latency p50 {summary['latency_ms']['p50']} "
+          f"ms", flush=True)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False")
@@ -1698,6 +2085,23 @@ def main() -> int:
     runs_of["marker_first_nonroad"] = unfused_launches.get(
         "marker_first_nonroad", 0)
     assert_launched(runs_of, _build.KERNELS, "any path")
+
+    print("phase 7: checked mode, data parallelism, the profiling hooks and "
+          "the demo drive", flush=True)
+    checked_launches = phase_checked(dev, dims, configs, scans, smi)
+    print(f"  launches: {checked_launches}")
+    assert_launched(checked_launches, SCAN_KERNELS, "the checked path")
+    launches = phase_checked_replay(dev, smi)
+    print(f"  launches: {launches}")
+    assert_launched(launches, SCAN_KERNELS, "the checked harness")
+    launches = phase_data_parallel(dev, FilterConfig(), bench, bench_dims)
+    assert_launched(launches, SCAN_KERNELS, "the data-parallel path")
+    launches = phase_traces()
+    assert_launched(launches, SCAN_KERNELS, "the traced scan")
+    launches = phase_demo(dev)
+    print(f"  launches: {launches}")
+    assert_launched(launches, SCAN_KERNELS, "the demo drive")
+    assert_no_jax()
 
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": src, "replaces": tpu,

@@ -523,7 +523,8 @@ class TestGather:
 
 def test_port_imports_no_jax():
     """Importing the port, its oracle, its parity gate, its SP path, its
-    replay harness and host modules, chip_smoke and the port's soak tool
+    replay harness and host modules, checked mode, the profiling hooks,
+    the data-parallel path, chip_smoke, the port's demo and soak tool
     loads neither JAX nor the JAX package."""
     code = ("import sys; import urban_road_filter_torch, "
             "urban_road_filter_torch.convert, urban_road_filter_torch.oracle, "
@@ -533,8 +534,12 @@ def test_port_imports_no_jax():
             "urban_road_filter_torch.io.pcd, urban_road_filter_torch.io.rosbag, "
             "urban_road_filter_torch.runtime.native, "
             "urban_road_filter_torch.postprocess, urban_road_filter_torch.viz, "
-            "urban_road_filter_torch.utils.metrics; "
+            "urban_road_filter_torch.utils.metrics, "
+            "urban_road_filter_torch.utils.checked, "
+            "urban_road_filter_torch.utils.profiling, "
+            "urban_road_filter_torch.parallel.data_parallel; "
             "sys.path.insert(0, 'tools'); import soak_stream_torch; "
+            "sys.path.insert(0, 'examples'); import demo_torch; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'urban_road_filter_tpu')); "
             "assert not bad, bad")
@@ -545,18 +550,21 @@ def test_port_imports_no_jax():
 
 
 def test_port_sources_never_import_the_jax_package():
-    """No source file of the port, not chip_smoke.py and not the port's
-    soak tool imports JAX or the JAX package, even a module of it that
+    """No source file of the port, not chip_smoke.py, the port's demo or
+    its soak tool imports JAX or the JAX package, even a module of it that
     does not import JAX."""
     pattern = re.compile(
         r"^\s*(import|from)\s+(urban_road_filter_tpu|jax|jaxlib)\b",
         re.MULTILINE)
     root = pathlib.Path(REPO)
     files = sorted((root / "urban_road_filter_torch").rglob("*.py"))
-    files += [root / "chip_smoke.py", root / "tools" / "soak_stream_torch.py"]
+    files += [root / "chip_smoke.py", root / "tools" / "soak_stream_torch.py",
+              root / "examples" / "demo_torch.py"]
     assert len(files) > 20
     for name in ("io/replay.py", "io/pcd.py", "io/rosbag.py", "viz.py",
-                 "postprocess.py", "runtime/native.py", "utils/metrics.py"):
+                 "postprocess.py", "runtime/native.py", "utils/metrics.py",
+                 "utils/checked.py", "utils/profiling.py",
+                 "parallel/data_parallel.py"):
         assert root / "urban_road_filter_torch" / name in files, name
     bad = [str(f.relative_to(root)) for f in files
            if pattern.search(f.read_text())]

@@ -16,9 +16,11 @@
   topic (the JAX harness cannot unpack an SP scan: it tests
   ``isinstance(out, tuple)``, which a ScanResult passes), and
   ``_fetch_outputs`` dispatches on the concrete type.
-* Defaults and refusals: no device means the card (raises without one),
-  checked mode raises.  The CLI replays the PCD fixtures; viz draws the
-  port's ScanOutputs.
+* Defaults: no device means the card (raises without one).  Checked mode
+  publishes the default topics on clean scans and refuses (records as
+  that scan's error) a scan that breaks an index contract.  The CLI
+  replays the PCD fixtures, also with --checked; viz draws the port's
+  ScanOutputs.
 """
 
 import json
@@ -326,9 +328,52 @@ def test_no_device_means_the_card():
             ReplayHarness()
 
 
-def test_checked_mode_refuses():
-    with pytest.raises(NotImplementedError, match="utils/checked.py"):
-        ReplayHarness(checked=True, **CPU)
+def test_checked_mode_refuses(monkeypatch):
+    """Checked mode refuses a scan that breaks an index contract (a ring id
+    past the table, which the default path masks silently): the harness
+    records that scan as an error naming the contract and goes on; the
+    default harness records none."""
+    from urban_road_filter_torch.ops import ingest
+
+    orig = ingest.assign_rings
+
+    def bad(alpha, valid, angles_sorted, interval):
+        ring = orig(alpha, valid, angles_sorted, interval).clone()
+        ring[0, int(torch.nonzero(valid[0])[0])] = angles_sorted.shape[-1] + 3
+        return ring
+
+    monkeypatch.setattr(ingest, "assign_rings", bad)
+    scans = _flat(2)
+    plain = ReplayHarness(**CPU).run(iter(scans)).summary()
+    assert plain["errors"] == 0 and plain["scans"] == 2
+    h = ReplayHarness(checked=True, **CPU)
+    m = h.run(iter(scans))
+    assert m.summary()["errors"] == 2 and m.summary()["scans"] == 0
+    assert "ring_id" in m.last_error and "IndexContractError" in m.last_error
+    assert h._seq == 2  # both positions consumed, as for any failed scan
+
+
+def test_checked_mode_equals_default():
+    """On clean scans the checked harness publishes the default harness's
+    topics, field for field, with no error; its (CheckError, ScanResult)
+    output is fetched in one go, the error word with it."""
+    scans = _flat(2) + list(scene_source("two_curbs", n_scans=1,
+                                         n_rings=16, n_azimuth=256))
+    runs = {}
+    for checked in (False, True):
+        h = PortRecording(checked=checked, **CPU)
+        h.fetched = []
+        assert h.run(iter(scans)).summary()["errors"] == 0
+        runs[checked] = h.fetched
+    for (_, a, oa), (_, b, ob) in zip(runs[True], runs[False]):
+        for x, y in zip(a, b):
+            np.testing.assert_array_equal(x, y)
+        assert oa.stats.road_points == ob.stats.road_points > 0
+    h = ReplayHarness(checked=True, **CPU)
+    out = h._process(torch.from_numpy(pad_scan_planar(scans[0],
+                                                      DIMS.max_points)))
+    assert type(out) is tuple and len(out) == 2
+    assert len(h._fetch_outputs(out)) == 7
 
 
 def test_outputs_are_five_topics_and_viz_renders(tmp_path):
@@ -370,3 +415,17 @@ def test_cli_replays_the_pcd_fixtures(tmp_path):
     rec = json.loads(stats.read_text().splitlines()[0])
     assert rec["ok"] and rec["points_in"] == 16384 and rec["overflow"] == 0
     assert replay_mod.__name__ == "urban_road_filter_torch.io.replay"
+
+
+def test_cli_checked_replays_the_pcd_fixtures():
+    """The CLI's --checked runs the fixtures through checked mode: clean."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env.update(PYTHONPATH=REPO, OMP_NUM_THREADS="1")
+    out = subprocess.run(
+        [sys.executable, "-m", "urban_road_filter_torch.io.replay",
+         "--pcd-dir", os.path.join(REPO, "tests", "fixtures"), "--device",
+         "cpu", "--scans", "2", "--checked"],
+        check=True, env=env, cwd=REPO, capture_output=True, text=True,
+        timeout=300)
+    summary = json.loads(out.stdout.strip().splitlines()[-1])
+    assert summary["scans"] == 2 and summary["errors"] == 0

@@ -17,9 +17,10 @@ D wedges on the card) on the emulated OS1-128 drive scan at 262144 points,
 128 rings x 2048 slots, azimuth-sorted (chip_smoke.py phase 5).
 Prints the card's name and power limit; per stage (the pipeline's
 ``urf::<stage>`` ranges; a batch's ingest range covers K1-K3 over the
-whole batch) per scan the host ms, the device ms of its kernels and its
-span on the device timeline (gaps included); the device-busy share of the
-profiled wall time; the device ops per scan; the kernels by device
+whole batch) per scan the host ms, the device ms of its device ops, the
+port's CUDA kernels included, its span on the device timeline (gaps
+included) and each kernel's device ms and launches; the device-busy share
+of the profiled wall time; the device ops per scan; the kernels by device
 time; and, with the star search on, the star stage's device ms and device
 ops per scan, profiled on its own (star_hits on each scan's K1 keys, or on
 each wedge's with ``--sp``).  Needs a CUDA device.
@@ -102,6 +103,7 @@ def main() -> int:
         FilterConfig, PipelineDims, pad_scan, packed_scan, planarize_batch,
         process_batch)
     from urban_road_filter_torch.io import SCENES, make_drive, make_scan
+    from urban_road_filter_torch.utils.profiling import stage_device_time
 
     dev = torch.device("cuda", 0)
     cfg = FilterConfig(star_shaped_method=not args.star_off)
@@ -165,35 +167,42 @@ def main() -> int:
         window_us = (time.perf_counter() - t0) * 1e6
 
     # Device rows are kernels, copies and memsets, plus the urf:: ranges
-    # projected onto the device timeline (spans, gaps included).
+    # projected onto the device timeline (spans, gaps included).  A stage's
+    # device ms: every device op inside its window, its kernels included
+    # (utils.profiling.stage_device_time).
     dev_events = [e for e in prof.events()
                   if e.device_type == DeviceType.CUDA
                   and not e.name.startswith("urf::")]
     busy_us = _union_us((e.time_range.start, e.time_range.end)
                         for e in dev_events)
     stages = {}
+    for stage, rec in stage_device_time(prof.events()).items():
+        stages[stage] = {
+            "device_ms": rec["device_us"] / n / 1e3,
+            "device_ops": rec["ops"] / n,
+            "unmatched_ranges": rec["unmatched"],
+            "kernels": {k: {"device_ms": us / n / 1e3, "launches": c / n}
+                        for k, (us, c) in rec["kernels"].items()}}
     kernels = []
     for e in prof.key_averages():
-        dev_us = getattr(e, "device_time_total", None)
-        if dev_us is None:
-            dev_us = e.cuda_time_total
         self_dev_us = getattr(e, "self_device_time_total", None)
         if self_dev_us is None:
             self_dev_us = e.self_cuda_time_total
+        if e.key.startswith("urf::k::"):
+            continue
         if e.key.startswith("urf::"):
             st = stages.setdefault(e.key[5:], {})
-            if e.device_type == DeviceType.CPU:  # host range: its kernels
+            if e.device_type == DeviceType.CPU:
                 st["host_ms"] = e.cpu_time_total / n / 1e3
-                st["device_ms"] = dev_us / n / 1e3
-            else:  # the range on the device timeline: first to last op
+            else:  # the range's own projection: its PyTorch ops, gaps in
                 st["device_span_ms"] = self_dev_us / n / 1e3
         elif self_dev_us > 0 and e.device_type == DeviceType.CUDA:
             kernels.append((self_dev_us / n / 1e3, e.count / n, e.key))
     kernels.sort(reverse=True)
+    attributed = sum(s.get("device_ms", 0.0) for s in stages.values())
 
     # The star stage on its own: star_hits as the pipeline calls it, on
-    # each scan's (or wedge's, or lane's) K1 keys, profiled alone (the
-    # urf::star range credits only its PyTorch ops, not the kernel).
+    # each scan's (or wedge's, or lane's) K1 keys, profiled alone.
     star = None
     if cfg.star_shaped_method:
         calls = star_calls(dev, cfg, args, hosts, call)
@@ -227,6 +236,7 @@ def main() -> int:
         "device_busy_ms_per_scan": busy_us / n / 1e3 if dev_events else None,
         "device_busy_share": busy_us / window_us if dev_events else None,
         "device_ops_per_scan": len(dev_events) / n,
+        "device_ms_in_stages_per_scan": attributed,
         "stages": stages,
         "star_stage": star,
         "kernels": [{"ms_per_scan": ms, "calls_per_scan": c, "name": k}
@@ -249,10 +259,23 @@ def main() -> int:
     elif cfg.star_shaped_method:
         print("star stage alone: not measured (the profiler saw no device "
               "ops)")
+    lost = {k: s["unmatched_ranges"] for k, s in stages.items()
+            if s.get("unmatched_ranges")}
+    if lost:
+        print(f"WARNING: the profiler lost events; ranges left without a "
+              f"device projection per stage {lost}: those stages' device ms "
+              f"below are too low")
+    print(f"device ms inside the stages' ranges "
+          f"{summary['device_ms_in_stages_per_scan']:.4f} per scan (the "
+          f"rest: copies outside the pipeline)")
     for name, s in stages.items():
         print(f"  stage {name:12s} host {s.get('host_ms', 0):8.3f} ms  "
-              f"device {s.get('device_ms', 0):8.3f} ms  "
+              f"device {s.get('device_ms', 0):8.4f} ms "
+              f"({s.get('device_ops', 0):5.1f} ops)  "
               f"device span {s.get('device_span_ms', 0):8.3f} ms")
+        for k, v in s.get("kernels", {}).items():
+            print(f"      kernel {k:22s} device {v['device_ms']:8.4f} ms  "
+                  f"x{v['launches']:.1f}")
     for k in summary["kernels"][:15]:
         print(f"  {k['ms_per_scan']:8.4f} ms  x{k['calls_per_scan']:6.1f}  "
               f"{k['name'][:90]}")

@@ -97,6 +97,10 @@ _SIGNATURES = {
 # streams, would break its results.
 TICKETED = ("ingest_prep", "flood_labeled", "marker_first_nonroad")
 
+# True while a torch profiler records (one C call: the launch path's only
+# cost without a profiler).
+_profiling = torch._C._autograd._profiler_enabled
+
 _launches = dict.fromkeys(KERNELS, 0)
 _last_stream: dict = {}  # (ticketed kernel, device) -> its latest stream
 _lib = None
@@ -242,13 +246,22 @@ def launch(kernel: str, fn: str, device: torch.device, *args) -> None:
     """Call C entry ``fn`` on ``device``'s current stream, raise on a CUDA
     error, and count one launch of ``kernel``.  A TICKETED kernel raises
     instead when its latest launch's stream is another one and still
-    busy."""
+    busy.  While a profiler runs, the call sits in a ``urf::k::<kernel>``
+    range inside the caller's ``urf::<stage>`` range: the profiler links
+    a ctypes launch only to the innermost range, on the device timeline
+    (utils.profiling.stage_device_time)."""
     lib = library()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device)
         if kernel in TICKETED:
             _one_stream(kernel, device, stream)
-        err = getattr(lib, fn)(*args, ctypes.c_void_p(stream.cuda_stream))
+        entry = getattr(lib, fn)
+        handle = ctypes.c_void_p(stream.cuda_stream)
+        if _profiling():
+            with torch.profiler.record_function(f"urf::k::{kernel}"):
+                err = entry(*args, handle)
+        else:
+            err = entry(*args, handle)
     if err != 0:
         raise RuntimeError(f"{kernel}: CUDA error {err}: "
                            f"{lib.urf_error_string(err).decode()}")

@@ -26,10 +26,12 @@ wedges on the one card), built once; ``_to_device`` stages as above;
 ``_fetch_outputs`` tells packed_scan's tuple from a ScanResult by its
 concrete type (the JAX harness tests ``isinstance(out, tuple)``, which a
 ScanResult NamedTuple also passes, so its SP mode cannot unpack a scan).
-Checked mode (the JAX package's checkify path) has no port yet: asking for
-it raises.  Kernels are launched from the one compute stream only (K1, K9
-and K13 count their blocks with per-device tickets, _build.TICKETED); the
-side stream only copies.
+Checked mode (``checked=True``, ``--checked``) runs each scan through
+utils.checked.process_scan_checked; its device error word is one more
+field of the scan's single synchronisation, and a broken index contract
+raises there, so the scan is recorded as an error.  Kernels are launched
+from the one compute stream only (K1, K9 and K13 count their blocks with
+per-device tickets, _build.TICKETED); the side stream only copies.
 
 Run as a CLI:  python -m urban_road_filter_torch.io.replay --scene two_curbs
 """
@@ -52,6 +54,8 @@ from urban_road_filter_torch.pipeline import (
     ScanResult, pad_scan_planar, packed_scan, target_device, unpack_planes)
 from urban_road_filter_torch.postprocess import (
     MarkerTracker, build_line_strips, smooth_marker_flags)
+from urban_road_filter_torch.utils.checked import (
+    CheckError, process_scan_checked)
 from urban_road_filter_torch.utils.metrics import ScanStats, StreamMetrics
 
 __all__ = ["ScanOutputs", "ReplayHarness", "scene_source", "npz_source",
@@ -115,11 +119,6 @@ class ReplayHarness:
                  checked: bool = False,
                  pipeline_depth: int = 1,
                  device=None):
-        if checked:
-            raise NotImplementedError(
-                "checked mode is not ported yet (ROADMAP.md Queue 1: "
-                "utils/checked.py, a device error word read once per "
-                "scan); the plain path does not stand in for it")
         # device=None is the card; without one this raises, as the
         # pipeline's entry points do.  "cpu" runs the plain twins.
         self.device = target_device(device)
@@ -143,6 +142,10 @@ class ReplayHarness:
         # wedges (the 128-beam multi-LiDAR SP mode), all on this device;
         # the same five-topic ScanOutputs.
         self.azimuth_shard = int(azimuth_shard)
+        # checked: index contracts checked on the device (utils/checked.py),
+        # a broken one raises instead of being masked silently; the SP
+        # path takes precedence, as in the JAX harness.
+        self.checked = bool(checked)
         self._sp_run = None
         self.metrics = StreamMetrics()
         self.tracker = MarkerTracker()
@@ -172,6 +175,10 @@ class ReplayHarness:
                     self.azimuth_shard, self.cfg, self.dims,
                     device=self.device)
             return self._sp_run(dev_scan, self.cfg, layout="planar")
+        if self.checked:
+            return process_scan_checked(dev_scan, self.cfg, self.dims,
+                                        throw=False, layout="planar",
+                                        device=self.device)
         # Default path: the packed wire format (labels/roi/probably_road on
         # ONE uint8 plane), unpacked by _fetch_outputs.
         return packed_scan(dev_scan, self.cfg, self.dims, layout="planar",
@@ -366,11 +373,17 @@ class ReplayHarness:
 
     def _fetch_outputs(self, out):
         """Every output the node publishes, in host memory, in the order of
-        _postprocess's host_out tuple.  ``out`` is a ScanResult (SP mode) or
-        packed_scan's (packed, markers, ok, num_rings, overflow) tuple, told
-        apart by the concrete type: ScanResult first, since a NamedTuple is
-        a tuple too.  On the card, one non-blocking copy per field into
-        pinned memory, then one event synchronisation."""
+        _postprocess's host_out tuple.  ``out`` is a ScanResult (SP mode),
+        packed_scan's (packed, markers, ok, num_rings, overflow) tuple or
+        a checked scan's (CheckError, ScanResult), told apart by the
+        concrete type: ScanResult first, since a NamedTuple is a tuple too.
+        On the card, one non-blocking copy per field (a checked scan's
+        error word too) into pinned memory, then one event
+        synchronisation; a set error word raises after it."""
+        err = None
+        if (type(out) is tuple and len(out) == 2
+                and isinstance(out[0], CheckError)):
+            err, out = out
         if isinstance(out, ScanResult):
             fields = (out.labels, out.roi, out.probably_road, out.markers,
                       out.ok, out.num_rings, out.overflow)
@@ -378,6 +391,8 @@ class ReplayHarness:
             fields = out
         else:
             raise TypeError(f"unexpected pipeline output {type(out)!r}")
+        if err is not None:
+            fields = (*fields, err.word)
         if self.device.type == "cuda":
             host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
                     for t in fields]
@@ -389,6 +404,9 @@ class ReplayHarness:
         else:
             host = fields
         host = tuple(h.numpy() for h in host)
+        if err is not None:
+            CheckError(host[-1]).throw()
+            host = host[:-1]
         if isinstance(out, ScanResult):
             return host
         packed, markers, ok, rings, overflow = host
@@ -583,8 +601,10 @@ def main() -> None:
     ap.add_argument("--stats-jsonl", default=None,
                     help="write per-scan stats records to this file")
     ap.add_argument("--checked", action="store_true",
-                    help="debug mode with in-kernel index checks: not "
-                         "ported yet, raises")
+                    help="debug: the index contracts checked on the device "
+                         "at every stage boundary (utils/checked.py); a "
+                         "broken one fails its scan instead of being "
+                         "masked silently")
     ap.add_argument("--follow", nargs="?", const="", default=None,
                     metavar="DIR",
                     help="live view (rviz follow analogue): window on an "
