@@ -126,7 +126,24 @@
    included), as before the ranges, in a fresh process; (e)
    examples/demo_torch.py at
    --render-every 0 on 4 scans with the beam_zone hot swap.
-8. Prints one JSON line of per-kernel results (K1-K3 with their grid and
+8. Drives the SP path over the ranks of a torch.distributed process group
+   (make_azimuth_pipeline(8, ..., group=...)) on phase 5's two
+   deployments, star search on and off, 1 + 5 runs each, beside
+   make_azimuth_pipeline(8) on one card in this call: (a) a one-rank NCCL
+   group holding the 8 wedges, in this process; (b) 8 gloo ranks of one
+   wedge each, spawned on cuda:0 (the JAX layout of one wedge per
+   device), each reporting its launch counts, zeroed just before its runs
+   and read just after (K1-K8, K12 and K14 on every rank), then K1 20
+   times a rank at once under the 8 contexts (its tickets), and the SP
+   replay harness over the ranks (rank 0 replays 2 OS1-128 drive scans,
+   the others follow); (c) on 2 cards or more, NCCL over min(cards, 8)
+   ranks (a power of two), else the line "phase 8 (c) not run: 1 card".
+   Every field of every rank must be bit-equal to the one-card run, rank
+   0's results pass the oracle gate as in phase 5, the harness publishes
+   the one-card SP harness's topics; a rank's failure or a rank that does
+   not report within 300 s fails the run.  Prints the three host-to-host
+   SP p50s and the collective census of a scan at the OS1-128 dims.
+9. Prints one JSON line of per-kernel results (K1-K3 with their grid and
    their times at B = 1, "b1", at the SP call's shape, "sp", and, K2 and
    K3, on the ring-major scan, "ring_major"; K7's SP entry, "sp"; K11's
    over the phase-4 batch, "b128") and, last,
@@ -1154,21 +1171,29 @@ def phase_batch(dev, cfg, scans, merged, dims, mdims, smi,
     return launches
 
 
+def sp_dims() -> dict:
+    """{name: dims} of phase 5's two SP deployments."""
+    from urban_road_filter_torch import PipelineDims
+
+    return {"os1_128_262k": PipelineDims(max_points=262144, rings=128,
+                                         ring_capacity=2048,
+                                         beam_capacity=1024),
+            "os1_64_preset": PipelineDims.for_sensor("os1-64")}
+
+
 def sp_deployments():
     """(name, dims, azimuth-sorted scan, oracle channels) of phase 5: the
     JAX package's production SP test (the emulated OS1-128 drive, seed 31,
     2048 firings, 262144 points) and the OS1-64 preset on a drive scan."""
-    from urban_road_filter_torch import PipelineDims
     from urban_road_filter_torch.io import make_drive
     from urban_road_filter_torch.parallel.azimuth_parallel import (
         azimuth_sorted)
 
-    return [("os1_128_262k", PipelineDims(max_points=262144, rings=128,
-                                          ring_capacity=2048,
-                                          beam_capacity=1024),
+    dims = sp_dims()
+    return [("os1_128_262k", dims["os1_128_262k"],
              azimuth_sorted(next(make_drive(1, sensor="os1_128", seed=31,
                                             firings=2048))), 128),
-            ("os1_64_preset", PipelineDims.for_sensor("os1-64"),
+            ("os1_64_preset", dims["os1_64_preset"],
              azimuth_sorted(next(make_drive(1, sensor="os1_64", seed=41))),
              None)]
 
@@ -1420,9 +1445,10 @@ def phase_sp(dev, configs, smi, device_parity_gate):
               f"twins", flush=True)
         # The sp_xz_zero stage (halo exchange, then K7), again in place on
         # the probe's copy of its layout.
+        lay = probe["halo"][0]
         ops = profiled_ops(lambda: ap._halo_stencils(
-            ap.LocalWedges(WEDGES), probe["halo"][0], dims.rings,
-            configs["default"]))
+            ap.LocalWedges(WEDGES), lay, dims.rings, configs["default"],
+            lay.counts.view(WEDGES, dims.rings)))
         print(f"  {name}: the sp_xz_zero stage: {ops} device ops per SP "
               f"scan (torch.profiler), K7 one of them", flush=True)
     return total
@@ -1958,6 +1984,323 @@ def phase_demo(dev) -> dict:
     return launches
 
 
+RANK_TIMEOUT_S = 180  # a phase-8 collective that waits longer ends its rank
+RANKS_LIMIT_S = 300  # every phase-8 rank reports and exits within this
+
+
+def ranked_runs(dev, group, data, configs) -> dict:
+    """make_azimuth_pipeline(8 wedges, group=group) on phase 5's two
+    deployments in each configuration, 1 + SCAN_REPS runs each, host to
+    host (the padded scan from pinned memory, every field back): the
+    launch counts of the runs, each run's census, the p50 and the fields
+    that differ bitwise from the one-card results in ``data``; on rank 0
+    the labels and markers, for the oracle gate."""
+    import torch.distributed as dist
+
+    from urban_road_filter_torch import (
+        ScanResult, launch_counts, reset_launch_counts)
+    from urban_road_filter_torch.parallel.azimuth_parallel import (
+        make_azimuth_pipeline)
+
+    out = {"launches": {}, "p50": {}, "census": {}, "differ": [],
+           "gate": {}}
+    for name, dims in sp_dims().items():
+        host = torch.from_numpy(data[f"pts/{name}"]).pin_memory()
+        for cname, cfg in configs.items():
+            run = make_azimuth_pipeline(WEDGES, cfg, dims, device=dev,
+                                        group=group)
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            times = []
+            for _ in range(1 + SCAN_REPS):
+                t0 = time.perf_counter()
+                res = run(host.to(dev, non_blocking=True))
+                fetched = ScanResult(*(t.cpu() for t in res))
+                times.append(time.perf_counter() - t0)
+            for k, v in launch_counts().items():
+                out["launches"][k] = out["launches"].get(k, 0) + v
+            out["p50"][name, cname] = statistics.median(times[1:]) * 1e3
+            out["census"][name, cname] = {
+                k: dict(v) for k, v in run.wedges.census.items()}
+            for f in ScanResult._fields:
+                if not same_bits(getattr(fetched, f), torch.from_numpy(
+                        data[f"ref/{name}/{cname}/{f}"])):
+                    out["differ"].append((name, cname, f))
+            if dist.get_rank(group) == 0:
+                out["gate"][name, cname] = (fetched.labels.numpy(),
+                                            fetched.markers.numpy())
+    return out
+
+
+def sp_harness_scans() -> list:
+    """Phase 8 (b)'s harness scans: two OS1-128 drive scans (phase 6 (c)'s
+    first two)."""
+    from urban_road_filter_torch.io import make_drive
+    from urban_road_filter_torch.parallel.azimuth_parallel import (
+        azimuth_sorted)
+
+    return [azimuth_sorted(p) for p in make_drive(2, sensor="os1_128",
+                                                  seed=31, firings=2048)]
+
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    a, b = a.cpu(), b.cpu()
+    return (a.dtype == b.dtype and a.shape == b.shape
+            and a.numpy().tobytes() == b.numpy().tobytes())
+
+
+def ticket_check(dev, data) -> bool:
+    """K1 (a TICKETED kernel: per-device block tickets) 20 times in a row
+    on the OS1-128 scan, while the other ranks on the card do the same
+    from their own contexts: every call equal to the first, and the first
+    to the plain twin's outputs on the CPU."""
+    import torch.distributed as dist
+
+    from urban_road_filter_torch import FilterConfig
+    from urban_road_filter_torch.ops import ingest
+
+    pts = torch.from_numpy(data["pts/os1_128_262k"])
+    xyz = [pts[None, :, k].contiguous() for k in range(3)]
+    cfg = FilterConfig()
+    want = ingest.ingest_prep(*xyz, cfg, want_star_keys=True)
+    on_card = [t.to(dev) for t in xyz]
+    dist.barrier()
+    got = [ingest.ingest_prep(*on_card, cfg, want_star_keys=True)
+           for _ in range(20)]
+    return all(same_bits(a, b) for call in got for a, b in zip(call, want))
+
+
+def sp_rank(rank: int, world: int, backend: str, store: str, data_path: str,
+            configs: dict, q) -> None:
+    """One rank of phase 8 (b) or (c), a process of its own: NCCL on
+    cuda:<rank>, gloo on cuda:0 with every other rank.  Puts (rank,
+    results) on q: ranked_runs' results, the ticket check and, in (b),
+    the SP harness over the ranks (rank 0 replays phase 6's OS1-128 scans,
+    the others follow); a failure puts its traceback under "error"."""
+    import datetime
+    import traceback
+
+    import torch.distributed as dist
+
+    out = {}
+    try:
+        from urban_road_filter_torch import FilterConfig
+        from urban_road_filter_torch.io.replay import ReplayHarness, follow
+
+        dev = torch.device("cuda", rank if backend == "nccl" else 0)
+        torch.cuda.set_device(dev)
+        dist.init_process_group(
+            backend, store=dist.FileStore(store, world), rank=rank,
+            world_size=world,
+            timeout=datetime.timedelta(seconds=RANK_TIMEOUT_S))
+        group = dist.group.WORLD
+        data = np.load(data_path)
+        out = ranked_runs(dev, group, data, configs)
+        if backend == "gloo":
+            out["tickets_ok"] = ticket_check(dev, data)
+            dims = sp_dims()["os1_128_262k"]
+            if rank == 0:
+                got = []
+                h = ReplayHarness(cfg=FilterConfig(), dims=dims,
+                                  azimuth_shard=WEDGES, device=dev,
+                                  group=group, on_scan=got.append)
+                try:
+                    m = h.run(iter(data[f"harness/{k}"] for k in range(
+                        int(data["harness_scans"]))))
+                finally:
+                    h.close()
+                assert m.summary()["errors"] == 0, m.last_error
+                out["harness"] = got
+            else:
+                out["followed"] = follow(FilterConfig(), dims, WEDGES,
+                                         group, device=dev)
+        assert_no_jax()
+    except Exception:  # noqa: BLE001 -- reported to the parent
+        out["error"] = traceback.format_exc()
+    finally:
+        q.put((rank, out))
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def spawn_ranks(world: int, backend: str, tmp: str, data_path: str,
+                configs: dict) -> dict:
+    """sp_rank on ``world`` spawned processes; {rank: results}, after
+    every rank reported and exited within RANKS_LIMIT_S (a straggler is
+    ended); any rank's failure raises."""
+    import os
+    import queue
+
+    import torch.multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    store = os.path.join(tmp, f"store_{backend}_{world}")
+    procs = [ctx.Process(target=sp_rank, args=(r, world, backend, store,
+                                               data_path, configs, q),
+                         daemon=True) for r in range(world)]
+    deadline = time.monotonic() + RANKS_LIMIT_S
+    for p in procs:
+        p.start()
+    got = {}
+    try:
+        while len(got) < world:
+            try:
+                rank, res = q.get(timeout=max(1.0,
+                                              deadline - time.monotonic()))
+            except queue.Empty:
+                raise AssertionError(
+                    f"ranks {sorted(set(range(world)) - set(got))} did not "
+                    f"report within {RANKS_LIMIT_S} s") from None
+            got[rank] = res
+        for p in procs:
+            p.join(max(1.0, deadline - time.monotonic()))
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+                p.join(10)
+    for rank, res in sorted(got.items()):
+        assert "error" not in res, f"rank {rank}:\n{res['error']}"
+    assert [p.exitcode for p in procs] == [0] * world, [
+        p.exitcode for p in procs]
+    return got
+
+
+def check_ranked(what: str, ranked: dict, deployments, configs,
+                 device_parity_gate) -> None:
+    """Every rank bit-equal to the one-card run on every field, every
+    kernel of the SP path launched on every rank, the census alike on
+    every rank, rank 0's results gated against the oracle."""
+    for rank, res in sorted(ranked.items()):
+        assert not res["differ"], (what, rank, res["differ"][:5])
+        assert_launched(res["launches"], SP_KERNELS, f"{what} rank {rank}")
+        assert res["census"] == ranked[0]["census"], (what, rank)
+    for name, _, scan, channels in deployments:
+        for cname, cfg in configs.items():
+            labels, markers = ranked[0]["gate"][name, cname]
+            agree, n_sys = device_parity_gate(scan, labels, markers, cfg,
+                                              name, channels=channels)
+            assert agree >= 0.999 and n_sys == 0, (what, name, cname, agree,
+                                                   n_sys)
+
+
+def phase_ranks(dev, configs, smi, device_parity_gate) -> None:
+    """Phase 8: the SP path over the ranks of a process group, 8 wedges,
+    on phase 5's deployments, beside make_azimuth_pipeline(8) on one card
+    (p50s in this call): (a) a one-rank NCCL group in this process; (b) 8
+    gloo ranks of one wedge each, spawned on cuda:0 (with K1's tickets
+    under 8 contexts and the SP harness over the ranks); (c) NCCL over
+    min(cards, 8) ranks, a power of two, where there are 2 cards or more."""
+    import os
+    import tempfile
+
+    import torch.distributed as dist
+
+    from urban_road_filter_torch import FilterConfig, ScanResult, pad_scan
+    from urban_road_filter_torch.io.replay import ReplayHarness
+    from urban_road_filter_torch.parallel.azimuth_parallel import (
+        make_azimuth_pipeline)
+
+    deployments = sp_deployments()
+    data = {}
+    one_p50 = {}
+    for name, dims, scan, _ in deployments:
+        pts = pad_scan(scan, dims.max_points)
+        data[f"pts/{name}"] = pts
+        host = torch.from_numpy(pts).pin_memory()
+        for cname, cfg in configs.items():
+            run = make_azimuth_pipeline(WEDGES, cfg, dims, device=dev)
+            times = []
+            for _ in range(1 + SCAN_REPS):
+                t0 = time.perf_counter()
+                fetched = ScanResult(*(t.cpu() for t in run(
+                    host.to(dev, non_blocking=True))))
+                times.append(time.perf_counter() - t0)
+            one_p50[name, cname] = statistics.median(times[1:]) * 1e3
+            for f in ScanResult._fields:
+                data[f"ref/{name}/{cname}/{f}"] = getattr(fetched, f).numpy()
+    hdims = sp_dims()["os1_128_262k"]
+    hscans = sp_harness_scans()
+    for k, scan in enumerate(hscans):
+        data[f"harness/{k}"] = scan
+    data["harness_scans"] = np.int32(len(hscans))
+    want_topics = []
+    ReplayHarness(cfg=FilterConfig(), dims=hdims, azimuth_shard=WEDGES,
+                  device=dev, on_scan=want_topics.append).run(iter(hscans))
+
+    with tempfile.TemporaryDirectory() as tmp:
+        data_path = os.path.join(tmp, "phase8.npz")
+        np.savez(data_path, **data)
+        ref = np.load(data_path)
+
+        # (a) One NCCL rank holding all 8 wedges, in this process.
+        dist.init_process_group(
+            "nccl", store=dist.FileStore(os.path.join(tmp, "store_a"), 1),
+            rank=0, world_size=1)
+        try:
+            a = ranked_runs(dev, dist.group.WORLD, ref, configs)
+        finally:
+            dist.destroy_process_group()
+        check_ranked("(a)", {0: a}, deployments, configs,
+                     device_parity_gate)
+        runs = 2 * len(configs) * (1 + SCAN_REPS)
+        assert a["launches"]["flood_blocked"] == runs, a["launches"]
+        assert a["launches"]["marker_state"] == 2 * runs, a["launches"]
+        census = a["census"]["os1_128_262k", "default"]
+        print(f"  collective census per SP scan, OS1-128 production dims "
+              f"(262144 points, 128 rings x 384 slots a wedge, 8 wedges): "
+              + ", ".join(f"{k} {v['calls']} calls {v['bytes']} B"
+                          for k, v in sorted(census.items()))
+              + f", {sum(v['bytes'] for v in census.values())} B in all "
+              f"(received per rank)", flush=True)
+
+        # (b) 8 gloo ranks of one wedge each, all on cuda:0.
+        t0 = time.perf_counter()
+        b = spawn_ranks(WEDGES, "gloo", tmp, data_path, configs)
+        took = time.perf_counter() - t0
+        check_ranked("(b)", b, deployments, configs, device_parity_gate)
+        assert all(res["tickets_ok"] for res in b.values()), "K1 tickets"
+        for res in b.values():
+            assert res["census"] == a["census"]
+        assert all(res["followed"] == len(hscans)
+                   for r, res in b.items() if r)
+        same_outputs(b[0]["harness"], want_topics, "(b) SP harness")
+        for name, dims, _, _ in deployments:
+            for cname in configs:
+                print(f"  {name} {cname}: SP p50 host to host on {smi}: "
+                      f"one card {one_p50[name, cname]:.3f} ms; (a) one "
+                      f"NCCL rank {a['p50'][name, cname]:.3f} ms; (b) 8 gloo "
+                      f"ranks on cuda:0 (a correctness run: gloo stages "
+                      f"every collective through the host) "
+                      f"{b[0]['p50'][name, cname]:.3f} ms at rank 0, "
+                      f"{max(r['p50'][name, cname] for r in b.values()):.3f}"
+                      f" ms at the slowest rank", flush=True)
+        print(f"  (a) and (b): every field of every rank bit-equal to "
+              f"make_azimuth_pipeline(8) on one card, oracle gate passed; "
+              f"(b) {took:.1f} s with the spawn, every rank launched "
+              f"{', '.join(SP_KERNELS)}; K1 20 calls a rank under 8 "
+              f"contexts equal to its plain twin; the SP harness over the "
+              f"8 ranks published the one-card SP harness's topics on "
+              f"{len(hscans)} OS1-128 scans", flush=True)
+        print(f"    launches at rank 0 (b): "
+              f"{ {k: v for k, v in b[0]['launches'].items() if v} }")
+
+        # (c) NCCL over several cards.
+        cards = torch.cuda.device_count()
+        if cards < 2:
+            print(f"phase 8 (c) not run: {cards} card", flush=True)
+        else:
+            world = 1 << (min(cards, WEDGES).bit_length() - 1)
+            c = spawn_ranks(world, "nccl", tmp, data_path, configs)
+            check_ranked("(c)", c, deployments, configs, device_parity_gate)
+            for name, dims, _, _ in deployments:
+                for cname in configs:
+                    print(f"  (c) {name} {cname}: SP p50 host to host over "
+                          f"{world} NCCL ranks {c[0]['p50'][name, cname]:.3f}"
+                          f" ms at rank 0", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False")
@@ -2101,6 +2444,13 @@ def main() -> int:
     launches = phase_demo(dev)
     print(f"  launches: {launches}")
     assert_launched(launches, SCAN_KERNELS, "the demo drive")
+    assert_no_jax()
+
+    print(f"phase 8: the SP path over the ranks of a process group, "
+          f"{WEDGES} wedges", flush=True)
+    t0 = time.perf_counter()
+    phase_ranks(dev, configs, smi, device_parity_gate)
+    print(f"  phase 8 took {time.perf_counter() - t0:.1f} s", flush=True)
     assert_no_jax()
 
     print(json.dumps({"kernels": [

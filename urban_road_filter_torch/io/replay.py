@@ -22,7 +22,8 @@ roi / road_probably clouds + marker strips) as Python structures, with:
 The hooks that differ from the JAX harness: ``_process`` calls
 ``pipeline.packed_scan(..., layout="planar")``, or with ``azimuth_shard``
 > 1 the run of ``parallel.azimuth_parallel.make_azimuth_pipeline`` (all
-wedges on the one card), built once; ``_to_device`` stages as above;
+wedges on the one card, or, with a process ``group``, spread over its
+ranks), built once; ``_to_device`` stages as above;
 ``_fetch_outputs`` tells packed_scan's tuple from a ScanResult by its
 concrete type (the JAX harness tests ``isinstance(out, tuple)``, which a
 ScanResult NamedTuple also passes, so its SP mode cannot unpack a scan).
@@ -33,12 +34,22 @@ raises there, so the scan is recorded as an error.  Kernels are launched
 from the one compute stream only (K1, K9 and K13 count their blocks with
 per-device tickets, _build.TICKETED); the side stream only copies.
 
+SP mode over the ranks of a torch.distributed group (the JAX harness's
+multi-device mesh): rank 0 runs ``ReplayHarness(azimuth_shard=n,
+group=pg)`` and the other ranks ``follow(cfg, dims, n, pg)``.  Before each
+scan rank 0 broadcasts a one-int32 header (scan, config or stop), then the
+staged (3, N) scan; a changed ``h.cfg`` goes out once, before the scan that
+first uses it; ``close()`` stops the followers.
+
 Run as a CLI:  python -m urban_road_filter_torch.io.replay --scene two_curbs
+(under ``torchrun --nproc-per-node W ... --azimuth-shard n``: SP mode over
+the W ranks)
 """
 
 from __future__ import annotations
 
 import dataclasses
+import datetime
 import json
 import os
 import time
@@ -47,6 +58,7 @@ from typing import Callable, Iterable, Iterator, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from urban_road_filter_torch.config import FilterConfig, PipelineDims
 from urban_road_filter_torch.constants import LABEL_CURB, LABEL_ROAD
@@ -58,8 +70,11 @@ from urban_road_filter_torch.utils.checked import (
     CheckError, process_scan_checked)
 from urban_road_filter_torch.utils.metrics import ScanStats, StreamMetrics
 
-__all__ = ["ScanOutputs", "ReplayHarness", "scene_source", "npz_source",
-           "pcd_dir_source", "bag_source"]
+__all__ = ["ScanOutputs", "ReplayHarness", "follow", "scene_source",
+           "npz_source", "pcd_dir_source", "bag_source"]
+
+# The header rank 0 broadcasts to the followers before each message.
+_SCAN, _CONFIG, _STOP = 0, 1, 2
 
 
 @dataclasses.dataclass
@@ -118,7 +133,8 @@ class ReplayHarness:
                  azimuth_shard: int = 0,
                  checked: bool = False,
                  pipeline_depth: int = 1,
-                 device=None):
+                 device=None,
+                 group=None):
         # device=None is the card; without one this raises, as the
         # pipeline's entry points do.  "cpu" runs the plain twins.
         self.device = target_device(device)
@@ -139,9 +155,19 @@ class ReplayHarness:
         # on resume: at-least-once for drops, never a lost scan.
         self.pipeline_depth = max(1, int(pipeline_depth))
         # azimuth_shard > 1: run each scan cut into that many azimuth
-        # wedges (the 128-beam multi-LiDAR SP mode), all on this device;
-        # the same five-topic ScanOutputs.
+        # wedges (the 128-beam multi-LiDAR SP mode), all on this device or,
+        # with a process group, spread over its ranks (this one is rank 0,
+        # the others run follow()); the same five-topic ScanOutputs.
         self.azimuth_shard = int(azimuth_shard)
+        self.group = group
+        if group is not None:
+            if self.azimuth_shard <= 1:
+                raise ValueError("a process group needs azimuth_shard > 1")
+            if dist.get_rank(group) != 0:
+                raise ValueError("rank 0 of the group runs the harness; the "
+                                 "other ranks run follow()")
+        self._sent_cfg = None  # the configuration the followers hold
+        self._stopped = False
         # checked: index contracts checked on the device (utils/checked.py),
         # a broken one raises instead of being masked silently; the SP
         # path takes precedence, as in the JAX harness.
@@ -173,7 +199,9 @@ class ReplayHarness:
 
                 self._sp_run = make_azimuth_pipeline(
                     self.azimuth_shard, self.cfg, self.dims,
-                    device=self.device)
+                    device=self.device, group=self.group)
+            if self.group is not None:
+                self._send(dev_scan)
             return self._sp_run(dev_scan, self.cfg, layout="planar")
         if self.checked:
             return process_scan_checked(dev_scan, self.cfg, self.dims,
@@ -183,6 +211,32 @@ class ReplayHarness:
         # ONE uint8 plane), unpacked by _fetch_outputs.
         return packed_scan(dev_scan, self.cfg, self.dims, layout="planar",
                            device=self.device)
+
+    # ---- the followers (SP mode over a process group) ----
+    def _header(self, kind: int) -> None:
+        dist.broadcast(torch.tensor([kind], dtype=torch.int32,
+                                    device=self.device),
+                       dist.get_global_rank(self.group, 0), group=self.group)
+
+    def _send(self, dev_scan: torch.Tensor) -> None:
+        """The followers' share of one SP scan: the configuration where it
+        changed, then the staged scan."""
+        if self._stopped:
+            raise RuntimeError("the followers were stopped (close())")
+        src = dist.get_global_rank(self.group, 0)
+        if self.cfg != self._sent_cfg:
+            self._header(_CONFIG)
+            dist.broadcast_object_list([self.cfg], src=src, group=self.group)
+            self._sent_cfg = self.cfg
+        self._header(_SCAN)
+        dist.broadcast(dev_scan, src, group=self.group)
+
+    def close(self) -> None:
+        """With a process group: stop the followers (once); they return
+        from follow().  Nothing to do otherwise."""
+        if self.group is not None and not self._stopped:
+            self._header(_STOP)
+            self._stopped = True
 
     # ---- checkpoint / resume ----
     def _save_checkpoint(self) -> None:
@@ -571,6 +625,56 @@ class ReplayHarness:
             marker_strips=strips, stats=stats)
 
 
+def follow(cfg: FilterConfig, dims: PipelineDims, azimuth_shard: int,
+           group, device=None) -> int:
+    """The other ranks' side of ``ReplayHarness(azimuth_shard=...,
+    group=group)`` on rank 0: receive each scan (and each new
+    configuration) from rank 0's broadcasts and run the same SP run on it,
+    this rank's wedges, until rank 0 stops (``close()``).  ``device`` as
+    for parallel.azimuth_parallel.rank_device.  Returns the scans run."""
+    from urban_road_filter_torch.parallel.azimuth_parallel import (
+        make_azimuth_pipeline, rank_device)
+
+    dev = rank_device(device)
+    run = make_azimuth_pipeline(azimuth_shard, cfg, dims, device=dev,
+                                group=group)
+    src = dist.get_global_rank(group, 0)
+    header = torch.empty((1,), dtype=torch.int32, device=dev)
+    scan = torch.empty((3, dims.max_points), dtype=torch.float32, device=dev)
+    done = 0
+    while True:
+        dist.broadcast(header, src, group=group)
+        kind = int(header[0])
+        if kind == _STOP:
+            return done
+        if kind == _CONFIG:
+            box = [None]
+            dist.broadcast_object_list(box, src=src, group=group)
+            cfg = box[0]
+        elif kind == _SCAN:
+            dist.broadcast(scan, src, group=group)
+            run(scan, cfg, layout="planar")
+            done += 1
+        else:
+            raise RuntimeError(f"unknown header {kind} from rank 0")
+
+
+def _init_ranks(world: int, device) -> torch.device:
+    """Under torchrun (WORLD_SIZE > 1): join the group from the
+    environment, NCCL where the cards are at least as many as the ranks
+    and the run is on them, gloo otherwise (the CPU, or ranks that share a
+    card).  Returns this rank's device."""
+    from urban_road_filter_torch.parallel.azimuth_parallel import rank_device
+
+    on_cards = device != "cpu" and torch.cuda.device_count() >= world
+    dist.init_process_group("nccl" if on_cards else "gloo",
+                            timeout=datetime.timedelta(minutes=5))
+    dev = rank_device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    return dev
+
+
 def main() -> None:
     import argparse
 
@@ -592,8 +696,11 @@ def main() -> None:
                          "transfers with the device step)")
     ap.add_argument("--azimuth-shard", type=int, default=0,
                     help="cut each scan into this many azimuth wedges "
-                         "(sequence-parallel mode, all wedges on the one "
-                         "card; must divide 360)")
+                         "(sequence-parallel mode; must divide 360): all "
+                         "on the one card, or under torchrun (WORLD_SIZE > "
+                         "1) spread over the ranks, rank 0 replaying and "
+                         "the others following; NCCL where the cards are "
+                         "at least as many as the ranks, else gloo")
     ap.add_argument("--checkpoint", default=None)
     ap.add_argument("--config-json", default=None)
     ap.add_argument("--config", default=None,
@@ -613,9 +720,19 @@ def main() -> None:
     ap.add_argument("--follow-rate", type=float, default=10.0,
                     help="max live-view redraw rate in Hz")
     ap.add_argument("--device", default=None,
-                    help="cuda (the default) or cpu (the plain PyTorch "
-                         "twins of the kernels)")
+                    help="cuda (the default; under torchrun cuda:<rank %% "
+                         "cards>) or cpu (the plain PyTorch twins of the "
+                         "kernels)")
     args = ap.parse_args()
+
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    group, device = None, args.device
+    if world > 1:
+        if args.azimuth_shard <= 1:
+            raise SystemExit("error: several ranks (WORLD_SIZE > 1) run the "
+                             "SP mode: pass --azimuth-shard")
+        device = _init_ranks(world, args.device)
+        group = dist.group.WORLD
 
     cfg = FilterConfig()
     if args.config:
@@ -645,6 +762,14 @@ def main() -> None:
                              f"have {sorted(SCENES)}")
         source = scene_source(args.scene, n_scans=args.scans)
 
+    # Every rank checks the inputs above alike, so a refusal ends them all.
+    if group is not None and dist.get_rank() != 0:
+        try:
+            follow(cfg, PipelineDims(), args.azimuth_shard, group, device)
+        finally:
+            dist.destroy_process_group()
+        return
+
     sinks = []
     fh = open(args.stats_jsonl, "a") if args.stats_jsonl else None
     if fh is not None:
@@ -665,12 +790,15 @@ def main() -> None:
                       azimuth_shard=args.azimuth_shard,
                       checked=args.checked,
                       pipeline_depth=args.pipeline_depth,
-                      device=args.device)
+                      device=device, group=group)
     try:
         metrics = h.run(source, max_scans=args.scans)
     finally:
         if fh is not None:
             fh.close()
+        if group is not None:
+            h.close()
+            dist.destroy_process_group()
     print(json.dumps(metrics.summary()))
 
 

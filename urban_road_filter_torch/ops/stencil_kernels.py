@@ -89,7 +89,8 @@ def fused_xz_zero(layout: RingLayout, cfg: FilterConfig,
 
 def xz_zero_halo_plain(layout: RingLayout, left: dict, right: dict,
                        prefix: torch.Tensor, total: torch.Tensor,
-                       cfg: FilterConfig) -> torch.Tensor:
+                       cfg: FilterConfig,
+                       n_wedges: int | None = None) -> torch.Tensor:
     """The plain twin of fused_xz_zero_halo: the stacked layout's new label
     table.  It builds halo-extended rows [cp dummy | left halo | local P |
     right halo] in memory, runs x_zero (newY at global ring positions)
@@ -135,8 +136,8 @@ def xz_zero_halo_plain(layout: RingLayout, left: dict, right: dict,
 
     if cfg.x_zero_method:
         marks = x_zero(ext_layout, cfg, new_y_ladder(
-            p_ext, (prefix - 2 * cp).reshape(-1).to(I32), cap * d,
-            device=dev)).label == LABEL_CURB
+            p_ext, (prefix - 2 * cp).reshape(-1).to(I32),
+            cap * (n_wedges or d), device=dev)).label == LABEL_CURB
         src_ok = (g_gate & exists & torch.roll(exists, -cp, dims=-1)
                   & in_row)
         at_mark = torch.roll(src_ok, cp // 2, dims=-1)
@@ -154,7 +155,7 @@ def xz_zero_halo_plain(layout: RingLayout, left: dict, right: dict,
 
 def fused_xz_zero_halo(layout: RingLayout, left: dict, right: dict,
                        prefix: torch.Tensor, total: torch.Tensor,
-                       cfg: FilterConfig) -> None:
+                       cfg: FilterConfig, n_wedges: int | None = None) -> None:
     """The curb stencils of the azimuth-sharded path, in place on the
     stacked (D * R, cap) layout's label, one launch over every wedge: each
     row's windows reach into the cp points before and after the wedge's
@@ -162,8 +163,9 @@ def fused_xz_zero_halo(layout: RingLayout, left: dict, right: dict,
     (D, R, cp) x/y/z blocks with their valid counts "n" (D, R), as the
     path's halo exchange gives them); ``prefix`` (D, R) is the global ring
     position of each row's slot 0, ``total`` (R,) each ring's point count;
-    newY at clip(prefix + slot, 0, cap * D - 1).  Only local slots are
-    marked."""
+    newY at clip(prefix + slot, 0, cap * n_wedges - 1), n_wedges being the
+    wedges of the whole scan (default D, every wedge stacked here).  Only
+    local slots are marked."""
     do_x, do_z = bool(cfg.x_zero_method), bool(cfg.z_zero_method)
     if not (do_x or do_z):
         return
@@ -174,7 +176,7 @@ def fused_xz_zero_halo(layout: RingLayout, left: dict, right: dict,
     rows, cap = layout.x.shape
     if _build.on_cpu(layout.x):
         layout.label.copy_(xz_zero_halo_plain(layout, left, right, prefix,
-                                              total, cfg))
+                                              total, cfg, n_wedges))
         return
     dev = layout.x.device
     for name in ("x", "y", "z"):
@@ -194,6 +196,7 @@ def fused_xz_zero_halo(layout: RingLayout, left: dict, right: dict,
                   _build.ptr(layout.label),
                   *(_build.ptr(left[k]) for k in ("x", "y", "z", "n")),
                   *(_build.ptr(right[k]) for k in ("x", "y", "z", "n")),
-                  _build.ptr(prefix), _build.ptr(total), rings, cap * d,
+                  _build.ptr(prefix), _build.ptr(total), rings,
+                  cap * (n_wedges or d),
                   rows, cap, cp, int(do_x), int(do_z), f32(cfg.cos_x),
                   f32(cfg.cos_z), f32(cfg.curb_height))
