@@ -122,7 +122,7 @@
    utils.profiling.device_trace: a trace file written, each launch of
    K1-K11 in its urf::k::<kernel> range inside its stage's urf::<stage>
    range on the host and on the device, the stages' device ms with their
-   kernels printed, and 229 device ops (the H2D and D2H of the outputs
+   kernels printed, and 217 device ops (the H2D and D2H of the outputs
    included), as before the ranges, in a fresh process; (e)
    examples/demo_torch.py at
    --render-every 0 on 4 scans with the beam_zone hot swap.
@@ -143,7 +143,21 @@
    the one-card SP harness's topics; a rank's failure or a rank that does
    not report within 300 s fails the run.  Prints the three host-to-host
    SP p50s and the collective census of a scan at the OS1-128 dims.
-9. Prints one JSON line of per-kernel results (K1-K3 with their grid and
+9. Drives the compiled entry points (pipeline.process_scan_jit,
+   packed_scan_jit, process_batch_jit: a CUDA graph captured once per key
+   and replayed, the dynamic parameters in a device buffer): phase 3's 9
+   scans in every configuration, bit-equal to the eager entry points and
+   gated; phase 4's batch; the replay harness (whose default path is
+   packed_scan_jit) on the 3 PCD fixtures with the demo's beam_zone swap,
+   no new capture and the eager harness's topics; each of the 15 dynamic
+   fields swapped in turn and all at once on scan, packed and batch, no
+   capture and the eager outputs under the new configuration (max_x=12
+   changes the labels); a static swap, one capture; the launch counters
+   credited per replay; and, under torch.cuda.set_sync_debug_mode("error"),
+   no synchronising call on the eager or compiled scan, packed and batch
+   paths.  Prints each graph's nodes, capture and instantiation time and
+   pool bytes.
+10. Prints one JSON line of per-kernel results (K1-K3 with their grid and
    their times at B = 1, "b1", at the SP call's shape, "sp", and, K2 and
    K3, on the ring-major scan, "ring_major"; K7's SP entry, "sp"; K11's
    over the phase-4 batch, "b128") and, last,
@@ -1624,7 +1638,7 @@ STAGE_OF = {"ingest_prep": "ingest", "discover_rings": "ingest",
             "xz_zero": "xz_zero", "flood_blocked": "blind_spots",
             "flood_labeled": "blind_spots", "marker_points": "markers",
             "gather_pack": "gather"}
-SCAN_DEVICE_OPS = 229  # packed_scan's device ops at the OS1-64 preset,
+SCAN_DEVICE_OPS = 217  # packed_scan's device ops at the OS1-64 preset,
 # H2D and D2H of its outputs included (PERF.md section 5)
 
 
@@ -1819,11 +1833,14 @@ def phase_checked_replay(dev, smi) -> dict:
 def phase_data_parallel(dev, cfg, scans, dims) -> dict:
     """make_sharded_pipeline over [cuda:0] and [cuda:0, cuda:0] on phase
     4's batch (planar): every field equal to process_batch's; two chunks
-    make two ingest and two gather launches.  Returns the launch counts of
-    the two-chunk run."""
+    make two ingest and two gather launches (each chunk a replay of
+    process_batch_jit, its graph captured by a first run); a cfg_now swap
+    of beam_zone makes no capture and equals process_batch under it.
+    Returns the launch counts of the two-chunk run."""
     from urban_road_filter_torch import (
         launch_counts, pad_scan, planarize_batch, process_batch,
         reset_launch_counts)
+    from urban_road_filter_torch.pipeline import CAPTURE_COUNTS
     from urban_road_filter_torch.parallel.data_parallel import (
         make_sharded_pipeline)
 
@@ -1832,6 +1849,7 @@ def phase_data_parallel(dev, cfg, scans, dims) -> dict:
     want = process_batch(pts, cfg, dims, layout="planar")
     for devices in ([dev], [dev, dev]):
         run = make_sharded_pipeline(devices, cfg, dims)
+        run(pts, layout="planar")  # the chunks' captures
         torch.cuda.synchronize()
         reset_launch_counts()
         got = run(pts, layout="planar")
@@ -1845,10 +1863,17 @@ def phase_data_parallel(dev, cfg, scans, dims) -> dict:
                                      f"{e}") from None
         assert launches["ingest_prep"] == len(devices), launches
         assert launches["gather_pack"] == len(devices), launches
+        captures = dict(CAPTURE_COUNTS)
+        swap = cfg.replace(beam_zone=45.5)
+        same_fields(run(pts, cfg_now=swap, layout="planar"),
+                    process_batch(pts, swap, dims, layout="planar"),
+                    f"{len(devices)} devices, beam_zone swapped")
+        assert CAPTURE_COUNTS == captures, (captures, CAPTURE_COUNTS)
         print(f"  make_sharded_pipeline over {len(devices)} x {dev}: "
               f"{pts.shape[1]} lanes equal process_batch's, "
               f"{launches['ingest_prep']} ingest and "
-              f"{launches['gather_pack']} gather launches", flush=True)
+              f"{launches['gather_pack']} gather launches; a beam_zone "
+              f"swap without a capture", flush=True)
     return launches
 
 
@@ -1953,16 +1978,20 @@ def phase_traces() -> dict:
 
 def phase_demo(dev) -> dict:
     """examples/demo_torch.py on the card at --render-every 0: 4 scans, the
-    beam_zone hot swap at scan 1, no error.  Returns its launch counts."""
+    beam_zone hot swap at scan 1 (no capture: the harness's graph of its
+    first scan is replayed with the new value), no error.  Returns its
+    launch counts."""
     import contextlib
     import importlib.util
     import io
     import os
 
     from urban_road_filter_torch import launch_counts, reset_launch_counts
+    from urban_road_filter_torch import pipeline as pl
 
     path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                         "examples", "demo_torch.py")
+    keys, captures = set(pl.compiled_entries()), pl.CAPTURE_COUNTS["packed"]
     spec = importlib.util.spec_from_file_location("demo_torch", path)
     demo = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(demo)
@@ -1978,9 +2007,12 @@ def phase_demo(dev) -> dict:
     summary = json.loads(lines[-1])
     assert "# hot-swapped beam_zone -> 50.0 at scan 1" in lines, lines
     assert summary["scans"] == 4 and summary["errors"] == 0, summary
+    new = set(pl.compiled_entries()) - keys
+    added = pl.CAPTURE_COUNTS["packed"] - captures
+    assert added == len(new) <= 1, (added, new)
     print(f"  examples/demo_torch.py: 4 scans on {dev}, beam_zone hot-swapped "
-          f"at scan 1, 0 errors, latency p50 {summary['latency_ms']['p50']} "
-          f"ms", flush=True)
+          f"at scan 1, 0 errors, {added} capture (the swap none), latency "
+          f"p50 {summary['latency_ms']['p50']} ms", flush=True)
     return launches
 
 
@@ -2301,6 +2333,217 @@ def phase_ranks(dev, configs, smi, device_parity_gate) -> None:
                           f" ms at rank 0", flush=True)
 
 
+# ---- phase 9: the compiled entry points (CUDA-graph replays) ----
+
+def same_fields(got, want, what: str) -> None:
+    """Two results (ScanResult or tuple) bit-equal field by field."""
+    assert len(got) == len(want), what
+    for k, (g, w) in enumerate(zip(got, want)):
+        try:
+            max_abs_err((g,), (w,))
+        except AssertionError as e:
+            raise AssertionError(f"{what}, field {k}: {e}") from None
+
+
+def replay_topics(dev, source, dims, cfg, swap_at=None):
+    """The harness's published outputs over a source, with h.cfg's
+    beam_zone swapped to 50 after scan ``swap_at`` (the demo's swap)."""
+    from urban_road_filter_torch.io.replay import ReplayHarness
+
+    got = []
+
+    def on_scan(out):
+        got.append(out)
+        if swap_at is not None and out.seq == swap_at:
+            h.cfg = h.cfg.replace(beam_zone=50.0)
+
+    h = ReplayHarness(cfg=cfg, dims=dims, device=dev, on_scan=on_scan)
+    s = h.run(source).summary()
+    assert s["errors"] == 0 and s["not_ok"] == 0, s
+    return got
+
+
+def phase_compiled(dev, dims, bench_dims, configs, scans, bench, smi,
+                   gate_scans) -> dict:
+    """The compiled entry points on the card (pipeline.*_jit): (a) phase
+    3's 9 scans under every configuration through packed_scan_jit and
+    process_scan_jit, bit-equal to packed_scan and process_scan, gated; (b)
+    phase 4's batch through process_batch_jit, bit-equal to process_batch;
+    (c) the harness (its default path is packed_scan_jit) on the 3 PCD
+    fixtures with the demo's beam_zone swap after the first scan: no new
+    capture, the topics equal an eager harness's; (d) each of the 15
+    dynamic fields swapped in turn, then all at once: no capture, every
+    output equal to the eager entry points' under the new configuration,
+    max_x=12 changing the labels; a static swap, exactly one capture; (e)
+    launch_counts credits each kernel of a graph once per launch it holds,
+    per replay; (f) under torch.cuda.set_sync_debug_mode("error") the eager
+    and compiled scan, packed and batch paths make no synchronising call.
+    Prints each graph's kernel, memcpy and memset nodes, capture and
+    instantiation ms and pool bytes.  Returns (f)'s launch counts."""
+    import os
+
+    from urban_road_filter_torch import (
+        FilterConfig, PipelineDims, launch_counts, pad_scan, packed_scan,
+        packed_scan_jit, planarize_batch, process_batch, process_batch_jit,
+        process_scan, process_scan_jit, reset_launch_counts)
+    from urban_road_filter_torch import pipeline as pl
+    from urban_road_filter_torch.io import replay as replay_mod
+    from urban_road_filter_torch.io.replay import pcd_dir_source
+
+    hosts = [torch.from_numpy(pad_scan(p, dims.max_points)).pin_memory()
+             for _, p in scans]
+    every = dict(configs, stencils_off=FilterConfig(
+        x_zero_method=False, z_zero_method=False))
+
+    # (a) The 9 scans, every configuration of phase 3 (the stencils off on
+    # its three scenes).
+    runs = []
+    for cname, cfg in every.items():
+        for k, host in enumerate(hosts):
+            if cname == "stencils_off" and scans[k][0] not in (
+                    "two_curbs", "blind_spot", "curb_gap"):
+                continue
+            pts = host.to(dev, non_blocking=True)
+            got = packed_scan_jit(pts, cfg, dims, device=dev)
+            same_fields(got, packed_scan(pts, cfg, dims, device=dev),
+                        f"packed_scan_jit {cname} {scans[k][0]}")
+            same_fields(process_scan_jit(pts, cfg, dims, device=dev),
+                        process_scan(pts, cfg, dims, device=dev),
+                        f"process_scan_jit {cname} {scans[k][0]}")
+            runs.append((cname, k, [t.cpu() for t in got], 0.0))
+    gate_scans(runs, scans, every)
+    print(f"  (a) {len(runs)} scans x (packed_scan_jit, process_scan_jit) "
+          f"bit-equal to packed_scan / process_scan, every one gated",
+          flush=True)
+
+    # (b) The batch of 128.
+    planar = torch.from_numpy(planarize_batch(np.stack(
+        [pad_scan(p, bench_dims.max_points) for _, p in bench]))).to(dev)
+    for cfg in (FilterConfig(), FilterConfig(beam_zone=45.5)):
+        same_fields(process_batch_jit(planar, cfg, bench_dims,
+                                      layout="planar", device=dev),
+                    process_batch(planar, cfg, bench_dims, layout="planar",
+                                  device=dev),
+                    "process_batch_jit")
+    print(f"  (b) process_batch_jit on {planar.shape[1]} planar scans "
+          f"bit-equal to process_batch (default and beam_zone 45.5)",
+          flush=True)
+
+    # (c) The harness on the fixtures, the demo's swap after scan 1.
+    fixtures = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "tests", "fixtures")
+    fdims = PipelineDims(16384, 64, 1024, 256)
+    replay_topics(dev, pcd_dir_source(fixtures), fdims, FilterConfig())
+    before = dict(pl.CAPTURE_COUNTS)
+    got = replay_topics(dev, pcd_dir_source(fixtures), fdims, FilterConfig(),
+                        swap_at=1)
+    assert pl.CAPTURE_COUNTS == before, (before, pl.CAPTURE_COUNTS)
+    compiled = replay_mod.packed_scan_jit
+    replay_mod.packed_scan_jit = packed_scan  # an eager harness
+    try:
+        want = replay_topics(dev, pcd_dir_source(fixtures), fdims,
+                             FilterConfig(), swap_at=1)
+    finally:
+        replay_mod.packed_scan_jit = compiled
+    same_outputs(got, want, "the harness through packed_scan_jit")
+    print(f"  (c) the harness on the 3 fixtures, beam_zone swapped to 50 "
+          f"after scan 1: no new capture, topics equal the eager harness's",
+          flush=True)
+
+    # (d) Hot swaps on one scan, each kind.
+    from urban_road_filter_torch.config import DynConfig
+
+    swaps = dict(interval=0.3, curb_height=0.11, beam_zone=42.5, min_x=1.0,
+                 max_x=25.0, min_y=-8.0, max_y=8.0, min_z=-2.8, max_z=-1.2,
+                 cylinder_deg_x=140.0, cylinder_deg_z=130.0,
+                 curb_slope_deg=45.0, kdev_param=1.5, kdist_param=3.0,
+                 dmin_param=8)
+    assert len(swaps) == len(DynConfig._fields)  # cos_x, cos_z, slope
+    pts = hosts[1].to(dev)
+    lanes = planar[:, :8].contiguous()
+    kinds = {"scan": (process_scan_jit, process_scan, pts, dims,
+                      dict(device=dev)),
+             "packed": (packed_scan_jit, packed_scan, pts, dims,
+                        dict(device=dev)),
+             "batch": (process_batch_jit, process_batch, lanes, bench_dims,
+                       dict(layout="planar", device=dev))}
+    for kind, (jit, eager, x, d, kw) in kinds.items():
+        base = jit(x, FilterConfig(), d, **kw)
+        before = dict(pl.CAPTURE_COUNTS)
+        for name, val in [*swaps.items(), ("all", None)]:
+            cfg = (FilterConfig(**swaps) if name == "all"
+                   else FilterConfig(**{name: val}))
+            same_fields(jit(x, cfg, d, **kw), eager(x, cfg, d, **kw),
+                        f"{kind} after the {name} swap")
+        assert pl.CAPTURE_COUNTS == before, (kind, before, pl.CAPTURE_COUNTS)
+        tight = jit(x, FilterConfig(max_x=12.0), d, **kw)
+        lab = (lambda r: r[0] & 3) if kind == "packed" else (
+            lambda r: r.labels)
+        assert not torch.equal(lab(tight), lab(base)), kind
+        jit(x, FilterConfig(x_direction=1), d, **kw)
+        assert pl.CAPTURE_COUNTS[kind] == before[kind] + 1, kind
+    print(f"  (d) {len(swaps)} dynamic fields swapped in turn and all at "
+          f"once on scan, packed and batch (8 lanes): no capture, outputs "
+          f"equal the eager entry points'; max_x=12 changes the labels; a "
+          f"static swap (x_direction=1) one capture each", flush=True)
+
+    # (e) Launches credited per replay.
+    reps = 5
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    for _ in range(reps):
+        packed_scan_jit(pts, FilterConfig(), dims, device=dev)
+        process_batch_jit(planar, FilterConfig(), bench_dims,
+                          layout="planar", device=dev)
+    launches = launch_counts()
+    b = planar.shape[1]
+    for k in SCAN_KERNELS:
+        per = ({"ingest_prep": 2, "discover_rings": 2, "assign_rings": 2,
+                "gather_pack": 1 + -(-b // 128)}.get(k, 1 + b))
+        assert launches[k] == reps * per, (k, launches[k], reps * per)
+    print(f"  (e) {reps} replays each of packed_scan_jit and "
+          f"process_batch_jit (B = {b}): launches {launches}", flush=True)
+
+    # (f) No synchronising call, eager or compiled.
+    on = dict(device=dev)
+    bat = dict(layout="planar", device=dev)
+    calls = {
+        "process_scan": lambda: process_scan(pts, FilterConfig(), dims,
+                                             **on),
+        "packed_scan": lambda: packed_scan(pts, FilterConfig(), dims, **on),
+        "process_batch": lambda: process_batch(planar, FilterConfig(),
+                                               bench_dims, **bat),
+        "process_scan_jit": lambda: process_scan_jit(pts, FilterConfig(),
+                                                     dims, **on),
+        "packed_scan_jit": lambda: packed_scan_jit(pts, FilterConfig(), dims,
+                                                   **on),
+        "process_batch_jit": lambda: process_batch_jit(
+            planar, FilterConfig(), bench_dims, **bat),
+        "packed_scan_jit, hot swap": lambda: packed_scan_jit(
+            pts, FilterConfig(beam_zone=42.5), dims, **on)}
+    for fn in calls.values():
+        fn()
+    torch.cuda.synchronize()
+    for what, fn in calls.items():
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            fn()
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    print(f"  (f) no synchronising call under set_sync_debug_mode('error'):"
+          f" {', '.join(calls)}", flush=True)
+    for key, e in pl.compiled_entries().items():
+        if key[-1] == dev:
+            st = e.stats
+            print(f"    graph {key[0]} {key[4]} {key[3]}: nodes {st['nodes']}, "
+                  f"capture {st['capture_ms']:.3f} ms, instantiate "
+                  f"{st['instantiate_ms']:.3f} ms, pool "
+                  f"{st['pool_bytes']} B", flush=True)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False")
@@ -2451,6 +2694,15 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_ranks(dev, configs, smi, device_parity_gate)
     print(f"  phase 8 took {time.perf_counter() - t0:.1f} s", flush=True)
+    assert_no_jax()
+
+    print("phase 9: the compiled entry points (CUDA-graph replays)",
+          flush=True)
+    t0 = time.perf_counter()
+    launches = phase_compiled(dev, dims, bench_dims, configs, scans, bench,
+                              smi, gate_scans)
+    assert_launched(launches, SCAN_KERNELS, "the compiled entry points")
+    print(f"  phase 9 took {time.perf_counter() - t0:.1f} s", flush=True)
     assert_no_jax()
 
     print(json.dumps({"kernels": [

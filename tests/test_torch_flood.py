@@ -257,3 +257,57 @@ def test_model_sweep(seed, wk, bz, density):
              for _ in range(2)]
     _assert_model(lay, *reach, torch.from_numpy(w), float(bz),
                   torch.tensor(int(rng.integers(0, 4)), dtype=torch.int32))
+
+
+# --- The beam zone as a 0-d tensor (the device parameter buffer's form) ----
+
+def _bz_forms(bz):
+    """bz as a host float and as a 0-d view of a parameter buffer."""
+    from urban_road_filter_torch.config import DYN_INDEX
+
+    buf = torch.zeros(15, dtype=torch.float32)
+    buf[DYN_INDEX["beam_zone"]] = float(F32(bz))
+    return float(F32(bz)), buf[DYN_INDEX["beam_zone"]]
+
+
+def _assert_bits(got, want):
+    for g, w in zip(got, want):
+        if g.dtype == torch.float32:
+            g, w = g.view(torch.int32), w.view(torch.int32)
+        assert g.shape == w.shape and torch.equal(g, w)
+
+
+@pytest.mark.parametrize("k", range(13))
+def test_twins_take_beam_zone_as_tensor(cases, k):
+    """Every flood twin and the glue give the same bits with the beam zone
+    as a 0-d tensor as with the host float, on flood_cases."""
+    name, lay, rf, rb, w, bz, nr = cases[k]
+    f, t = _bz_forms(bz)
+    _assert_bits(bs.flood_blocked_plain(lay, w, t),
+                 bs.flood_blocked_plain(lay, w, f))
+    _assert_bits(bs.flood_labeled_plain(lay, rf, rb, w, t, nr),
+                 bs.flood_labeled_plain(lay, rf, rb, w, f, nr))
+    _assert_bits((bs.flood_road_plain(lay, rf, rb, w, t),),
+                 (bs.flood_road_plain(lay, rf, rb, w, f),))
+
+
+@pytest.mark.parametrize("direction", [+1, -1])
+@pytest.mark.parametrize("bz", [30.0, 45.5, 10.0, 100.0])
+@pytest.mark.parametrize("ulp", [-1, 0, 1])
+def test_window_glue_takes_beam_zone_as_tensor(bz, ulp, direction):
+    """window_widths, sweep_bounds (edge = f32(360 - bz) in float64 on the
+    tensor as on the host) and sweep_active at beam zones one ulp either
+    side of integers and half-integers."""
+    v = F32(bz)
+    for _ in range(abs(ulp)):
+        v = np.nextafter(v, F32(np.inf if ulp > 0 else -np.inf))
+    f, t = _bz_forms(v)
+    max_dist = torch.from_numpy(np.random.default_rng(3).uniform(
+        0.5, 40.0, 16).astype(F32))
+    wf, wt = bs.window_widths(max_dist, f), bs.window_widths(max_dist, t)
+    _assert_bits((wt,), (wf,))
+    assert wt[0] == t
+    _assert_bits(bs.sweep_bounds(wt, t, direction),
+                 bs.sweep_bounds(wf, f, direction))
+    _assert_bits((bs.sweep_active(t, direction, "cpu"),),
+                 (bs.sweep_bounds(wf, f, direction)[0],))

@@ -752,3 +752,53 @@ def test_assign_rule_property(scan, interval, rings):
     table = np.asarray(jgeo.discover_rings(
         jnp.asarray(alpha), jnp.asarray(valid), interval, rings=rings)[0])
     _check_assign(alpha, valid, table, interval)
+
+
+# --- The thresholds as 0-d tensors (the device parameter buffer's form) ---
+
+@pytest.mark.parametrize("kw", [dict(), dict(min_x=1.0, max_x=25.0,
+                                             min_y=-8.0, max_y=8.0,
+                                             min_z=-2.8, max_z=-1.2),
+                                dict(interval=0.3)])
+def test_twins_take_a_bound_config(kw):
+    """K1-K3's twins give the same bits under a configuration bound to a
+    parameter buffer (0-d tensor fields, config.device_config) as under
+    its host floats."""
+    from urban_road_filter_torch.config import FilterConfig as TConfig
+    from urban_road_filter_torch.config import device_config
+
+    cfg = TConfig(**kw)
+    bound = device_config(cfg, "cpu")
+    assert isinstance(bound.min_x, torch.Tensor)
+    pts = _t(_scan())
+    x, y, z = (pts[None, :, i].contiguous() for i in range(3))
+    got = ingest.ingest_prep_plain(x, y, z, bound)
+    want = ingest.ingest_prep_plain(x, y, z, cfg)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    _, alpha = tgeo.vertical_angles(x, y, z)
+    angles, count = ingest.discover_rings_plain(alpha, got[0],
+                                                bound.interval, 64)
+    w_angles, w_count = ingest.discover_rings_plain(alpha, got[0],
+                                                    cfg.interval, 64)
+    assert torch.equal(angles.view(torch.int32), w_angles.view(torch.int32))
+    assert torch.equal(count, w_count)
+    assert torch.equal(
+        ingest.assign_rings_plain(alpha, got[0], angles, bound.interval),
+        ingest.assign_rings_plain(alpha, got[0], angles, cfg.interval))
+
+
+@pytest.mark.parametrize("tol", [0.18, 0.3, 0.5])
+def test_ring_twins_take_interval_as_tensor(tol):
+    """K2's and K3's twins with the interval as a 0-d tensor on points
+    exactly tol from a ring and one ulp either side."""
+    centres = np.linspace(-20.0, 20.0, 41).astype(F32)
+    alpha = _t(_tol_stream(tol, centres))[None]
+    valid = torch.ones_like(alpha, dtype=torch.bool)
+    t = torch.tensor(F32(tol))
+    angles, count = ingest.discover_rings_plain(alpha, valid, t, 128)
+    w_angles, w_count = ingest.discover_rings_plain(alpha, valid, tol, 128)
+    assert torch.equal(angles.view(torch.int32), w_angles.view(torch.int32))
+    assert torch.equal(count, w_count)
+    assert torch.equal(ingest.assign_rings_plain(alpha, valid, angles, t),
+                       ingest.assign_rings_plain(alpha, valid, angles, tol))

@@ -1345,3 +1345,180 @@ def test_marker_first_nonroad_refuses_a_second_busy_stream(dev):
     side.synchronize()
     _assert_same((mk.marker_first_nonroad(lay, num_rings),),
                  (mk.first_nonroad_keys(lay, num_rings),))
+
+
+# ---- the dynamic parameters read from device memory ----
+# K1-K4, K7 (both entries), K8, K9 and K12 read their thresholds from the
+# configuration's parameter buffer (config.bind_params): each is held
+# against its plain twin given the same values as host floats, the form
+# the kernels took them in before (by value), while one buffer is
+# rewritten between launches as a compiled entry point's hot swap does.
+
+SWAPPED = dict(interval=0.3, curb_height=0.11, beam_zone=42.5, min_x=1.0,
+               max_x=25.0, min_y=-8.0, max_y=8.0, min_z=-2.8, max_z=-1.2,
+               cylinder_deg_x=140.0, cylinder_deg_z=130.0,
+               curb_slope_deg=45.0, kdev_param=1.5, kdist_param=3.0,
+               dmin_param=8)
+
+
+class _Buffer:
+    """One parameter buffer on the card; ``bound(cfg)`` writes cfg's
+    dynamic values into it (one device copy) and returns the config bound
+    to it."""
+
+    def __init__(self, dev):
+        from urban_road_filter_torch import config as C
+
+        self.C = C
+        self.params = torch.empty(len(C.DynConfig._fields),
+                                  dtype=torch.float32, device=dev)
+
+    def bound(self, cfg):
+        st, dyn = cfg.split()
+        self.params.copy_(self.C.param_buffer(dyn, self.params.device))
+        rc = self.C.bind_params(st, self.params)
+        assert rc.beam_zone.data_ptr() == self.params.data_ptr() + 4 * (
+            self.C.DYN_INDEX["beam_zone"])
+        return rc
+
+    def slot(self, name, value):
+        """The 0-d view of one slot, set to value (float32)."""
+        i = self.C.DYN_INDEX[name]
+        self.params[i] = float(np.float32(value))
+        return self.params[i]
+
+
+def _ulps(v):
+    v = np.float32(v)
+    return [float(np.nextafter(v, np.float32(-np.inf))), float(v),
+            float(np.nextafter(v, np.float32(np.inf)))]
+
+
+def test_ingest_prep_reads_roi_from_buffer(dev):
+    """K1 with its box from the buffer, bounds on a point's coordinates and
+    one ulp either side, then the swapped box."""
+    rows = _batch_rows(dev, 4096, 16, (1, 2))
+    x, y, z, _ = geometry.xyz_of(rows, "rows", batched=True)
+    buf = _Buffer(dev)
+    valid = ingest.ingest_prep_plain(x, y, z, FilterConfig())[0]
+    k = int(torch.nonzero(valid[0])[len(torch.nonzero(valid[0])) // 2])
+    px, py, pz = (float(t[0, k]) for t in (x, y, z))
+    cfgs = [FilterConfig(**SWAPPED), FilterConfig()]
+    for name, v in (("min_x", px), ("max_x", px), ("min_y", py),
+                    ("max_y", py), ("min_z", pz), ("max_z", pz)):
+        cfgs += [FilterConfig(**{name: e}) for e in _ulps(v)]
+    for cfg in cfgs:
+        got = ingest.ingest_prep(x, y, z, buf.bound(cfg))
+        _assert_same(got, ingest.ingest_prep_plain(x, y, z, cfg))
+
+
+def test_ring_kernels_read_interval_from_buffer(dev):
+    """K2 and K3 with the interval from a buffer slot: a ring's points
+    exactly interval away and one ulp either side, at three intervals."""
+    centres = np.linspace(-20.0, 20.0, 97).astype(np.float32)
+    buf = _Buffer(dev)
+    for tol in (0.18, 0.3, 0.5):
+        t32 = np.float32(tol)
+        edges = np.concatenate([centres + t32, centres - t32])
+        stream = np.resize(np.concatenate(
+            [centres, edges, np.nextafter(edges, np.float32(np.inf)),
+             np.nextafter(edges, np.float32(-np.inf))]).astype(np.float32),
+            8192)
+        alpha = torch.from_numpy(stream).to(dev)[None]
+        valid = torch.ones_like(alpha, dtype=torch.bool)
+        for e in _ulps(tol):
+            iv = buf.slot("interval", e)
+            angles, count = ingest.discover_rings(alpha, valid, iv, 128)
+            _assert_same((angles, count), ingest.discover_rings_plain(
+                alpha, valid, e, 128))
+            _assert_same((ingest.assign_rings(alpha, valid, angles, iv),),
+                         (ingest.assign_rings_plain(alpha, valid, angles,
+                                                    e),))
+
+
+@pytest.mark.parametrize("kw", [dict(), SWAPPED,
+                                dict(kdev_param=0.6, dmin_param=3),
+                                dict(curb_slope_deg=10.0, dmin_param=30)])
+def test_star_search_reads_walk_params_from_buffer(dev, kw):
+    """K4 with slope_param, kdev, kdist and dmin from the buffer."""
+    fk, r_key, z = _star_keys(dev)
+    cfg = FilterConfig(**kw)
+    hp = star.star_search(fk, r_key, z, _Buffer(dev).bound(cfg))
+    _assert_same((hp,), (star.star_search_plain(fk, r_key, z, cfg),))
+
+
+@pytest.mark.parametrize("kw", [SWAPPED, dict(curb_height=0.01),
+                                dict(cylinder_deg_x=170.0,
+                                     cylinder_deg_z=100.0)])
+def test_xz_zero_reads_thresholds_from_buffer(dev, stencil_layouts,
+                                              sp_halo_inputs, kw):
+    """K7 and its SP entry with cos_x, cos_z and curb_height from the
+    buffer."""
+    cfg = FilterConfig(**kw)
+    buf = _Buffer(dev)
+    for lay in stencil_layouts.values():
+        _assert_same((fused_xz_zero(lay, buf.bound(cfg)).label,),
+                     (xz_zero_plain(lay, cfg).label,))
+    (lay, left, right, prefix, total), _ = sp_halo_inputs
+    table = lay.label.clone()
+    fused_xz_zero_halo(lay._replace(label=table), left, right, prefix, total,
+                       buf.bound(cfg))
+    _assert_same((table,), (xz_zero_halo_plain(lay, left, right, prefix,
+                                               total, cfg),))
+
+
+@pytest.mark.parametrize("bz", [30.0, 45.5, 10.0, 42.5, 100.0])
+def test_flood_kernels_read_beam_zone_from_buffer(dev, flood_layouts, bz):
+    """K8, K9 and K12 with the beam zone from a buffer slot, at the zone
+    and one ulp either side (the special starts exist only at integer
+    zones), on flood_cases' layouts, widths and reach bits."""
+    buf = _Buffer(dev)
+    for shape, cases in flood_layouts.items():
+        for name, lay, rf, rb, w, _, nr in cases[::4]:
+            for e in _ulps(bz):
+                v = buf.slot("beam_zone", e)
+                _assert_same(bs.flood_blocked(lay, w, v),
+                             bs.flood_blocked_plain(lay, w, e))
+                _assert_same(bs.flood_labeled(lay, rf, rb, w, v, nr),
+                             bs.flood_labeled_plain(lay, rf, rb, w, e, nr))
+                _assert_same((bs.flood_road(lay, rf, rb, w, v),),
+                             (bs.flood_road_plain(lay, rf, rb, w, e),))
+                _assert_same((bs.window_widths(lay.d2[:, 0], v),),
+                             (bs.window_widths(lay.d2[:, 0], e),))
+
+
+def test_replay_and_eager_launch_refuse_each_other(dev):
+    """K1, K9 and K13 take tickets from per-device counters: a
+    packed_scan_jit replay left running on stream A and an eager
+    ingest_prep on stream B refuse each other in either order, and both
+    run once the other stream is synchronised."""
+    from urban_road_filter_torch import packed_scan, packed_scan_jit
+
+    dims = PipelineDims(max_points=N, rings=RINGS, ring_capacity=CAP)
+    pts = torch.from_numpy(pad_scan(make_scan(
+        SCENES["two_curbs"](), n_rings=24, n_azimuth=384, seed=3), N)).to(dev)
+    x, y, z, _ = geometry.xyz_of(pts, "rows")
+    cfg = FilterConfig()
+    want = packed_scan(pts, cfg, dims)
+    packed_scan_jit(pts, cfg, dims)  # the capture
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Stream(dev), torch.cuda.Stream(dev)
+    with torch.cuda.stream(a):
+        torch.cuda._sleep(200_000_000)
+        got = packed_scan_jit(pts, cfg, dims)
+    with torch.cuda.stream(b), pytest.raises(RuntimeError,
+                                             match="two streams at once"):
+        ingest.ingest_prep(x[None], y[None], z[None], cfg)
+    a.synchronize()
+    _assert_same(got, want)
+    with torch.cuda.stream(b):
+        torch.cuda._sleep(200_000_000)
+        ingest.ingest_prep(x[None], y[None], z[None], cfg)
+    with torch.cuda.stream(a), pytest.raises(RuntimeError,
+                                             match="two streams at once"):
+        packed_scan_jit(pts, cfg, dims)
+    b.synchronize()
+    with torch.cuda.stream(a):
+        got = packed_scan_jit(pts, cfg, dims)
+    a.synchronize()
+    _assert_same(got, want)

@@ -406,3 +406,22 @@ class TestRankModel:
         jpos, jcounts = _xla_rank(jnp.asarray(high), groups)
         np.testing.assert_array_equal(np.asarray(jpos)[inr], pos[inr])
         np.testing.assert_array_equal(np.asarray(jcounts), counts)
+
+
+@pytest.mark.parametrize("seed,kw", [
+    (0, dict()), (1, dict(curb_slope_deg=20.0)),
+    (2, dict(kdev_param=0.6, dmin_param=3)),
+    (3, dict(kdist_param=9.0, dmin_param=30))])
+def test_star_twin_takes_a_bound_config(seed, kw):
+    """K4's twin gives the same hits with slope_param, kdev, kdist and
+    dmin as 0-d tensors of a parameter buffer (config.device_config) as
+    with the host values."""
+    from urban_road_filter_torch.config import FilterConfig as TConfig
+    from urban_road_filter_torch.config import device_config
+
+    fk, r, z = (_t(a) for a in _scattered(seed))
+    cfg = TConfig(**kw)
+    bound = device_config(cfg, "cpu")
+    assert bound.dmin_param.dtype == torch.int32
+    assert torch.equal(tstar.star_search_plain(fk, r, z, bound),
+                       tstar.star_search_plain(fk, r, z, cfg))

@@ -5,7 +5,7 @@ K9, K12), the marker table (K10) and state (K14), and the end-to-end
 metrics of the PyTorch port.
 
     python tools/ab_ingest_torch.py TREE [TREE ...] [--e2e-only]
-                                    [--out F.json]
+                                    [--graph] [--out F.json]
 
 Each TREE is a checkout of this repository (the working tree ".", or a
 commit unpacked with ``git archive`` into the gitignored ``chip_tree/``).
@@ -33,7 +33,11 @@ measures:
 - scan latency p50 (packed_scan on the 9 scans of phase 3, default and
   star off), scans/s at batch 128 (phase 4's timing) and SP latency p50
   (8 wedges on the OS1-128 scan, default and star off), host to host;
-  with ``--e2e-only`` only these.
+  with ``--e2e-only`` only these;
+- with ``--graph``, in trees that have the compiled entry points, the
+  scan latency p50 and the batch's scans/s again through packed_scan_jit
+  and process_batch_jit, each pass in turns with its eager counterpart
+  (``*_jit`` keys beside the eager ones, measured in the same turns).
 
 The scans and the timing helpers come from this checkout's chip_smoke.py.
 Prints the card's name and power limit and one JSON line per tree.  Needs
@@ -65,7 +69,7 @@ def _module(name: str, path: str):
     return mod
 
 
-def measure(tree: str, e2e_only: bool = False) -> dict:
+def measure(tree: str, e2e_only: bool = False, graph: bool = False) -> dict:
     root = Path(tree).resolve()
     sys.path.insert(0, str(root))
     import numpy as np
@@ -90,8 +94,55 @@ def measure(tree: str, e2e_only: bool = False) -> dict:
                                       for s in c.bench_scans(c.BATCH)]))
     if not e2e_only:
         out.update(kernel_times(c, dev, cfg, sp_dims, sp_host, batch))
-    e2e(out, c, dev, cfg, sp_dims, sp_host, bench_dims, batch)
+    if graph and hasattr(urf, "packed_scan_jit"):
+        e2e_graph(out, c, dev, bench_dims, batch)
+    else:
+        e2e(out, c, dev, cfg, sp_dims, sp_host, bench_dims, batch)
     return out
+
+
+def e2e_graph(out, c, dev, bench_dims, batch) -> None:
+    """The scan latency p50 (9 scans, default and star off) and scans/s
+    at batch 128, eager and compiled in turns, into out."""
+    import torch
+
+    from urban_road_filter_torch import (
+        FilterConfig, PipelineDims, ScanResult, pad_scan, packed_scan,
+        packed_scan_jit, process_batch, process_batch_jit)
+
+    dims = PipelineDims.for_sensor("os1-64")
+    hosts = [torch.from_numpy(pad_scan(p, dims.max_points)).pin_memory()
+             for _, p in c.scans_for_pipeline()]
+    modes = {"": (packed_scan, process_batch),
+             "_jit": (packed_scan_jit, process_batch_jit)}
+    for cname, cfg in (("default", FilterConfig()),
+                       ("star_off", FilterConfig(star_shaped_method=False))):
+        p50 = {m: [] for m in modes}
+        for k, host in enumerate(hosts):
+            times = {m: [] for m in modes}
+            for rep in range(1 + c.SCAN_REPS):
+                for m in (modes if rep % 2 == 0 else reversed(list(modes))):
+                    t0 = time.perf_counter()
+                    [t.cpu() for t in modes[m][0](host.to(
+                        dev, non_blocking=True), cfg, dims)]
+                    times[m].append(time.perf_counter() - t0)
+            for m in modes:
+                p50[m].append(statistics.median(times[m][1:]) * 1e3)
+        for m in modes:
+            out.setdefault(f"scan_latency_p50_ms{m}", {})[cname] = (
+                statistics.median(p50[m]))
+    host = torch.from_numpy(batch).pin_memory()
+    times = {m: [] for m in modes}
+    for rep in range(1 + c.BATCH_REPS):
+        for m in (modes if rep % 2 == 0 else reversed(list(modes))):
+            t0 = time.perf_counter()
+            res = modes[m][1](host.to(dev, non_blocking=True),
+                              FilterConfig(), bench_dims, layout="planar")
+            ScanResult(*(t.cpu() for t in res))
+            times[m].append(time.perf_counter() - t0)
+    for m in modes:
+        out[f"scans_per_s_b128{m}"] = c.BATCH / statistics.median(
+            times[m][1:])
 
 
 def kernel_times(c, dev, cfg, sp_dims, sp_host, batch) -> dict:
@@ -189,6 +240,8 @@ def main() -> int:
     ap.add_argument("--out", default=None, help="write all results as JSON")
     ap.add_argument("--e2e-only", action="store_true",
                     help="only the end-to-end metrics")
+    ap.add_argument("--graph", action="store_true",
+                    help="with --e2e-only: eager and compiled in turns")
     ap.add_argument("--one", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
     import torch
@@ -196,7 +249,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         sys.exit("ab_ingest_torch: needs a CUDA device")
     if args.one:
-        print(json.dumps(measure(args.trees[0], args.e2e_only)), flush=True)
+        print(json.dumps(measure(args.trees[0], args.e2e_only, args.graph)),
+              flush=True)
         return 0
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -207,7 +261,8 @@ def main() -> int:
     for tree in args.trees:
         res = subprocess.run([sys.executable, os.path.abspath(__file__),
                               "--one", tree,
-                              *(["--e2e-only"] if args.e2e_only else [])],
+                              *(["--e2e-only"] if args.e2e_only else []),
+                              *(["--graph"] if args.graph else [])],
                              capture_output=True,
                              text=True, timeout=1200)
         if res.returncode != 0:

@@ -3,6 +3,8 @@
 
     python tools/profile_torch_scan.py [--star-off] [--reps 3] [--batch B]
                                        [--sp D] [--out F.json]
+    python tools/profile_torch_scan.py --graph [--pairs 10] [--star-off]
+                                       [--batch B | --harness] [--out F]
 
 Runs urban_road_filter_torch.packed_scan (OS1-64 dims; the default
 configuration, or with ``--star-off`` the star search off) on the 7
@@ -23,7 +25,23 @@ included) and each kernel's device ms and launches; the device-busy share
 of the profiled wall time; the device ops per scan; the kernels by device
 time; and, with the star search on, the star stage's device ms and device
 ops per scan, profiled on its own (star_hits on each scan's K1 keys, or on
-each wedge's with ``--sp``).  Needs a CUDA device.
+each wedge's with ``--sp``).
+
+With ``--graph`` it times the eager entry point against its compiled
+counterpart (packed_scan against packed_scan_jit, or with ``--batch B``
+process_batch against process_batch_jit) in turns, ``--pairs`` pairs of
+passes over the scans (eager then compiled, then the other way round),
+in one process: per mode the host enqueue p50 and host-to-host wall p50
+per scan, and, profiled one pass each in turns, the device busy ms per
+scan, its share of the profiled wall and the device ops per scan; for
+the compiled entry its graph's kernel, memcpy and memset nodes, capture
+and instantiation ms and pool bytes.  ``--harness`` does the same for the
+replay harness at 10 Hz on 30 emulated OS1-64 drive scans (depth 1, drop
+mode), its default path (packed_scan_jit) against the same harness with
+packed_scan: latency p50 and its dispatch / stage / fetch / post split.
+The profiler's urf::<stage> ranges are recorded only while a graph is
+captured, so stage device times are an eager-path figure.  Needs a CUDA
+device.
 """
 
 from __future__ import annotations
@@ -81,6 +99,182 @@ def star_calls(dev, cfg, args, hosts, call):
     return out
 
 
+def _smi() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+
+
+def _device_window(run_pass, n):
+    """(device busy ms per scan, busy share of the profiled wall, device
+    ops per scan) of one pass of n scans under torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run_pass()
+        torch.cuda.synchronize()
+        window_us = (time.perf_counter() - t0) * 1e6
+    ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+          and not e.name.startswith("urf::")]
+    if not ev:
+        return None, None, None
+    busy = _union_us((e.time_range.start, e.time_range.end) for e in ev)
+    return busy / n / 1e3, busy / window_us, len(ev) / n
+
+
+def graph_main(args) -> int:
+    """--graph: the eager entry point against its compiled counterpart in
+    turns (see the module docstring)."""
+    from urban_road_filter_torch import (
+        FilterConfig, PipelineDims, pad_scan, packed_scan, packed_scan_jit,
+        planarize_batch, process_batch, process_batch_jit)
+    from urban_road_filter_torch import pipeline as pl
+    from urban_road_filter_torch.io import SCENES, make_drive, make_scan
+
+    dev = torch.device("cuda", 0)
+    cfg = FilterConfig(star_shaped_method=not args.star_off)
+    smi = _smi()
+    summary = {"card": smi, "star_shaped_method": cfg.star_shaped_method,
+               "pairs": args.pairs, "modes": {}}
+    if args.harness:
+        return harness_graph(args, dev, cfg, smi, summary)
+    if args.batch:
+        kind = "batch"
+        dims = PipelineDims(max_points=131072, rings=64, ring_capacity=2048,
+                            beam_capacity=512)
+        scans = [make_scan(SCENES["two_curbs" if i % 2 == 0
+                                  else "blind_spot"](),
+                           n_rings=64, n_azimuth=2048, seed=i)
+                 for i in range(args.batch)]
+        hosts = [torch.from_numpy(planarize_batch(np.stack(
+            [pad_scan(s, dims.max_points) for s in scans]))).pin_memory()]
+        per_call = args.batch
+        calls = {"eager": lambda p: process_batch(p, cfg, dims,
+                                                  layout="planar"),
+                 "jit": lambda p: process_batch_jit(p, cfg, dims,
+                                                    layout="planar")}
+    else:
+        kind = "packed"
+        dims = PipelineDims.for_sensor("os1-64")
+        scans = [make_scan(spec(), n_rings=64, n_azimuth=2048, seed=i)
+                 for i, spec in enumerate(SCENES.values())]
+        scans += list(make_drive(2, sensor="os1_64", seed=41))
+        hosts = [torch.from_numpy(pad_scan(s, dims.max_points)).pin_memory()
+                 for s in scans]
+        per_call = 1
+        calls = {"eager": lambda p: packed_scan(p, cfg, dims),
+                 "jit": lambda p: packed_scan_jit(p, cfg, dims)}
+
+    def run(fn, host):
+        t0 = time.perf_counter()
+        out = fn(host.to(dev, non_blocking=True))
+        t1 = time.perf_counter()
+        for t in out:
+            t.cpu()
+        return ((t1 - t0) * 1e3 / per_call,
+                (time.perf_counter() - t0) * 1e3 / per_call)
+
+    for fn in calls.values():  # warm-up; the compiled entry's capture
+        for host in hosts:
+            run(fn, host)
+    times = {m: [] for m in calls}
+    for p in range(args.pairs):
+        for m in (("eager", "jit") if p % 2 == 0 else ("jit", "eager")):
+            times[m] += [run(calls[m], host) for host in hosts]
+    n = len(hosts) * per_call
+    device = {}
+    for m in ("eager", "jit", "jit", "eager"):  # in turns, the second kept
+        device[m] = _device_window(
+            lambda: [run(calls[m], host) for host in hosts], n)
+    for m in calls:
+        enq, wall = zip(*times[m])
+        busy, share, ops = device[m]
+        summary["modes"][m] = {
+            "enqueue_ms_p50": statistics.median(enq),
+            "wall_ms_p50": statistics.median(wall),
+            "device_busy_ms_per_scan": busy, "device_busy_share": share,
+            "device_ops_per_scan": ops}
+    summary["graphs"] = [
+        {"key": f"{k[0]} {k[3]} {tuple(k[4])}", **e.stats}
+        for k, e in pl.compiled_entries().items()
+        if k[0] == kind and k[-1] == dev]
+    return _report(args, summary)
+
+
+def harness_graph(args, dev, cfg, smi, summary) -> int:
+    """--graph --harness: the replay harness at 10 Hz, compiled against
+    eager, in turns."""
+    from urban_road_filter_torch import PipelineDims, packed_scan
+    from urban_road_filter_torch import pipeline as pl
+    from urban_road_filter_torch.io import make_drive
+    from urban_road_filter_torch.io import replay as R
+
+    dims = PipelineDims.for_sensor("os1-64")
+    drive = list(make_drive(30, sensor="os1_64", seed=43))
+    compiled = R.packed_scan_jit
+
+    def harness(m):
+        R.packed_scan_jit = compiled if m == "jit" else packed_scan
+        try:
+            h = R.ReplayHarness(cfg=cfg, dims=dims, device=dev, rate_hz=10.0)
+            s = h.run(iter(drive)).summary()
+        finally:
+            R.packed_scan_jit = compiled
+        assert s["errors"] == 0 and s["not_ok"] == 0, s
+        return s
+
+    for m in ("eager", "jit"):  # warm-up (drops allowed); the capture
+        harness(m)
+    runs = {m: [] for m in ("eager", "jit")}
+    for p in range(args.pairs):
+        for m in (("eager", "jit") if p % 2 == 0 else ("jit", "eager")):
+            runs[m].append(harness(m))
+    device = {}
+    for m in ("eager", "jit", "jit", "eager"):
+        device[m] = _device_window(lambda: harness(m), len(drive))
+    for m, ss in runs.items():
+        busy, share, ops = device[m]
+        split = {k: statistics.median(s["breakdown_ms_p50"][k] for s in ss)
+                 for k in ss[0]["breakdown_ms_p50"]}
+        summary["modes"][m] = {
+            "latency_ms_p50": statistics.median(
+                s["latency_ms"]["p50"] for s in ss),
+            "latency_ms_p99": statistics.median(
+                s["latency_ms"]["p99"] for s in ss),
+            "breakdown_ms_p50": split,
+            "dropped": sum(s["dropped"] for s in ss),
+            "device_busy_ms_per_scan": busy,
+            "device_busy_share": share, "device_ops_per_scan": ops}
+    summary["graphs"] = [
+        {"key": f"{k[0]} {k[3]} {tuple(k[4])}", **e.stats}
+        for k, e in pl.compiled_entries().items()
+        if k[0] == "packed" and k[-1] == dev]
+    return _report(args, summary)
+
+
+def _report(args, summary) -> int:
+    print(summary["card"], f"star_shaped_method="
+          f"{summary['star_shaped_method']}, {args.pairs} pairs in turns")
+    for m, rec in summary["modes"].items():
+        print(f"  {m:5s} " + ", ".join(
+            f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
+            for k, v in rec.items()))
+    for g in summary["graphs"]:
+        print(f"  graph {g['key']}: nodes {g['nodes']}, capture "
+              f"{g['capture_ms']:.3f} ms, instantiate "
+              f"{g['instantiate_ms']:.3f} ms, pool {g['pool_bytes']} B")
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+        with open(args.out, "w") as f:
+            json.dump(summary, f, indent=1)
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--reps", type=int, default=3,
@@ -92,9 +286,20 @@ def main() -> int:
                     help="profile process_batch on B scans instead")
     ap.add_argument("--sp", type=int, default=0,
                     help="profile the SP path with D wedges instead")
+    ap.add_argument("--graph", action="store_true",
+                    help="eager against the compiled entry point, in turns")
+    ap.add_argument("--pairs", type=int, default=10,
+                    help="--graph: pairs of passes in turns")
+    ap.add_argument("--harness", action="store_true",
+                    help="--graph: the replay harness at 10 Hz")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("profile_torch_scan: needs a CUDA device")
+    if args.graph:
+        if args.sp:
+            sys.exit("profile_torch_scan: --graph has no SP mode (the SP "
+                     "run is not captured)")
+        return graph_main(args)
 
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile

@@ -8,7 +8,8 @@ for ``sm_90a`` on first use (``_build.py``).
 
 Entry points run on the card: ``pipeline.process_scan`` /
 ``pipeline.packed_scan`` for one scan, ``pipeline.process_batch`` for a
-batch, ``parallel.azimuth_parallel.make_azimuth_pipeline`` for one scan cut
+batch (each also as a CUDA-graph replay, ``*_jit``, whose dynamic
+parameters are hot-swapped without a re-capture), ``parallel.azimuth_parallel.make_azimuth_pipeline`` for one scan cut
 into azimuth wedges, and ``io.replay.ReplayHarness`` (``python -m
 urban_road_filter_torch.io.replay``) for a stream of scans.  Each takes ``device=None`` ("cuda"); only an explicit
 ``device="cpu"`` runs the kernels' plain PyTorch twins.  Below the entry
@@ -25,10 +26,12 @@ from urban_road_filter_torch.config import FilterConfig, PipelineDims
 
 from urban_road_filter_torch._build import launch_counts, reset_launch_counts
 from urban_road_filter_torch.pipeline import (
-    ScanResult, pad_scan, pad_scan_planar, packed_scan, planarize_batch,
-    process_batch, process_scan, unpack_planes)
+    ScanResult, pad_scan, pad_scan_planar, packed_scan, packed_scan_jit,
+    planarize_batch, process_batch, process_batch_jit, process_scan,
+    process_scan_jit, unpack_planes)
 
 __all__ = ["FilterConfig", "PipelineDims", "ScanResult", "launch_counts",
-           "pad_scan", "pad_scan_planar", "packed_scan", "planarize_batch",
-           "process_batch", "process_scan", "reset_launch_counts",
+           "pad_scan", "pad_scan_planar", "packed_scan", "packed_scan_jit",
+           "planarize_batch", "process_batch", "process_batch_jit",
+           "process_scan", "process_scan_jit", "reset_launch_counts",
            "unpack_planes"]

@@ -10,16 +10,20 @@ imported, so the CPU tests import every module without ``nvcc``.
 Every kernel wrapper in ``ops/`` counts one launch here each time it
 launches its kernel, and nowhere else; ``launch_counts`` shows whether a
 run really went through the kernels, and ``device_ops`` how many device
-ops one call enqueues.
+ops one call enqueues.  A launch made while a CUDA graph is captured runs
+nothing then: under ``recording()`` it is counted for the graph instead,
+and each replay of the graph credits its launches here (``replayed``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
 import shutil
 import subprocess
+from collections import Counter
 from pathlib import Path
 
 import torch
@@ -67,25 +71,25 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _L = ctypes.c_longlong
 _SIGNATURES = {
-    "urf_ingest_prep": (_P, _P, _P, _I, _I, _L, _L, _F, _F, _F, _F, _F, _F,
-                        _F, _I, _P, _P, _P, _P, _P, _P),
-    "urf_discover_rings": (_P, _P, _I, _I, _F, _I, _P, _P, _P, _P, _P),
-    "urf_assign_rings": (_P, _P, _P, _I, _I, _I, _F, _P, _P, _P),
-    "urf_star_search": (_P, _P, _P, _L, _I, _F, _F, _F, _I, _P, _P, _P),
+    "urf_ingest_prep": (_P, _P, _P, _I, _I, _L, _L, _P, _F, _I, _P, _P, _P,
+                        _P, _P, _P),
+    "urf_discover_rings": (_P, _P, _I, _I, _P, _I, _P, _P, _P, _P, _P),
+    "urf_assign_rings": (_P, _P, _P, _I, _I, _I, _P, _P, _P, _P),
+    "urf_star_search": (_P, _P, _P, _L, _I, _P, _P, _P, _P, _P, _P, _P),
     "urf_group_rank": (_P, _I, _I, _P, _P, _P, _P),
     "urf_group_place": (_P, _P, _P, _I, _I, _P, _P, _P, _L, _L, _L, _I, _I,
                         _P, _P, _P),
-    "urf_xz_zero": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F,
-                    _F, _P),
+    "urf_xz_zero": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P,
+                    _P, _P),
     "urf_xz_zero_halo": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                         _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _F, _P),
-    "urf_flood_blocked": (_P, _P, _P, _P, _I, _I, _I, _F, _P, _P, _P),
-    "urf_flood_labeled": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _P, _P, _P),
+                         _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P),
+    "urf_flood_blocked": (_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P),
+    "urf_flood_labeled": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P),
     "urf_marker_points": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _I,
                           _P, _P),
     "urf_gather_pack": (_P, _P, _I, _I, _I, _P, _P, _P, _I, _I, _P, _P, _P,
                         _P, _P),
-    "urf_flood_road": (_P, _P, _P, _P, _P, _I, _I, _F, _P, _P),
+    "urf_flood_road": (_P, _P, _P, _P, _P, _I, _I, _P, _P, _P),
     "urf_marker_first_nonroad": (_P, _P, _P, _P, _I, _I, _P, _P),
     "urf_marker_state": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I,
                          _P, _I, _P, _P),
@@ -103,6 +107,7 @@ _profiling = torch._C._autograd._profiler_enabled
 
 _launches = dict.fromkeys(KERNELS, 0)
 _last_stream: dict = {}  # (ticketed kernel, device) -> its latest stream
+_recorder = None  # the launches of the graph being captured (recording())
 _lib = None
 
 
@@ -114,6 +119,34 @@ def launch_counts() -> dict:
 def reset_launch_counts() -> None:
     for name in _launches:
         _launches[name] = 0
+
+
+@contextlib.contextmanager
+def recording():
+    """While open, launches are captured into a CUDA graph: each is counted
+    in the yielded Counter (kernel -> launches), not in launch_counts, and
+    leaves the ticketed kernels' latest streams alone."""
+    global _recorder
+    if _recorder is not None:
+        raise RuntimeError("a capture is already recording launches")
+    _recorder = Counter()
+    try:
+        yield _recorder
+    finally:
+        _recorder = None
+
+
+def replayed(launches: dict, ticketed, device: torch.device) -> None:
+    """Account for one replay of a graph holding ``launches`` (recording's
+    counts) on ``device``'s current stream, made just after this call:
+    credit each launch to launch_counts, and record the stream as the
+    latest of each ticketed kernel in it, raising first (as launch does)
+    when such a kernel's latest launch was on another stream still busy."""
+    stream = torch.cuda.current_stream(device)
+    for kernel in ticketed:
+        _one_stream(kernel, device, stream)
+    for kernel, n in launches.items():
+        _launches[kernel] += n
 
 
 def on_cpu(t: torch.Tensor) -> bool:
@@ -253,7 +286,7 @@ def launch(kernel: str, fn: str, device: torch.device, *args) -> None:
     lib = library()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device)
-        if kernel in TICKETED:
+        if kernel in TICKETED and _recorder is None:
             _one_stream(kernel, device, stream)
         entry = getattr(lib, fn)
         handle = ctypes.c_void_p(stream.cuda_stream)
@@ -265,7 +298,7 @@ def launch(kernel: str, fn: str, device: torch.device, *args) -> None:
     if err != 0:
         raise RuntimeError(f"{kernel}: CUDA error {err}: "
                            f"{lib.urf_error_string(err).decode()}")
-    _launches[kernel] += 1
+    (_launches if _recorder is None else _recorder)[kernel] += 1
 
 
 def device_ops(fn) -> int:
@@ -276,8 +309,16 @@ def device_ops(fn) -> int:
     fn()
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph(keep_graph=True)
-    with torch.cuda.graph(graph):
+    with recording(), torch.cuda.graph(graph):
         fn()
+    ops = sum(graph_nodes(graph).values())
+    graph.reset()
+    return ops
+
+
+def graph_nodes(graph) -> dict:
+    """{"kernel", "memcpy", "memset": nodes} of a captured CUDA graph
+    (torch.cuda.CUDAGraph(keep_graph=True)), counted through libcuda."""
     cu = ctypes.CDLL("libcuda.so.1")
     handle = ctypes.c_void_p(graph.raw_cuda_graph())
     n = ctypes.c_size_t(0)
@@ -287,11 +328,12 @@ def device_ops(fn) -> int:
     if n.value and cu.cuGraphGetNodes(handle, nodes, ctypes.byref(n)) != 0:
         raise RuntimeError("cuGraphGetNodes failed")
     kind = ctypes.c_int(0)
-    ops = 0  # CU_GRAPH_NODE_TYPE_KERNEL, _MEMCPY and _MEMSET are 0, 1, 2
+    # CU_GRAPH_NODE_TYPE_KERNEL, _MEMCPY and _MEMSET are 0, 1, 2.
+    out = dict.fromkeys(("kernel", "memcpy", "memset"), 0)
     for node in nodes:
         if cu.cuGraphNodeGetType(ctypes.c_void_p(node),
                                  ctypes.byref(kind)) != 0:
             raise RuntimeError("cuGraphNodeGetType failed")
-        ops += kind.value in (0, 1, 2)
-    graph.reset()
-    return ops
+        if kind.value in (0, 1, 2):
+            out[("kernel", "memcpy", "memset")[kind.value]] += 1
+    return out

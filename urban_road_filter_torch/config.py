@@ -30,6 +30,9 @@ __all__ = [
     "PARAM_RANGES",
     "StaticConfig",
     "DynConfig",
+    "RunConfig",
+    "device_config",
+    "param_buffer",
 ]
 
 # Valid ranges, straight from cfg/LidarFilters.cfg (min, max).
@@ -291,26 +294,166 @@ class StaticConfig:
     starbeam_filter: bool
     probably_road_ring: int
 
-    def merge(self, dyn: DynConfig) -> "RunConfig":
-        return RunConfig(self, dyn)
+    def merge(self, dyn: DynConfig, params=None) -> "RunConfig":
+        return RunConfig(self, dyn, params)
 
 
 class RunConfig:
     """Config view inside a trace: static fields are Python values, dynamic
     fields may be tracers.  Duck-types FilterConfig for every field the
-    device ops read (ops annotate FilterConfig; either works)."""
+    device ops read (ops annotate FilterConfig; either works).
 
-    __slots__ = ("_st", "_dyn")
+    In the port the dynamic fields are 0-d views of ``params``, the (15,)
+    float32 parameter buffer on the scan's device (``device_config``), or
+    host scalars when ``params`` is None."""
 
-    def __init__(self, st: StaticConfig, dyn: DynConfig):
+    __slots__ = ("_st", "_dyn", "params")
+
+    def __init__(self, st: StaticConfig, dyn: DynConfig, params=None):
         object.__setattr__(self, "_st", st)
         object.__setattr__(self, "_dyn", dyn)
+        object.__setattr__(self, "params", params)
 
     def __getattr__(self, name: str):
         st = object.__getattribute__(self, "_st")
         if hasattr(st, name):
             return getattr(st, name)
         return getattr(object.__getattribute__(self, "_dyn"), name)
+
+    @property
+    def static(self) -> StaticConfig:
+        return object.__getattribute__(self, "_st")
+
+
+# ---- the dynamic half on a device ----
+# One float32 slot per DynConfig field, in its order; dmin_param's slot
+# holds the bits of an int32.  The kernels read their parameters from this
+# buffer (csrc/*.cu), so a compiled entry point's CUDA graph sees a new
+# value after one write into it, with no re-capture.
+DYN_INDEX = {name: i for i, name in enumerate(DynConfig._fields)}
+DYN_INT = "dmin_param"
+PARAM_CACHE_SIZE = 256  # parameter buffers kept per process (LRU)
+
+_param_cache: dict = {}  # (device, packed bytes) -> (host copy, buffer)
+_config_cache: dict = {}  # (config, device) -> RunConfig
+
+
+def dynamic_of(cfg) -> DynConfig:
+    """The dynamic half of a FilterConfig, or of a RunConfig on host
+    scalars."""
+    if isinstance(cfg, RunConfig):
+        return DynConfig(*(getattr(cfg, f) for f in DynConfig._fields))
+    return cfg.split()[1]
+
+
+def pack_dyn(dyn: DynConfig):
+    """The (15,) float32 host array of a DynConfig: each float field
+    rounded to float32 (the host precomputes cos_x, cos_z and slope_param
+    in float64, as split does), dmin_param's int32 bits in its slot."""
+    import numpy as np
+
+    out = np.zeros(len(DynConfig._fields), np.float32)
+    for name, v in zip(DynConfig._fields, dyn):
+        if name == DYN_INT:
+            out[DYN_INDEX[name]:DYN_INDEX[name] + 1].view(np.int32)[0] = (
+                np.int32(v))
+        else:
+            out[DYN_INDEX[name]] = np.float32(v)
+    return out
+
+
+def _device(device):
+    """torch.device(device), a CUDA device with its index."""
+    import torch
+
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def _lru_put(cache: dict, key, value) -> None:
+    cache[key] = value
+    while len(cache) > PARAM_CACHE_SIZE:
+        cache.pop(next(iter(cache)))
+
+
+def param_buffer(dyn: DynConfig, device):
+    """The (15,) float32 parameter buffer of ``dyn`` on ``device``, made
+    once per value and device and cached (keyed by the packed bytes).  On
+    the card it is copied from pinned host memory on the device's current
+    stream, without blocking the host; use it from that stream.  Never
+    written: the compiled entry points copy it into their own buffer."""
+    import torch
+
+    dev = _device(device)
+    host = pack_dyn(dyn)
+    key = (dev, host.tobytes())
+    hit = _param_cache.pop(key, None)
+    if hit is None:
+        src = torch.from_numpy(host)
+        if dev.type == "cuda":
+            src = src.pin_memory()
+            with torch.cuda.device(dev):
+                hit = (src, src.to(dev, non_blocking=True))
+        else:
+            hit = (src, src.clone())
+    _lru_put(_param_cache, key, hit)
+    return hit[1]
+
+
+def dyn_views(params) -> DynConfig:
+    """A DynConfig of 0-d views of a parameter buffer: float32 tensors, and
+    dmin_param an int32 one."""
+    import torch
+
+    ints = params.view(torch.int32)
+    return DynConfig(*(ints[i] if name == DYN_INT else params[i]
+                       for name, i in DYN_INDEX.items()))
+
+
+def bind_params(st: StaticConfig, params) -> RunConfig:
+    """The RunConfig whose dynamic fields are views of ``params``."""
+    return RunConfig(st, dyn_views(params), params)
+
+
+_split_cache: dict = {}  # config -> (StaticConfig, DynConfig)
+
+
+def split_cached(cfg: FilterConfig):
+    """cfg.split(), kept per configuration (LRU)."""
+    try:
+        hit = _split_cache.pop(cfg, None)
+    except TypeError:  # an unhashable field value
+        return cfg.split()
+    if hit is None:
+        hit = cfg.split()
+    _lru_put(_split_cache, cfg, hit)
+    return hit
+
+
+def device_config(cfg, device) -> RunConfig:
+    """``cfg`` (a FilterConfig, or a RunConfig) with its dynamic fields read
+    from the cached parameter buffer of its values on ``device``: what the
+    entry points hand the stages.  A RunConfig already bound to a buffer
+    on ``device`` is returned as it is; no host-to-device copy is made for
+    a configuration seen before on that device."""
+    dev = _device(device)
+    if isinstance(cfg, RunConfig):
+        if cfg.params is not None and cfg.params.device == dev:
+            return cfg
+        return bind_params(cfg.static, param_buffer(dynamic_of(cfg), dev))
+    try:
+        key = (cfg, dev)
+        hit = _config_cache.pop(key, None)
+    except TypeError:  # an unhashable field value
+        key, hit = None, None
+    if hit is None:
+        st, dyn = split_cached(cfg)
+        hit = bind_params(st, param_buffer(dyn, dev))
+    if key is not None:
+        _lru_put(_config_cache, key, hit)
+    return hit
 
 
 @dataclasses.dataclass(frozen=True)

@@ -228,7 +228,7 @@ struct BlockedArgs {
   int rings;  // rings per wedge
   int rows;   // wedges * rings
   int p;
-  float bz;
+  const float* bz;  // the beam zone, in device memory
   bool vec;  // alpha and label are 16-byte aligned
 };
 
@@ -290,6 +290,7 @@ __global__ void __launch_bounds__(kThreads) blocked_kernel(BlockedArgs A) {
   __shared__ unsigned int s_max[kScan];  // per first start
   __shared__ unsigned int s_wmin[kWarps], s_wmax[kWarps];
   __shared__ int s_special[2];
+  __shared__ float s_bz;  // the beam zone, read once per block
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
@@ -309,15 +310,17 @@ __global__ void __launch_bounds__(kThreads) blocked_kernel(BlockedArgs A) {
     s_max[b] = kNoMax;
   }
   if (tid < 2) s_special[tid] = 0;
+  if (tid == 0) s_bz = __ldg(A.bz);
+  cp_async_wait_all();
+  __syncthreads();
   // The special starts, each an integer start or none (-1), rings >= 1.
-  const float edge = __fsub_rn(360.0f, A.bz);
+  const float bz = s_bz;
+  const float edge = __fsub_rn(360.0f, bz);
   const bool ge1 = k >= 1;
   const int i_f = (ge1 && edge >= 0.0f && edge <= 361.0f &&
                    edge == floorf(edge)) ? (int)edge : -1;
-  const int i_b = (ge1 && A.bz >= 0.0f && A.bz <= 361.0f &&
-                   A.bz == floorf(A.bz)) ? (int)A.bz : -1;
-  cp_async_wait_all();
-  __syncthreads();
+  const int i_b = (ge1 && bz >= 0.0f && bz <= 361.0f &&
+                   bz == floorf(bz)) ? (int)bz : -1;
 
   // The row's curbs: per top the smallest azimuth, per first the largest.
   bool sp_f = false, sp_b = false;
@@ -436,13 +439,15 @@ __global__ void __launch_bounds__(kThreads)
                    const float* __restrict__ w,
                    const bool* __restrict__ reach_f,
                    const bool* __restrict__ reach_b,
-                   const int* __restrict__ num_rings, int p, float bz,
+                   const int* __restrict__ num_rings, int p,
+                   const float* __restrict__ bz_p,
                    int* __restrict__ label_out,
                    unsigned long long* __restrict__ kf,
                    bool* __restrict__ road_out) {
   __shared__ RingReach rr;
   __shared__ unsigned long long kf_blk[kMarker ? kBins : 1];
   __shared__ bool first;
+  __shared__ float s_bz;  // the beam zone, read once per block
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int r = blockIdx.y;
@@ -481,6 +486,7 @@ __global__ void __launch_bounds__(kThreads)
     for (int b = tid; b < kBins; b += blockDim.x) kf_blk[b] = kNoKey;
     if (tid == 0) first = ticket == first_ticket;
   }
+  if (tid == 0) s_bz = __ldg(bz_p);
   __syncthreads();
   if (kMarker && first) {  // kf's initial value, before any block's minima
     for (int b = tid; b < kBins; b += blockDim.x) kf[b] = kNoKey;
@@ -498,6 +504,7 @@ __global__ void __launch_bounds__(kThreads)
     store_release(&g_kf_first, ticket + gridDim.x * gridDim.y);
 
   // The special starts, each an integer start or none (-1), rings >= 1.
+  const float bz = s_bz;
   const float sp_f = 360.0f - bz;
   const bool ge1 = r >= 1;
   const int i_f = (ge1 && sp_f >= 0.0f && sp_f <= 361.0f &&
@@ -555,10 +562,13 @@ int labeled_threads(int p) {
 // for ring k of wedge w.  alpha (wedges * rings, p) f32, label int32,
 // counts (wedges * rings,) int32, w (rings,) f32, shared by the wedges;
 // the special starts apply to rings k >= 1 of each wedge.  One launch.
+// bz (here and in K9, K12): the beam zone, one float32 in device memory,
+// read by each block as it starts.
 extern "C" int urf_flood_blocked(const float* alpha, const int* label,
                                  const int* counts, const float* w,
-                                 int wedges, int rings, int p, float bz,
-                                 bool* blocked_f, bool* blocked_b,
+                                 int wedges, int rings, int p,
+                                 const float* bz, bool* blocked_f,
+                                 bool* blocked_b,
                                  void* stream) {
   const long long rows = (long long)wedges * rings;
   if (wedges < 0 || rings < 0 || p < 0 || rows > 0x7fffffffLL)
@@ -586,7 +596,7 @@ extern "C" int urf_flood_labeled(const float* alpha, const int* label_in,
                                  const int* counts, const float* w,
                                  const bool* reach_f, const bool* reach_b,
                                  const int* num_rings, int rings, int p,
-                                 float bz, int* label_out,
+                                 const float* bz, int* label_out,
                                  unsigned long long* kf, void* stream) {
   if (rings <= 0 || p <= 0) return (int)cudaErrorInvalidValue;
   const int threads = labeled_threads(p);
@@ -601,8 +611,8 @@ extern "C" int urf_flood_labeled(const float* alpha, const int* label_in,
 // in [0, 360]) inside a reached window of either sweep (K12).
 extern "C" int urf_flood_road(const float* alpha, const int* counts,
                               const float* w, const bool* reach_f,
-                              const bool* reach_b, int rings, int p, float bz,
-                              bool* road, void* stream) {
+                              const bool* reach_b, int rings, int p,
+                              const float* bz, bool* road, void* stream) {
   if (rings <= 0 || p <= 0) return (int)cudaGetLastError();
   const int threads = labeled_threads(p);
   const dim3 grid((p + threads * kSlots - 1) / (threads * kSlots), rings);

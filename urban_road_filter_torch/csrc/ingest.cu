@@ -359,12 +359,17 @@ __global__ void __launch_bounds__(Prep<kPts>::kBlock, 3)
     ingest_prep_kernel(const float* __restrict__ x,
                        const float* __restrict__ y,
                        const float* __restrict__ z, long long scan_stride,
-                       long long point_stride, int n, Roi roi, float kfi,
+                       long long point_stride, int n,
+                       const float* __restrict__ roi_p, float kfi,
                        int want_keys, bool* __restrict__ valid,
                        int* __restrict__ fk, float* __restrict__ r_key,
                        int* __restrict__ piece) {
   constexpr int kThreads = Prep<kPts>::kThreads;
   __shared__ int warp_cnt[kThreads / 32];
+  __shared__ float s_roi[6];  // the ROI bounds, read once per block
+  if (threadIdx.x < 6) s_roi[threadIdx.x] = __ldg(roi_p + threadIdx.x);
+  __syncthreads();
+  const Roi roi = {s_roi[0], s_roi[1], s_roi[2], s_roi[3], s_roi[4], s_roi[5]};
   if (threadIdx.x >= kThreads) {  // the ticket warp
     if (threadIdx.x == kThreads) counts_ready(piece);
   } else {
@@ -728,10 +733,12 @@ __device__ __forceinline__ void finish_list(Rings& sh, int list, int size,
 // ceil(n / 32) words per scan; arrive one zeroed counter per scan.
 __global__ void __launch_bounds__(kDiscoverThreads, 1)
     discover_kernel(const float* __restrict__ alpha,
-                    const bool* __restrict__ valid, int n, float tol,
-                    int rings, int seg_len, unsigned* mask, int* arrive,
-                    float* __restrict__ angles, int* __restrict__ count) {
+                    const bool* __restrict__ valid, int n,
+                    const float* __restrict__ tol_p, int rings, int seg_len,
+                    unsigned* mask, int* arrive, float* __restrict__ angles,
+                    int* __restrict__ count) {
   __shared__ Rings sh;
+  __shared__ float s_tol;  // the interval, read once per block
   const int b = blockIdx.y;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -745,6 +752,7 @@ __global__ void __launch_bounds__(kDiscoverThreads, 1)
   if (threadIdx.x == 0) {
     sh.n = 0;
     sh.filled = 0;
+    s_tol = __ldg(tol_p);
   }
 
   // 1. The prefix.
@@ -758,6 +766,7 @@ __global__ void __launch_bounds__(kDiscoverThreads, 1)
     sh.stage[i] = a[j];
   }
   __syncthreads();
+  const float tol = s_tol;
   if (rings > 0) greedy_chunk(a, open, sh, sh.stage, size, rings, tol);
   const int k_prefix = sh.n;
 
@@ -888,13 +897,16 @@ __global__ void __launch_bounds__(kAssignThreads)
     assign_kernel(const float* __restrict__ alpha,
                   const bool* __restrict__ valid,
                   const float* __restrict__ angles, int n, int rings,
-                  float tol, int* __restrict__ ring) {
+                  const float* __restrict__ tol_p, int* __restrict__ ring) {
   __shared__ float table[kSearchSlots];
+  __shared__ float s_tol;  // the interval, read once per block
   const int b = blockIdx.y;
   const int size = search_size(rings);
   for (int m = threadIdx.x; m < size; m += blockDim.x)
     table[slot(m)] = m < rings ? angles[(size_t)b * rings + m] : INFINITY;
+  if (threadIdx.x == 0) s_tol = __ldg(tol_p);
   __syncthreads();
+  const float tol = s_tol;
   const float* a = alpha + (size_t)b * n;
   const bool* v = valid + (size_t)b * n;
   int* out = ring + (size_t)b * n;
@@ -985,7 +997,7 @@ Fill fill_of_current_device() {
 template <int kMode, int kPts>
 void launch_prep(dim3 grid, cudaStream_t s, const float* x, const float* y,
                  const float* z, long long scan_stride,
-                 long long point_stride, int n, const Roi& roi, float kfi,
+                 long long point_stride, int n, const float* roi, float kfi,
                  int want_keys, bool* valid, int* fk, float* r_key,
                  int* piece) {
   ingest_prep_kernel<kMode, kPts><<<grid, Prep<kPts>::kBlock, 0, s>>>(
@@ -995,18 +1007,18 @@ void launch_prep(dim3 grid, cudaStream_t s, const float* x, const float* y,
 
 // x, y, z: the (b, n) coordinate views, one stride pattern.  Rows of 4
 // floats whose x is 16-byte aligned are read a float4 per point, planes a
-// float4 per 4 points (batches), anything else point by point.
+// float4 per 4 points (batches), anything else point by point.  roi: the
+// six bounds (min_x, max_x, min_y, max_y, min_z, max_z) in device memory,
+// float32, read by each block as it starts, so a captured graph takes a
+// new box from one write into them.
 extern "C" int urf_ingest_prep(const float* x, const float* y, const float* z,
                                int b, int n, long long scan_stride,
-                               long long point_stride, float min_x,
-                               float max_x, float min_y, float max_y,
-                               float min_z, float max_z, float kfi,
-                               int want_keys, bool* valid, int* fk,
+                               long long point_stride, const float* roi,
+                               float kfi, int want_keys, bool* valid, int* fk,
                                float* r_key, int* piece, int* grid_out,
                                void* stream) {
   grid_out[0] = grid_out[1] = 0;
   if (b <= 0) return (int)cudaGetLastError();
-  const Roi roi = {min_x, max_x, min_y, max_y, min_z, max_z};
   const Fill f = fill_of_current_device();
   // Two points a thread, point by point, while the call's blocks fit in
   // one wave, else 8; at least one block per scan (it counts, and may
@@ -1032,9 +1044,10 @@ extern "C" int urf_ingest_prep(const float* x, const float* y, const float* z,
 }
 
 // scratch: b arrival counters, then b * ceil(n / 32) mask words.  The
-// counters are zeroed here, on the launch's stream.
+// counters are zeroed here, on the launch's stream.  tol (K2 and K3): the
+// interval, one float32 in device memory, read by each block as it starts.
 extern "C" int urf_discover_rings(const float* alpha, const bool* valid,
-                                  int b, int n, float tol, int rings,
+                                  int b, int n, const float* tol, int rings,
                                   float* angles, int* count, int* scratch,
                                   int* grid_out, void* stream) {
   grid_out[0] = grid_out[1] = 0;
@@ -1066,7 +1079,7 @@ extern "C" int urf_discover_rings(const float* alpha, const bool* valid,
 
 extern "C" int urf_assign_rings(const float* alpha, const bool* valid,
                                 const float* angles, int b, int n, int rings,
-                                float tol, int* ring, int* grid_out,
+                                const float* tol, int* ring, int* grid_out,
                                 void* stream) {
   grid_out[0] = grid_out[1] = 0;
   if (rings > kMaxRings) return (int)cudaErrorInvalidValue;

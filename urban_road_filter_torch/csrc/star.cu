@@ -101,8 +101,10 @@ struct StarArgs {
   const float* z;
   long long z_stride;
   int n;
-  float slope_param, kdev, kdist;
-  int dmin;
+  // The walk's thresholds in device memory (float32; dmin int32), read by
+  // each block as it starts.
+  const float *slope_param, *kdev, *kdist;
+  const int* dmin;
   int cap;                   // scratch entries per block
   unsigned long long* keys;  // (grid * cap,) scratch
   float2* rz;                // (grid * cap,) scratch
@@ -119,6 +121,11 @@ __device__ __forceinline__ unsigned order_bits(float v) {
   return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
 }
 
+struct WalkParams {
+  float slope_param, kdev, kdist;
+  int dmin;
+};
+
 struct WalkState {
   float avg, dev, px, pz;  // running mean / deviation, previous point
   int nan;                 // NaN slopes so far
@@ -127,7 +134,7 @@ struct WalkState {
 // Warp 0 walks rz[0, m) (sorted (r, z)), the points of steps walked ..
 // walked + m - 1.  Returns 1 + index of the triggering point, or 0 (state
 // carried on).
-__device__ int walk_chunk(const StarArgs& a, const unsigned long long* srt,
+__device__ int walk_chunk(const WalkParams& a, const unsigned long long* srt,
                           const float2* rz, int m, int walked, WalkState& st,
                           float4* s_w4, float* s_w1) {
   const int lane = threadIdx.x & 31;
@@ -235,6 +242,7 @@ __global__ void __launch_bounds__(kThreads) star_search_kernel(StarArgs a) {
   __shared__ int s_red[kThreads / 32];
   __shared__ int s_n;
   __shared__ int s_hit;
+  __shared__ WalkParams s_wp;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
@@ -247,7 +255,11 @@ __global__ void __launch_bounds__(kThreads) star_search_kernel(StarArgs a) {
     s_cnt[b] = 0;
     s_cur[b] = 0;
   }
+  if (tid == 0)
+    s_wp = {__ldg(a.slope_param), __ldg(a.kdev), __ldg(a.kdist),
+            __ldg(a.dmin)};
   __syncthreads();
+  const WalkParams wp = s_wp;
   for (int base = blockIdx.x * kThreads; base < a.n; base += stride) {
     const int i = base + tid;
     const int f = i < a.n ? a.fk[i] : -1;
@@ -417,7 +429,7 @@ __global__ void __launch_bounds__(kThreads) star_search_kernel(StarArgs a) {
       }
       __syncthreads();
       if (warp == 0) {
-        const int h = walk_chunk(a, srt, srz, m, walked, st, s_w4, s_w1);
+        const int h = walk_chunk(wp, srt, srz, m, walked, st, s_w4, s_w1);
         if (lane == 0) s_hit = h;
       }
       __syncthreads();
@@ -457,11 +469,13 @@ int resident_blocks(int* out) {
 // z_stride; scratch: (n + 360 * 256) * 16 + 360 * 360 * 8 bytes (at most
 // 360 blocks, each with a region of a multiple of 256 entries of a key and
 // (r, z), and the (grid, 360) run table), 16-byte aligned, uninitialised;
-// hp (360,) int32, written in full.  n < 2^24.  One
+// hp (360,) int32, written in full; slope_param, kdev, kdist (float32) and
+// dmin (int32): one value each in device memory.  n < 2^24.  One
 // cooperative launch; a refused launch returns its error.
 extern "C" int urf_star_search(const int* fk, const float* r, const float* z,
-                               long long z_stride, int n, float slope_param,
-                               float kdev, float kdist, int dmin,
+                               long long z_stride, int n,
+                               const float* slope_param, const float* kdev,
+                               const float* kdist, const int* dmin,
                                void* scratch, int* hp, void* stream) {
   if (n < 0 || n >= (1 << 24)) return (int)cudaErrorInvalidValue;
   int resident = 0;

@@ -97,8 +97,11 @@ xz_zero_kernel(const float* __restrict__ x, const float* __restrict__ y,
                const float* __restrict__ z, const int* __restrict__ counts,
                int* __restrict__ label, const int* __restrict__ ladder_off,
                int ladder_len, Halo halo, int p, int cp, int do_x, int do_z,
-               float cos_x, float cos_z, float ch) {
+               const float* __restrict__ cos_x_p,
+               const float* __restrict__ cos_z_p,
+               const float* __restrict__ ch_p) {
   __shared__ float sx[SPAN], sy[SPAN], sz[SPAN];
+  __shared__ float s_prm[3];  // cos_x, cos_z, curb_height
   const int b = blockIdx.y;
   const int t0 = blockIdx.x * TILE;
   const int n = min(counts[b], p);
@@ -119,6 +122,9 @@ xz_zero_kernel(const float* __restrict__ x, const float* __restrict__ y,
   const float* src[3] = {x + row, y + row, z + row};
   float* dst[3] = {sx - base, sy - base, sz - base};  // dst[f][s]: slot s
   float v[3][2];  // slots lo + t and lo + TILE + t of each field
+  // Threads 0-2 load cos_x, cos_z and curb_height with the tile.
+  const float prm =
+      t < 3 ? __ldg(t == 0 ? cos_x_p : t == 1 ? cos_z_p : ch_p) : 0.0f;
 #pragma unroll
   for (int f = 0; f < 3; ++f) {
     v[f][0] = lo + t < hi ? __ldg(src[f] + lo + t) : 0.0f;
@@ -148,7 +154,9 @@ xz_zero_kernel(const float* __restrict__ x, const float* __restrict__ y,
     if (left) dst[f][s_left] = hl[f];
     if (right) dst[f][s_right] = hr[f];
   }
+  if (t < 3) s_prm[t] = prm;
   __syncthreads();
+  const float cos_x = s_prm[0], cos_z = s_prm[1], ch = s_prm[2];
 
   const int m = t0 + t;
   if (m >= n) return;
@@ -220,8 +228,8 @@ xz_zero_kernel(const float* __restrict__ x, const float* __restrict__ y,
 
 int launch(const float* x, const float* y, const float* z, const int* counts,
            int* label, const int* ladder_off, int ladder_len, const Halo& halo,
-           int rows, int p, int cp, int do_x, int do_z, float cos_x,
-           float cos_z, float ch, void* stream) {
+           int rows, int p, int cp, int do_x, int do_z, const float* cos_x,
+           const float* cos_z, const float* ch, void* stream) {
   if (cp < 1 || cp > CP_MAX) return (int)cudaErrorInvalidValue;
   const dim3 grid((p + TILE - 1) / TILE, rows);
   if (rows > 0 && p > 0 && halo.lx)
@@ -240,12 +248,14 @@ int launch(const float* x, const float* y, const float* z, const int* counts,
 // label[r, m] = LABEL_CURB where either stencil marks slot m of ring r; no
 // other slot is written.  All (rings, p) arrays are contiguous row-major,
 // counts <= p.  ladder_off: (rings,) int32 newY offsets, or NULL for none
-// (then ladder_len must be >= p).
+// (then ladder_len must be >= p).  cos_x, cos_z and ch (curb_height): one
+// float32 each in device memory, read by each block that has points.
 extern "C" int urf_xz_zero(const float* x, const float* y, const float* z,
                            const int* counts, int* label,
                            const int* ladder_off, int ladder_len, int rings,
-                           int p, int cp, int do_x, int do_z, float cos_x,
-                           float cos_z, float ch, void* stream) {
+                           int p, int cp, int do_x, int do_z,
+                           const float* cos_x, const float* cos_z,
+                           const float* ch, void* stream) {
   const Halo none = {};
   return launch(x, y, z, counts, label, ladder_off, ladder_len, none, rings,
                 p, cp, do_x, do_z, cos_x, cos_z, ch, stream);
@@ -262,8 +272,8 @@ extern "C" int urf_xz_zero_halo(
     int* label, const float* lx, const float* ly, const float* lz,
     const int* ln, const float* rx, const float* ry, const float* rz,
     const int* rn, const int* prefix, const int* total, int rings,
-    int ladder_len, int rows, int p, int cp, int do_x, int do_z, float cos_x,
-    float cos_z, float ch, void* stream) {
+    int ladder_len, int rows, int p, int cp, int do_x, int do_z,
+    const float* cos_x, const float* cos_z, const float* ch, void* stream) {
   if (rings < 1) return (int)cudaErrorInvalidValue;
   const Halo halo = {lx, ly, lz, rx, ry, rz, ln, rn, prefix, total, rings};
   return launch(x, y, z, counts, label, prefix, ladder_len, halo, rows, p,

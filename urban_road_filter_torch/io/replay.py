@@ -20,7 +20,11 @@ roi / road_probably clouds + marker strips) as Python structures, with:
   * per-scan fault isolation, and config hot-swap between scans.
 
 The hooks that differ from the JAX harness: ``_process`` calls
-``pipeline.packed_scan(..., layout="planar")``, or with ``azimuth_shard``
+``pipeline.packed_scan_jit(..., layout="planar")`` (as the JAX harness
+calls its packed_scan_jit: a CUDA graph captured on the first scan and
+replayed, a change of ``h.cfg``'s dynamic parameters between scans
+written into its parameter buffer without a re-capture), or with
+``azimuth_shard``
 > 1 the run of ``parallel.azimuth_parallel.make_azimuth_pipeline`` (all
 wedges on the one card, or, with a process ``group``, spread over its
 ranks), built once; ``_to_device`` stages as above;
@@ -63,7 +67,8 @@ import torch.distributed as dist
 from urban_road_filter_torch.config import FilterConfig, PipelineDims
 from urban_road_filter_torch.constants import LABEL_CURB, LABEL_ROAD
 from urban_road_filter_torch.pipeline import (
-    ScanResult, pad_scan_planar, packed_scan, target_device, unpack_planes)
+    ScanResult, pad_scan_planar, packed_scan_jit, target_device,
+    unpack_planes)
 from urban_road_filter_torch.postprocess import (
     MarkerTracker, build_line_strips, smooth_marker_flags)
 from urban_road_filter_torch.utils.checked import (
@@ -208,9 +213,9 @@ class ReplayHarness:
                                         throw=False, layout="planar",
                                         device=self.device)
         # Default path: the packed wire format (labels/roi/probably_road on
-        # ONE uint8 plane), unpacked by _fetch_outputs.
-        return packed_scan(dev_scan, self.cfg, self.dims, layout="planar",
-                           device=self.device)
+        # ONE uint8 plane), unpacked by _fetch_outputs; a graph replay.
+        return packed_scan_jit(dev_scan, self.cfg, self.dims,
+                               layout="planar", device=self.device)
 
     # ---- the followers (SP mode over a process group) ----
     def _header(self, kind: int) -> None:

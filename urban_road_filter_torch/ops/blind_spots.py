@@ -27,6 +27,11 @@ Float semantics follow the C++ and the JAX package: integer starts compared
 in f32, window bounds i +- w_k in f32, the `i == 360-beamZone` /
 `i == beamZone` exact-equality special cases for rings k >= 1 only
 (blind_spots.cpp:136-143,244-251).
+
+The beam zone is a dynamic parameter: the kernels read it from device
+memory (config.device_config's buffer), the glue takes it as a 0-d tensor
+there (or a host scalar), and nothing here copies a host value to the
+device or reads one back, so the stage can be captured in a CUDA graph.
 """
 
 from __future__ import annotations
@@ -39,6 +44,7 @@ from urban_road_filter_torch.config import FilterConfig
 from urban_road_filter_torch.constants import LABEL_CURB, LABEL_ROAD
 from urban_road_filter_torch import _build
 from urban_road_filter_torch.ops.geometry import F32, I32, RingLayout, f32
+from urban_road_filter_torch.ops.numerics import param, param_tensor
 from urban_road_filter_torch.ops.markers import (
     I64, N_BINS, first_nonroad_keys)
 
@@ -86,8 +92,9 @@ def _gate(i_f, q, x_direction: int):
 def window_widths(max_dist: torch.Tensor, beam_zone) -> torch.Tensor:
     """Equal-arc-length window width per ring, degrees
     (blind_spots.cpp:65,142,251): w[0] = beamZone; w[k] = arcDistance /
-    (maxDist_k * pi / 180); inf where a ring is empty (harmless: no points)."""
-    bz = f32(beam_zone)
+    (maxDist_k * pi / 180); inf where a ring is empty (harmless: no points).
+    w[0] is written on the device, from a 0-d tensor."""
+    bz = param_tensor(beam_zone, max_dist.device)
     deg_len = max_dist * f32(math.pi) / 180.0
     arc_distance = deg_len[0] * bz
     w = arc_distance / deg_len
@@ -95,22 +102,39 @@ def window_widths(max_dist: torch.Tensor, beam_zone) -> torch.Tensor:
     return w
 
 
+def _edge(bz):
+    """f32(360 - bz), the difference taken in float64 and rounded once (as
+    the host did), on the device for a tensor."""
+    if isinstance(bz, torch.Tensor):
+        return (360.0 - bz.double()).float()
+    return f32(360.0 - bz)
+
+
+def sweep_active(beam_zone, direction: int, device) -> torch.Tensor:
+    """(362,) bool: the starts one sweep takes (sweep_bounds' first
+    output)."""
+    bz = param(beam_zone)
+    i_f = torch.arange(_NI, dtype=F32, device=device)
+    if direction > 0:
+        return i_f <= _edge(bz)
+    return (i_f >= bz) & (i_f <= 360.0)
+
+
 def sweep_bounds(w: torch.Tensor, beam_zone, direction: int):
     """(active, lo, hi) for one sweep; lo/hi are the ACTUAL per-(ring, start)
     inclusive window bounds, exact-equality overrides applied."""
-    bz = f32(beam_zone)
+    bz = param(beam_zone)
     rings = w.shape[0]
     dev = w.device
     i_f = torch.arange(_NI, dtype=F32, device=dev)
     k_ge1 = torch.arange(rings, device=dev)[:, None] >= 1
+    active = sweep_active(bz, direction, dev)
     if direction > 0:
-        edge = f32(360.0 - bz)  # exact: 360 - bz rounded once, as in f32
-        active = i_f <= edge
+        edge = _edge(bz)  # exact: 360 - bz rounded once, as in f32
         special = (i_f == edge)[None, :] & k_ge1
         lo = i_f.expand(rings, _NI)
         hi = torch.where(special, 360.0, i_f[None, :] + w[:, None])
     else:
-        active = (i_f >= bz) & (i_f <= 360.0)
         special = (i_f == bz)[None, :] & k_ge1
         hi = i_f.expand(rings, _NI)
         lo = torch.where(special, 0.0, i_f[None, :] - w[:, None])
@@ -205,10 +229,11 @@ def flood_blocked(layout: RingLayout, w: torch.Tensor, beam_zone,
     shape = (rows, _NI) if wedges is None else (d, r, _NI)
     bf = torch.empty(shape, dtype=torch.bool, device=dev)
     bb = torch.empty(shape, dtype=torch.bool, device=dev)
+    bz = param_tensor(beam_zone, dev)
     _build.launch("flood_blocked", "urf_flood_blocked", dev,
                   _build.ptr(layout.alpha), _build.ptr(layout.label),
                   _build.ptr(layout.counts), _build.ptr(w), d, r, p,
-                  f32(beam_zone), _build.ptr(bf), _build.ptr(bb))
+                  _build.ptr(bz), _build.ptr(bf), _build.ptr(bb))
     return bf, bb
 
 
@@ -237,10 +262,11 @@ def flood_road(layout: RingLayout, reach_f, reach_b, w: torch.Tensor,
     _build.check(reach_f, "reach_f", torch.bool, (r, _NI), dev)
     _build.check(reach_b, "reach_b", torch.bool, (r, _NI), dev)
     road = torch.empty((r, p), dtype=torch.bool, device=dev)
+    bz = param_tensor(beam_zone, dev)
     _build.launch("flood_road", "urf_flood_road", dev,
                   _build.ptr(layout.alpha), _build.ptr(layout.counts),
                   _build.ptr(w), _build.ptr(reach_f), _build.ptr(reach_b),
-                  r, p, f32(beam_zone), _build.ptr(road))
+                  r, p, _build.ptr(bz), _build.ptr(road))
     return road
 
 
@@ -277,11 +303,12 @@ def flood_labeled(layout: RingLayout, reach_f, reach_b, w, beam_zone,
     _build.check(num_rings, "num_rings", I32, (), dev)
     label = torch.empty_like(layout.label)
     kf = torch.empty((N_BINS,), dtype=I64, device=dev)  # written whole
+    bz = param_tensor(beam_zone, dev)
     _build.launch("flood_labeled", "urf_flood_labeled", dev,
                   _build.ptr(layout.alpha), _build.ptr(layout.label),
                   _build.ptr(layout.counts), _build.ptr(w),
                   _build.ptr(reach_f), _build.ptr(reach_b),
-                  _build.ptr(num_rings), r, p, f32(beam_zone),
+                  _build.ptr(num_rings), r, p, _build.ptr(bz),
                   _build.ptr(label), _build.ptr(kf))
     return label, kf
 
@@ -304,7 +331,7 @@ def sweep_reach(layout: RingLayout, blocked, w: torch.Tensor,
         gate = _gate(torch.arange(_NI, dtype=F32, device=dev), q,
                      int(cfg.x_direction))
     return tuple(
-        reach_of(b, sweep_bounds(w, cfg.beam_zone, d)[0], gate, ring_active)
+        reach_of(b, sweep_active(cfg.beam_zone, d, dev), gate, ring_active)
         for b, d in zip(blocked, (+1, -1)))
 
 

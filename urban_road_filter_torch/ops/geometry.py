@@ -64,7 +64,7 @@ def vertical_angles(x, y, z):
     return d, alpha
 
 
-def discover_rings(alpha, valid, interval: float, rings: int = CHANNELS):
+def discover_rings(alpha, valid, interval, rings: int = CHANNELS):
     """Greedy ring registration (lidar_segmentation.cpp:168-197) of one
     scan: ops.ingest.discover_rings (K2) at B = 1.  Returns (ascending ring
     angles padded with +inf, ring count as a 0-d int32 tensor)."""
@@ -73,7 +73,7 @@ def discover_rings(alpha, valid, interval: float, rings: int = CHANNELS):
     return angles[0], count[0]
 
 
-def assign_rings(alpha, valid, angles_sorted, interval: float):
+def assign_rings(alpha, valid, angles_sorted, interval):
     """First matching ring in ascending-angle order
     (lidar_segmentation.cpp:226-233) of one scan: ops.ingest.assign_rings
     (K3) at B = 1; rings (the table size) = dropped."""

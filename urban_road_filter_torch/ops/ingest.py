@@ -16,7 +16,10 @@ is one kernel (K1 zeroes its in-ROI counts itself; K2 zeroes its arrival
 counters with a memset, and sorts its table itself: no ``torch.sort``);
 ``last_grid`` keeps the grid of each kernel's latest launch.  Every
 threshold is rounded to float32 on the host first, as the JAX package
-does.
+does.  The kernels read the thresholds from device memory (the ROI bounds
+and the interval of config.device_config's parameter buffer), so a
+captured graph takes new values without a re-capture; the wrappers take
+the interval as a 0-d tensor there, or a host scalar.
 
 The sector follows the oracle's binning, not the JAX package's: the float64
 atan2 rounded to float32 (the JAX package fed the kernel an f32 XLA atan2
@@ -34,13 +37,18 @@ import math
 
 import torch
 
-from urban_road_filter_torch.config import FilterConfig
+from urban_road_filter_torch.config import (
+    DYN_INDEX, FilterConfig, device_config)
 from urban_road_filter_torch.constants import CHANNELS, STAR_KFI, STAR_REP
 from urban_road_filter_torch import _build
 from urban_road_filter_torch.ops.numerics import (
-    F32, I32, f32, roi_mask_xyz, sqrt_rn)
+    F32, I32, f32, param, param_tensor, roi_mask_xyz, sqrt_rn)
 
 MAX_RINGS = 128  # the kernels' shared-memory ring table (csrc/ingest.cu)
+# K1 reads the six ROI bounds as one run of the parameter buffer.
+_ROI = tuple(DYN_INDEX[k] for k in ("min_x", "max_x", "min_y", "max_y",
+                                    "min_z", "max_z"))
+assert _ROI == tuple(range(_ROI[0], _ROI[0] + 6)), _ROI
 
 # Kernel name -> (grid.x, grid.y) of its latest launch.
 last_grid: dict = {}
@@ -101,11 +109,10 @@ def ingest_prep(x, y, z, cfg: FilterConfig, want_star_keys: bool = True):
         fk = torch.empty((b, n), dtype=I32, device=dev)
         r_key = torch.empty((b, n), dtype=F32, device=dev)
         keys = (_build.ptr(fk), _build.ptr(r_key))
-    bounds = (cfg.min_x, cfg.max_x, cfg.min_y, cfg.max_y, cfg.min_z,
-              cfg.max_z)
+    roi = device_config(cfg, dev).params[_ROI[0]:_ROI[0] + 6]
     _launch("ingest_prep", "urf_ingest_prep", dev, _build.ptr(x),
             _build.ptr(y), _build.ptr(z), b, n, x.stride(0), x.stride(1),
-            *map(f32, bounds), f32(STAR_KFI), int(want_star_keys),
+            _build.ptr(roi), f32(STAR_KFI), int(want_star_keys),
             _build.ptr(valid), *keys, _build.ptr(piece))
     return valid, fk, r_key, piece
 
@@ -116,11 +123,11 @@ def _check_rings(rings: int) -> None:
                          f"got {rings}")
 
 
-def discover_rings_plain(alpha, valid, interval: float, rings: int):
+def discover_rings_plain(alpha, valid, interval, rings: int):
     """A ``rings``-step loop of vectorized matching over all scans at once
     (the JAX package's geometry.discover_rings, per scan): ring k+1's
     representative is the first point matching none of rings 0..k."""
-    tol = f32(interval)
+    tol = param(interval)
     b = alpha.shape[0]
     dev = alpha.device
     inf = torch.full((b, 1), math.inf, dtype=F32, device=dev)
@@ -140,9 +147,10 @@ def discover_rings_plain(alpha, valid, interval: float, rings: int):
     return torch.sort(angles, dim=-1).values, count
 
 
-def discover_rings(alpha, valid, interval: float, rings: int = CHANNELS):
+def discover_rings(alpha, valid, interval, rings: int = CHANNELS):
     """Greedy ring registration per scan (lidar_segmentation.cpp:168-197).
-    alpha: (B, N) f32 vertical angles; valid: (B, N) bool ROI mask.
+    alpha: (B, N) f32 vertical angles; valid: (B, N) bool ROI mask;
+    interval: a 0-d float32 tensor on alpha's device, or a host scalar.
     Returns (ascending ring angles (B, rings) padded with +inf, NaN last,
     ring count (B,) int32).  On the card: one kernel launch over (segments,
     B) blocks, which sorts the table itself, after a memset of its B
@@ -158,22 +166,23 @@ def discover_rings(alpha, valid, interval: float, rings: int = CHANNELS):
     angles = torch.empty((b, rings), dtype=F32, device=dev)
     count = torch.empty((b,), dtype=I32, device=dev)
     scratch = torch.empty((b * (1 + (n + 31) // 32),), dtype=I32, device=dev)
+    tol = param_tensor(interval, dev)
     _launch("discover_rings", "urf_discover_rings", dev, _build.ptr(alpha),
-            _build.ptr(valid), b, n, f32(interval), rings, _build.ptr(angles),
-            _build.ptr(count), _build.ptr(scratch))
+            _build.ptr(valid), b, n, _build.ptr(tol), rings,
+            _build.ptr(angles), _build.ptr(count), _build.ptr(scratch))
     return angles, count
 
 
-def assign_rings_plain(alpha, valid, angles_sorted, interval: float):
+def assign_rings_plain(alpha, valid, angles_sorted, interval):
     rings = angles_sorted.shape[-1]
     m = (torch.abs(angles_sorted[:, None, :] - alpha[:, :, None])
-         <= f32(interval))
+         <= param(interval))
     has = torch.any(m, dim=-1)
     ring = torch.argmax(m.to(torch.uint8), dim=-1).to(I32)
     return torch.where(valid & has, ring, torch.full_like(ring, rings))
 
 
-def assign_rings(alpha, valid, angles_sorted, interval: float):
+def assign_rings(alpha, valid, angles_sorted, interval):
     """First matching ring in ascending-angle order per point
     (lidar_segmentation.cpp:226-233): (B, N) int32, ``rings`` (the table
     size) for a point outside the ROI or matching no ring.
@@ -192,7 +201,8 @@ def assign_rings(alpha, valid, angles_sorted, interval: float):
     _build.check(valid, "valid", torch.bool, (b, n), dev)
     _build.check(angles_sorted, "angles_sorted", F32, (b, rings), dev)
     ring = torch.empty((b, n), dtype=I32, device=dev)
+    tol = param_tensor(interval, dev)
     _launch("assign_rings", "urf_assign_rings", dev, _build.ptr(alpha),
             _build.ptr(valid), _build.ptr(angles_sorted), b, n, rings,
-            f32(interval), _build.ptr(ring))
+            _build.ptr(tol), _build.ptr(ring))
     return ring

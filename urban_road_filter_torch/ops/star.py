@@ -30,19 +30,35 @@ import math
 import numpy as np
 import torch
 
-from urban_road_filter_torch.config import FilterConfig
+from urban_road_filter_torch.config import FilterConfig, device_config
 from urban_road_filter_torch.constants import (
     LABEL_CURB, STAR_REP, beam_tables)
 from urban_road_filter_torch import _build
-from urban_road_filter_torch.ops.geometry import F32, I32, f32
+from urban_road_filter_torch.ops.geometry import F32, I32
 from urban_road_filter_torch.ops.ingest import ingest_prep
+from urban_road_filter_torch.ops.numerics import param
+
+_beam_tables: dict = {}  # device -> the beam tables there
+
+
+def _tables_on(device):
+    """The beam rectangle tables on ``device``, copied there once (from
+    pinned memory on the card, without blocking the host), so a scan makes
+    no host-to-device copy and a graph capture can replay them."""
+    hit = _beam_tables.get(device)
+    if hit is None:
+        host = [torch.from_numpy(np.asarray(t)) for t in beam_tables()]
+        if device.type == "cuda":
+            host = [t.pin_memory() for t in host]
+        hit = (host, [t.to(device, non_blocking=True) for t in host])
+        _beam_tables[device] = hit
+    return hit[1]
 
 
 def _rect(x, y, f):
     """Beam-rectangle membership (star_shaped_search.cpp:73-107), strict <,
     per point on its beam f."""
-    yx_t, d_t, o_t = (torch.from_numpy(np.asarray(t)).to(x.device)
-                      for t in beam_tables())
+    yx_t, d_t, o_t = _tables_on(x.device)
     yx, d, o = yx_t[f], d_t[f], o_t[f]
     c = d * torch.where(yx, y, x)
     coord = torch.where(yx, x, y)
@@ -87,8 +103,13 @@ def beam_streams(x, y, z, valid, cfg: FilterConfig, keys=None):
 
 
 def _walk_params(cfg: FilterConfig):
-    return (float(cfg.slope_param), f32(cfg.kdev_param), f32(cfg.kdist_param),
-            int(cfg.dmin_param))
+    """(slope_param, kdev, kdist, dmin) as the plain walk uses them: 0-d
+    tensors of a bound configuration (config.device_config), or host
+    values."""
+    dmin = cfg.dmin_param
+    return (param(cfg.slope_param), param(cfg.kdev_param),
+            param(cfg.kdist_param),
+            dmin if isinstance(dmin, torch.Tensor) else int(dmin))
 
 
 def star_walk_plain(fk_s, r_s, z_s, pid_s, cfg: FilterConfig):
@@ -150,7 +171,7 @@ def star_search(fk, r_key, z, cfg: FilterConfig) -> torch.Tensor:
     if n >= 1 << 24:
         raise ValueError(f"the star search counts walk steps as f32: "
                          f"n < 2^24, got {n}")
-    slope_param, kdev, kdist, dmin = _walk_params(cfg)
+    cfg = device_config(cfg, dev)
     # Per block a region of keys and (r, z), 16 bytes an entry, and the
     # (360, 360) run table (csrc/star.cu, urf_star_search).
     scratch = torch.empty(((n + STAR_REP * 256) * 2 + STAR_REP * STAR_REP,),
@@ -158,8 +179,10 @@ def star_search(fk, r_key, z, cfg: FilterConfig) -> torch.Tensor:
     hp = torch.empty((STAR_REP,), dtype=I32, device=dev)
     _build.launch("star_walk", "urf_star_search", dev, _build.ptr(fk),
                   _build.ptr(r_key), _build.ptr(z), z.stride(0), n,
-                  slope_param, kdev, kdist, dmin, _build.ptr(scratch),
-                  _build.ptr(hp))
+                  *(_build.ptr(getattr(cfg, k)) for k in (
+                      "slope_param", "kdev_param", "kdist_param",
+                      "dmin_param")),
+                  _build.ptr(scratch), _build.ptr(hp))
     return hp
 
 
@@ -180,5 +203,5 @@ def star_labels(hp, ring_id, pos, rings: int, cap: int) -> torch.Tensor:
     landed = (hp > 0) & (ring < rings) & (slot < cap)
     dst = torch.where(landed, ring * cap + slot, rings * cap)
     lab = torch.zeros((rings * cap + 1,), dtype=I32, device=hp.device)
-    lab[dst] = LABEL_CURB
+    lab.index_fill_(0, dst, LABEL_CURB)  # a fill: no host value copied
     return lab[:rings * cap].reshape(rings, cap)

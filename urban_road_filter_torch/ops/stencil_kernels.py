@@ -17,15 +17,23 @@ import ctypes
 
 import torch
 
-from urban_road_filter_torch.config import FilterConfig
+from urban_road_filter_torch.config import FilterConfig, device_config
 from urban_road_filter_torch import _build
 from urban_road_filter_torch.constants import LABEL_CURB
-from urban_road_filter_torch.ops.geometry import RingLayout, f32
+from urban_road_filter_torch.ops.geometry import RingLayout
 from urban_road_filter_torch.ops.xzero import new_y_ladder, x_zero
 from urban_road_filter_torch.ops.zzero import z_zero
 
 F32 = torch.float32
 I32 = torch.int32
+
+
+def _thresholds(cfg):
+    """Pointers to cos_x, cos_z and curb_height in a bound
+    configuration's parameter buffer (config.device_config): the kernel
+    reads them from device memory."""
+    return tuple(_build.ptr(getattr(cfg, k))
+                 for k in ("cos_x", "cos_z", "curb_height"))
 
 
 def xz_zero_plain(layout: RingLayout, cfg: FilterConfig,
@@ -60,6 +68,7 @@ def fused_xz_zero_(layout: RingLayout, cfg: FilterConfig,
                                          ladder_len).label)
         return
     dev = layout.x.device
+    cfg = device_config(cfg, dev)
     for name in ("x", "y", "z"):
         _build.check(getattr(layout, name), name, F32, (r, p), dev)
     _build.check(layout.counts, "counts", I32, (r,), dev)
@@ -73,8 +82,7 @@ def fused_xz_zero_(layout: RingLayout, cfg: FilterConfig,
                   _build.ptr(layout.z), _build.ptr(layout.counts),
                   _build.ptr(layout.label), off,
                   p if ladder_offset is None else ladder_len, r, p, cp,
-                  int(do_x), int(do_z), f32(cfg.cos_x), f32(cfg.cos_z),
-                  f32(cfg.curb_height))
+                  int(do_x), int(do_z), *_thresholds(cfg))
 
 
 def fused_xz_zero(layout: RingLayout, cfg: FilterConfig,
@@ -179,6 +187,7 @@ def fused_xz_zero_halo(layout: RingLayout, left: dict, right: dict,
                                               total, cfg, n_wedges))
         return
     dev = layout.x.device
+    cfg = device_config(cfg, dev)
     for name in ("x", "y", "z"):
         _build.check(getattr(layout, name), name, F32, (d * rings, cap), dev)
         for side, blocks in (("left", left), ("right", right)):
@@ -198,5 +207,4 @@ def fused_xz_zero_halo(layout: RingLayout, left: dict, right: dict,
                   *(_build.ptr(right[k]) for k in ("x", "y", "z", "n")),
                   _build.ptr(prefix), _build.ptr(total), rings,
                   cap * (n_wedges or d),
-                  rows, cap, cp, int(do_x), int(do_z), f32(cfg.cos_x),
-                  f32(cfg.cos_z), f32(cfg.curb_height))
+                  rows, cap, cp, int(do_x), int(do_z), *_thresholds(cfg))

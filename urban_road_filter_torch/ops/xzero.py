@@ -14,6 +14,7 @@ import torch
 from urban_road_filter_torch.config import FilterConfig
 from urban_road_filter_torch.constants import LABEL_CURB
 from urban_road_filter_torch.ops.geometry import RingLayout, f32, sqrt_rn
+from urban_road_filter_torch.ops.numerics import param
 
 
 def _new_y_table(p: int) -> np.ndarray:
@@ -64,9 +65,9 @@ def x_zero(layout: RingLayout, cfg: FilterConfig, new_y=None) -> RingLayout:
     # acos(clip(b)) <= angleFilter1  <=>  b >= cos(angleFilter1); cos_x is
     # host-precomputed in float64 (config.py).
     bracket = (x3 * x3 - x1 * x1 - x2 * x2) / (-2.0 * x1 * x2)
-    ch = f32(cfg.curb_height)
+    ch = param(cfg.curb_height)
     cond = ((d < 5.0)
-            & (bracket >= f32(cfg.cos_x))
+            & (bracket >= param(cfg.cos_x))
             & ((torch.abs(z - _sh(z, h)) >= ch)
                | (torch.abs(_sh(z, cp) - _sh(z, h)) >= ch))
             & (torch.abs(z - _sh(z, cp)) >= f32(0.05)))

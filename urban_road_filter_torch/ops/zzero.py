@@ -15,6 +15,7 @@ import torch
 from urban_road_filter_torch.config import FilterConfig
 from urban_road_filter_torch.constants import LABEL_CURB
 from urban_road_filter_torch.ops.geometry import RingLayout, f32, sqrt_rn
+from urban_road_filter_torch.ops.numerics import param
 
 
 def _sh(a, k):  # a[j+k]; wrap garbage masked by the j-range test below
@@ -51,9 +52,9 @@ def z_zero(layout: RingLayout, cfg: FilterConfig) -> RingLayout:
     bracket = (va1 * vb1 + va2 * vb2) / (
         sqrt_rn(va1 * va1 + va2 * va2) * sqrt_rn(vb1 * vb1 + vb2 * vb2))
     # Cosine-space threshold (see ops/xzero.py); NaN brackets fail it.
-    ch = f32(cfg.curb_height)
+    ch = param(cfg.curb_height)
     cond = ((d < 5.0)
-            & (bracket >= f32(cfg.cos_z))
+            & (bracket >= param(cfg.cos_z))
             & ((max1 - absz >= ch) | (max2 - absz >= ch))
             & (torch.abs(max1 - max2) >= f32(0.05)))
     j_idx = torch.arange(p, device=x.device)[None, :]

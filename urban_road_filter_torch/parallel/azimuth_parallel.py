@@ -50,7 +50,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from urban_road_filter_torch.config import FilterConfig, PipelineDims
+from urban_road_filter_torch.config import (
+    FilterConfig, PipelineDims, device_config)
 from urban_road_filter_torch.constants import (
     LABEL_CURB, MIN_POINTS, STAR_REP)
 from urban_road_filter_torch.ops import geometry, ingest
@@ -268,7 +269,7 @@ def _halo(lw, layout: RingLayout, rings: int, cp: int):
                 loc, rings, d * cp)
             out[name] = torch.where(out_valid, torch.gather(flat, 2, take),
                                     0.0)
-        out["n"] = torch.minimum(nv[..., 0], torch.tensor(cp, device=dev))
+        out["n"] = torch.clamp(nv[..., 0], max=cp)
         return out
 
     return (compact(valid[:, 0], {n: blocks[:, i] for i, n in
@@ -439,7 +440,8 @@ def _run(x, y, z, cfg: FilterConfig, dims: PipelineDims, lw,
             for k in range(loc):  # K4 per wedge: beams never straddle
                 hp = star_hits(xw[k], yw[k], zw[k], valid_w[k], cfg,
                                keys=(fk_w[k], rk_w[k]))
-                star[k, torch.where(hp > 0, hp - 1, per_wedge).long()] = (
+                star[k].index_fill_(
+                    0, torch.where(hp > 0, hp - 1, per_wedge).long(),
                     float(LABEL_CURB))
 
     with _stage("sp_tensorize"):
@@ -597,8 +599,12 @@ def make_azimuth_pipeline(n_wedges: int, cfg: FilterConfig,
         if x.dtype != F32:
             raise TypeError(f"points must be float32, got {x.dtype}")
         lw.census.clear()
-        return _run(x, y, z, cfg if cfg_now is None else cfg_now, dims, lw,
-                    per_wedge, cap, probe)
+        # The kernels and the glue read the dynamic parameters from the
+        # configuration's cached buffer on the card (K4, K7's SP entry,
+        # K8, K12 among them).
+        return _run(x, y, z, device_config(
+            cfg if cfg_now is None else cfg_now, x.device), dims, lw,
+            per_wedge, cap, probe)
 
     run.wedges = lw
     return run

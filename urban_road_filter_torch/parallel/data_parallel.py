@@ -5,7 +5,10 @@ shards a batch's scan axis over a mesh's "data" axis and vmaps the pipeline
 per scan.  Here a batch, (B, N, >=3) rows or (3, B, N) planar (named by
 ``layout``, never guessed from the shape), is cut on its scan axis into
 contiguous chunks, one per entry of ``devices``, and each chunk runs
-pipeline.process_batch on its device's current stream.  The per-scan
+pipeline.process_batch_jit on its device's current stream (a CUDA graph
+per device and chunk shape, replayed; ``run(pts, cfg_now)`` under other
+dynamic parameters writes them into its parameter buffer, with no
+re-capture, as the JAX function's hot swap makes no re-trace).  The per-scan
 pipeline has no cross-scan dependence, so the chunks need no communication;
 the results are joined on ``devices[0]``.
 
@@ -19,7 +22,7 @@ import torch
 
 from urban_road_filter_torch.config import FilterConfig, PipelineDims
 from urban_road_filter_torch.pipeline import (
-    ScanResult, process_batch, target_device)
+    ScanResult, process_batch_jit, target_device)
 
 _SCAN_AXIS = {"rows": 0, "planar": 1}
 
@@ -31,7 +34,7 @@ def make_sharded_pipeline(devices, cfg: FilterConfig, dims: PipelineDims):
     scan axis is split into len(devices) contiguous chunks (sizes differ by
     at most one; a device whose chunk is empty runs nothing).  ``cfg_now``
     replaces ``cfg`` for that call (a hot swap).  With one device, run is
-    process_batch itself: no split and no copy."""
+    process_batch_jit itself: no split."""
     devices = [target_device(d) for d in devices]
     if not devices:
         raise ValueError("make_sharded_pipeline needs at least one device")
@@ -43,14 +46,15 @@ def make_sharded_pipeline(devices, cfg: FilterConfig, dims: PipelineDims):
             raise ValueError(f"layout must be 'rows' or 'planar', got "
                              f"{layout!r}")
         if len(devices) == 1:
-            return process_batch(pts, c, dims, layout=layout,
-                                 device=devices[0])
+            return process_batch_jit(pts, c, dims, layout=layout,
+                                     device=devices[0])
         pts = torch.as_tensor(pts)
         axis = _SCAN_AXIS[layout]
         if pts.ndim != 3 or pts.shape[axis] == 0:
             raise ValueError(f"expected a non-empty {layout} batch, got "
                              f"shape {tuple(pts.shape)}")
-        parts = [process_batch(chunk, c, dims, layout=layout, device=dev)
+        parts = [process_batch_jit(chunk, c, dims, layout=layout,
+                                   device=dev)
                  for dev, chunk in zip(devices, torch.tensor_split(
                      pts, len(devices), dim=axis))
                  if chunk.shape[axis]]

@@ -1,7 +1,9 @@
 """Scans in, labels + markers out: the scan and batch pipelines on tensors.
 
 Port of urban_road_filter_tpu/pipeline.py:99-212 (process_scan), :234-306
-(the batch path, process_batch_jit) and :271-296 (the packed wire plane).
+(the batch path), :271-296 (the packed wire plane) and :218-306 (the
+compiled entry points process_scan_jit, packed_scan_jit and
+process_batch_jit, here CUDA-graph replays).
 Dataflow, on the card (or, for ``device="cpu"``, through the plain twins):
 
     points (one scan: rows (N, >=3) or planar (3, N); a batch: rows
@@ -23,17 +25,32 @@ Dataflow, on the card (or, for ``device="cpu"``, through the plain twins):
          one launch per 128 scans)
 
 Nothing here reads a value back to the host, so a CUDA scan or batch is
-enqueued without a synchronisation.
+enqueued without a synchronisation.  The stages read the configuration's
+dynamic half (config.DynConfig) from a device parameter buffer
+(config.device_config: one cached buffer per value and device, so a run
+of scans under one configuration makes no host-to-device copy for it).
+
+The compiled entry points (``*_jit``) capture the same stages once per key
+(the static half, dims, layout, input shape and dtype, device) into a CUDA
+graph, with an input buffer and a parameter buffer of their own, and
+replay it: a call copies its input in, writes the parameter buffer only
+when the dynamic values changed (a hot swap, no re-capture), replays, and
+returns copies of the graph's outputs.  On the CPU they keep the same
+cache and counts and run the plain twins on their parameter buffer.
 """
 
 from __future__ import annotations
 
+import time
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from urban_road_filter_torch.config import FilterConfig, PipelineDims
+from urban_road_filter_torch import _build
+from urban_road_filter_torch.config import (
+    DynConfig, FilterConfig, PipelineDims, bind_params, device_config,
+    param_buffer, split_cached)
 from urban_road_filter_torch.constants import MIN_POINTS
 from urban_road_filter_torch.ops import geometry, ingest
 from urban_road_filter_torch.ops.blind_spots import blind_spots
@@ -130,10 +147,18 @@ def on_device(pts, device=None) -> torch.Tensor:
 
 
 def _scan(pts, cfg: FilterConfig, dims: PipelineDims, layout: str, device):
-    """(ScanResult, packed uint8 plane) of one scan: the batch path's
-    kernels at B = 1 (the ingest over a batch of one, the gather + pack of
-    one lane), on the scan's own views."""
-    x, y, z, _ = geometry.xyz_of(on_device(pts, device), layout)
+    """_scan_on the scan on ``device`` under ``cfg``'s cached parameter
+    buffer there."""
+    pts = on_device(pts, device)
+    return _scan_on(pts, device_config(cfg, pts.device), dims, layout)
+
+
+def _scan_on(pts, cfg, dims: PipelineDims, layout: str):
+    """(ScanResult, packed uint8 plane) of one scan on its device, ``cfg``
+    bound to a parameter buffer there: the batch path's kernels at B = 1
+    (the ingest over a batch of one, the gather + pack of one lane), on the
+    scan's own views."""
+    x, y, z, _ = geometry.xyz_of(pts, layout)
     valid, fk, r_key, ring_id, num_rings, ok = (
         f if f is None else f[0]
         for f in _ingest(x[None], y[None], z[None], cfg, dims))
@@ -189,8 +214,14 @@ def process_batch(pts, cfg: FilterConfig, dims: PipelineDims,
     is a view of the batch's tensor (writing into it writes into the
     batch).  Lane b equals process_scan of scan b.  ``device`` and the
     one-stream rule as for process_scan."""
-    x, y, z, _ = geometry.xyz_of(on_device(pts, device), layout,
-                                 batched=True)
+    pts = on_device(pts, device)
+    return _batch_on(pts, device_config(cfg, pts.device), dims, layout)
+
+
+def _batch_on(pts, cfg, dims: PipelineDims, layout: str) -> ScanResult:
+    """process_batch of a batch on its device, ``cfg`` bound to a
+    parameter buffer there."""
+    x, y, z, _ = geometry.xyz_of(pts, layout, batched=True)
     if x.shape[0] == 0:
         raise ValueError(f"empty batch: {tuple(pts.shape)}")
     valid, fk, r_key, ring_id, num_rings, ok = _ingest(x, y, z, cfg, dims)
@@ -209,6 +240,148 @@ def process_batch(pts, cfg: FilterConfig, dims: PipelineDims,
         markers=markers, overflow=torch.stack(overflow),
         star_overflow=torch.zeros(ok.shape, dtype=I32, device=x.device),
         probably_road=probably_road)
+
+
+# ---- the compiled entry points ----
+
+# Captures per entry kind, as the JAX package's TRACE_COUNTS counts traces:
+# one per new key; a change of dynamic parameters adds none.
+CAPTURE_COUNTS = {"scan": 0, "packed": 0, "batch": 0}
+
+_compiled: dict = {}  # key -> _Compiled
+
+
+def _packed_outputs(pts, cfg, dims, layout):
+    res, packed = _scan_on(pts, cfg, dims, layout)
+    return packed, res.markers, res.ok, res.num_rings, res.overflow
+
+
+_BODIES = {"scan": lambda *a: _scan_on(*a)[0], "packed": _packed_outputs,
+           "batch": _batch_on}
+
+
+class _Compiled:
+    """One compiled entry: its parameter buffer (the cfg its stages see is
+    bound to it), and on the card its input buffer, CUDA graph and the
+    graph's outputs, the kernel launches the graph holds, and what its
+    capture cost (``stats``: capture and instantiation ms, the graph's
+    kernel, memcpy and memset nodes, the bytes its memory pool reserved)."""
+
+    def __init__(self, kind: str, st, dyn, dims: PipelineDims, layout: str,
+                 pts: torch.Tensor):
+        self.kind, self.dims, self.layout = kind, dims, layout
+        dev = pts.device
+        self.params = torch.empty((len(DynConfig._fields),),
+                                  dtype=torch.float32, device=dev)
+        self.cfg = bind_params(st, self.params)
+        self.held = None  # the DynConfig params holds
+        self.graph = None
+        self.stats: dict = {}
+        if dev.type == "cuda":
+            self._capture(pts, dyn)
+
+    def _write_params(self, dyn) -> None:
+        """Make params hold ``dyn``: one device copy from its cached buffer
+        when it changed (a hot swap), nothing otherwise."""
+        if self.held != dyn:
+            self.params.copy_(param_buffer(dyn, self.params.device))
+            self.held = dyn
+
+    def _capture(self, pts: torch.Tensor, dyn) -> None:
+        """Capture the entry's stages into a CUDA graph, after one run of
+        them on the current stream (it builds the kernels, fills the
+        caches, and counts as launches).  A failed capture raises."""
+        body = _BODIES[self.kind]
+        dev = pts.device
+        self.input = torch.empty(pts.shape, dtype=pts.dtype, device=dev)
+        self.input.copy_(pts)
+        self._write_params(dyn)
+        body(self.input, self.cfg, self.dims, self.layout)
+        t0 = time.perf_counter()
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        try:
+            with _build.recording() as launches:
+                with torch.cuda.graph(graph):
+                    # After the context emptied the allocator's cache: the
+                    # graph's own pool grows from here.
+                    reserved = torch.cuda.memory_reserved(dev)
+                    out = body(self.input, self.cfg, self.dims, self.layout)
+            t1 = time.perf_counter()
+            graph.instantiate()
+        except Exception as e:
+            raise RuntimeError(f"{self.kind}: CUDA-graph capture failed "
+                               f"({type(e).__name__}: {e})") from e
+        t2 = time.perf_counter()
+        self.stats = {"capture_ms": (t1 - t0) * 1e3,
+                      "instantiate_ms": (t2 - t1) * 1e3,
+                      "nodes": _build.graph_nodes(graph),
+                      "pool_bytes": torch.cuda.memory_reserved(dev) - reserved}
+        self.graph, self.out, self.launches = graph, out, dict(launches)
+        self.ticketed = [k for k in _build.TICKETED if k in launches]
+
+    def __call__(self, pts, dyn):
+        self._write_params(dyn)
+        if self.graph is None:  # the CPU: the plain twins, run each call
+            return _BODIES[self.kind](pts, self.cfg, self.dims, self.layout)
+        # The ticket check (it may raise) before anything is enqueued.
+        _build.replayed(self.launches, self.ticketed, self.input.device)
+        self.input.copy_(pts, non_blocking=True)
+        self.graph.replay()
+        outs = tuple(t.clone() for t in self.out)
+        return self.out._make(outs) if hasattr(self.out, "_make") else outs
+
+
+def _run_compiled(kind: str, pts, cfg: FilterConfig, dims: PipelineDims,
+                  layout: str, device):
+    dev = target_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    pts = torch.as_tensor(pts)
+    if dev.type == "cpu":
+        pts = pts.to(dev)
+    st, dyn = split_cached(cfg)
+    key = (kind, st, dims, layout, tuple(pts.shape), pts.dtype, dev)
+    entry = _compiled.get(key)
+    if entry is None:
+        entry = _Compiled(kind, st, dyn, dims, layout,
+                          pts.to(dev, non_blocking=True))
+        _compiled[key] = entry
+        CAPTURE_COUNTS[kind] += 1
+    return entry(pts, dyn)
+
+
+def compiled_entries() -> dict:
+    """{key: entry} of every compiled entry point made in this process
+    (each entry's ``stats`` on the card)."""
+    return dict(_compiled)
+
+
+def process_scan_jit(pts, cfg: FilterConfig, dims: PipelineDims,
+                     layout: str = "rows", device=None) -> ScanResult:
+    """process_scan as a CUDA-graph replay (on the CPU, the plain twins
+    through the same cache).  The graph is captured once per (static
+    half of cfg, dims, layout, input shape and dtype, device); a call under
+    other dynamic values (config.DynConfig) writes them into the entry's
+    parameter buffer and replays the same graph.  Returns new tensors,
+    never overwritten by a later call."""
+    return _run_compiled("scan", pts, cfg, dims, layout, device)
+
+
+def packed_scan_jit(pts, cfg: FilterConfig, dims: PipelineDims,
+                    layout: str = "rows", device=None):
+    """packed_scan as a CUDA-graph replay, cached and hot-swapped as
+    process_scan_jit.  Returns (packed, markers, ok, num_rings,
+    overflow)."""
+    return _run_compiled("packed", pts, cfg, dims, layout, device)
+
+
+def process_batch_jit(pts, cfg: FilterConfig, dims: PipelineDims,
+                      layout: str = "rows", device=None) -> ScanResult:
+    """process_batch as a CUDA-graph replay (one ingest, the lanes' stages
+    and one gather + pack over the batch in one graph), cached and
+    hot-swapped as process_scan_jit.  Its per-point fields are new (B, N)
+    tensors."""
+    return _run_compiled("batch", pts, cfg, dims, layout, device)
 
 
 def unpack_planes(packed):

@@ -36,7 +36,8 @@ import math
 import torch
 
 from urban_road_filter_torch import pipeline as P
-from urban_road_filter_torch.config import FilterConfig, PipelineDims
+from urban_road_filter_torch.config import (
+    FilterConfig, PipelineDims, device_config)
 from urban_road_filter_torch.constants import LABEL_ROAD
 from urban_road_filter_torch.ops import blind_spots as bs
 from urban_road_filter_torch.ops import geometry
@@ -229,6 +230,7 @@ def _checked_scan(pts, cfg: FilterConfig, dims: PipelineDims, errors,
     """(ScanResult, device error word): pipeline._scan's stages with the
     contracts checked at their boundaries."""
     x, y, z, _ = geometry.xyz_of(P.on_device(pts, device), layout)
+    cfg = device_config(cfg, x.device)
     rings, cap = dims.rings, dims.ring_capacity
     word = _Word(errors, x.device)
     valid, fk, r_key, ring_id, num_rings, ok = (
