@@ -89,7 +89,9 @@
    phase 3.  Labels and markers must equal process_scan's of the same
    scan, or differ only at an integer degree (the count is printed); the
    oracle gate as in phase 3 (128 channels for the 128-ring scan); no
-   overflow.  Prints the SP scan latency p50 host to host.  Each SP scan
+   overflow.  Prints the SP scan latency p50 host to host.  The SP runs
+   here are the stages op by op (run.eager; phase 10 replays them).  Each
+   SP scan
    must launch K7 and K8 once and K14 twice.  K12 and K13 are held
    against their twins again at the per-wedge shapes, K7's SP entry, K8
    and K14 over the stacked wedges, K14 with the run's own g_offset and
@@ -103,8 +105,8 @@
    drive scans at 10 Hz in drop mode at depth 1, then flat out at depth
    2: no errors, no drops, the depth-2 outputs equal depth 1's field by
    field; latency p50 / p99, scans/s and drops printed; (c) SP mode (8
-   wedges) on 3 OS1-128 drive scans: the topics equal those built from
-   make_azimuth_pipeline's own results; (d) a bag of 3 drive scans
+   wedges, the compiled SP run) on 3 OS1-128 drive scans: the topics
+   equal those built from run.eager's results; (d) a bag of 3 drive scans
    written, read back bit-equal and replayed through bag_source.  Launch
    counters as in phase 3, per part.
 7. Drives the modules of the last slice, each with the launch counters
@@ -157,7 +159,24 @@
    no synchronising call on the eager or compiled scan, packed and batch
    paths.  Prints each graph's nodes, capture and instantiation time and
    pool bytes.
-10. Prints one JSON line of per-kernel results (K1-K3 with their grid and
+10. Drives the compiled SP run (make_azimuth_pipeline(8) on the card: one
+   CUDA graph of the whole SP run per key, replayed, the dynamic
+   parameters in the entry's buffer) on phase 5's two deployments, star
+   search on and off: (a) every replay bit-equal to run.eager on every
+   field (planar too) and gated against the oracle; (b) each of the 15
+   dynamic fields swapped in turn and all at once: no capture, every
+   replay equal to run.eager under the new configuration, max_x=12
+   changing the labels; a static swap, one capture; (c) eager, compiled
+   and a hot swap under torch.cuda.set_sync_debug_mode("error"); (d) the
+   launch counters zeroed just before 5 replays and read just after: K1,
+   K2, K3, K8 and K7's SP entry once a scan, K4 and K12 once a wedge, K5,
+   K6 and K14 twice; (e) each graph's nodes, capture and instantiation ms
+   and pool bytes; (f) eager against compiled in turns on the OS1-128
+   scan: host enqueue and host-to-host p50, device busy and ops; (g) the
+   harness in SP mode at 10 Hz on OS1-128 drive scans, compiled against
+   eager in turns: latency p50 / p99, drops, dispatch / stage / fetch /
+   post, and the same topics.
+11. Prints one JSON line of per-kernel results (K1-K3 with their grid and
    their times at B = 1, "b1", at the SP call's shape, "sp", and, K2 and
    K3, on the ring-major scan, "ring_major"; K7's SP entry, "sp"; K11's
    over the phase-4 batch, "b128") and, last,
@@ -1401,7 +1420,8 @@ def phase_sp(dev, configs, smi, device_parity_gate):
         print(f"  {name}: {len(scan)} points, {WEDGES} wedges of "
               f"{per_wedge} points, {dims.rings} rings", flush=True)
         for cname, cfg in configs.items():
-            run = make_azimuth_pipeline(WEDGES, cfg, dims, device=dev)
+            # The stages op by op (run.eager; phase 10 replays the graph).
+            run = make_azimuth_pipeline(WEDGES, cfg, dims, device=dev).eager
             torch.cuda.synchronize()
             reset_launch_counts()
             times = []
@@ -1595,8 +1615,10 @@ def phase_replay(dev, smi, device_parity_gate) -> dict:
     h, s, launches = replay(iter(sp_scans), cfg=cfg, dims=sdims,
                             azimuth_shard=WEDGES, on_scan=got.append)
     assert_launched(launches, SP_KERNELS, "the SP replay")
-    assert launches["flood_blocked"] == 3 and launches["marker_state"] == 6
-    run = make_azimuth_pipeline(WEDGES, cfg, sdims, device=dev)
+    # The harness replays the compiled SP run: 3 replays and the eager run
+    # before its capture.
+    assert launches["flood_blocked"] == 4 and launches["marker_state"] == 8
+    run = make_azimuth_pipeline(WEDGES, cfg, sdims, device=dev).eager
     ref = ReplayHarness(cfg=cfg, dims=sdims, device=dev)
     want = []
     for k, scan in enumerate(sp_scans):
@@ -2242,7 +2264,8 @@ def phase_ranks(dev, configs, smi, device_parity_gate) -> None:
         data[f"pts/{name}"] = pts
         host = torch.from_numpy(pts).pin_memory()
         for cname, cfg in configs.items():
-            run = make_azimuth_pipeline(WEDGES, cfg, dims, device=dev)
+            # Op by op, as the ranks run (phase 10 replays the graph).
+            run = make_azimuth_pipeline(WEDGES, cfg, dims, device=dev).eager
             times = []
             for _ in range(1 + SCAN_REPS):
                 t0 = time.perf_counter()
@@ -2334,6 +2357,15 @@ def phase_ranks(dev, configs, smi, device_parity_gate) -> None:
 
 
 # ---- phase 9: the compiled entry points (CUDA-graph replays) ----
+
+# One new value for each of the 15 dynamic fields (config.DynConfig; cos_x,
+# cos_z and slope_param through the three angles).
+DYN_SWAPS = dict(interval=0.3, curb_height=0.11, beam_zone=42.5, min_x=1.0,
+                 max_x=25.0, min_y=-8.0, max_y=8.0, min_z=-2.8, max_z=-1.2,
+                 cylinder_deg_x=140.0, cylinder_deg_z=130.0,
+                 curb_slope_deg=45.0, kdev_param=1.5, kdist_param=3.0,
+                 dmin_param=8)
+
 
 def same_fields(got, want, what: str) -> None:
     """Two results (ScanResult or tuple) bit-equal field by field."""
@@ -2453,11 +2485,7 @@ def phase_compiled(dev, dims, bench_dims, configs, scans, bench, smi,
     # (d) Hot swaps on one scan, each kind.
     from urban_road_filter_torch.config import DynConfig
 
-    swaps = dict(interval=0.3, curb_height=0.11, beam_zone=42.5, min_x=1.0,
-                 max_x=25.0, min_y=-8.0, max_y=8.0, min_z=-2.8, max_z=-1.2,
-                 cylinder_deg_x=140.0, cylinder_deg_z=130.0,
-                 curb_slope_deg=45.0, kdev_param=1.5, kdist_param=3.0,
-                 dmin_param=8)
+    swaps = DYN_SWAPS
     assert len(swaps) == len(DynConfig._fields)  # cos_x, cos_z, slope
     pts = hosts[1].to(dev)
     lanes = planar[:, :8].contiguous()
@@ -2541,6 +2569,243 @@ def phase_compiled(dev, dims, bench_dims, configs, scans, bench, smi,
                   f"capture {st['capture_ms']:.3f} ms, instantiate "
                   f"{st['instantiate_ms']:.3f} ms, pool "
                   f"{st['pool_bytes']} B", flush=True)
+    return launches
+
+
+# ---- phase 10: the compiled SP run (CUDA-graph replays) ----
+
+SP_PAIRS = 10  # eager / compiled pairs of SP calls, in turns
+SP_CALLS = 5  # SP calls of one scan per pass
+HARNESS_PAIRS = 4  # eager / compiled pairs of SP harness runs, in turns
+HARNESS_SCANS = 5  # OS1-128 drive scans per harness run
+HARNESS_HZ = 10.0  # their rate (drop mode)
+# Launches of each kernel per SP scan, star search on (K4 and K12 one a
+# wedge, K5 and K6 two passes, K14 two).
+SP_PER_SCAN = {"ingest_prep": 1, "discover_rings": 1, "assign_rings": 1,
+               "star_walk": WEDGES, "group_rank": 2, "group_place": 2,
+               "xz_zero": 1, "flood_blocked": 1, "flood_road": WEDGES,
+               "marker_state": 2}
+
+
+def device_busy(fn, n: int):
+    """(device busy ms per call, busy share of the profiled wall, device
+    ops per call) of fn, which makes n calls, under torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        window = time.perf_counter() - t0
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA
+                   and not e.name.startswith("urf::"))
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy / n / 1e3, busy / 1e6 / window, len(spans) / n
+
+
+def phase_sp_compiled(dev, configs, smi, device_parity_gate) -> dict:
+    """make_azimuth_pipeline(8 wedges) on one card, its run a CUDA-graph
+    replay: (a) phase 5's two deployments, star search on and off, each
+    replay bit-equal to run.eager on every field (planar too, star on) and
+    gated against the oracle; (b) each of the 15 dynamic fields swapped in
+    turn and all at once: equal to run.eager under the new configuration,
+    no capture, max_x=12 changing the labels; a static swap, one capture;
+    (c) eager, compiled and a hot swap under
+    torch.cuda.set_sync_debug_mode("error"); (d) the launch counters per
+    replay; (e) each graph's nodes, capture and instantiation ms and pool
+    bytes; (f) eager against compiled in turns on the OS1-128 scan: host
+    enqueue and host-to-host p50, device busy and ops; (g) the harness in
+    SP mode at 10 Hz on OS1-128 drive scans, compiled against eager in
+    turns.  Returns (d)'s launch counts."""
+    from urban_road_filter_torch import (
+        FilterConfig, ScanResult, launch_counts, pad_scan, pad_scan_planar,
+        reset_launch_counts)
+    from urban_road_filter_torch import pipeline as pl
+    from urban_road_filter_torch.io import make_drive
+    from urban_road_filter_torch.io.replay import ReplayHarness
+    from urban_road_filter_torch.parallel.azimuth_parallel import (
+        azimuth_sorted, make_azimuth_pipeline)
+
+    # (a) Replay against eager, and the oracle gate.
+    deployments = sp_deployments()
+    runs = {}
+    for name, dims, scan, channels in deployments:
+        pts = torch.from_numpy(pad_scan(scan, dims.max_points)).to(dev)
+        for cname, cfg in configs.items():
+            run = make_azimuth_pipeline(WEDGES, cfg, dims, device=dev)
+            before = pl.CAPTURE_COUNTS["sp"]
+            run(pts)  # the capture, after one eager run
+            got = run(pts)
+            assert pl.CAPTURE_COUNTS["sp"] == before + 1, (name, cname)
+            same_fields(got, run.eager(pts), f"SP replay {name} {cname}")
+            if cname == "default":
+                planar = torch.from_numpy(pad_scan_planar(
+                    scan, dims.max_points)).to(dev)
+                same_fields(run(planar, layout="planar"),
+                            run.eager(planar, layout="planar"),
+                            f"SP replay {name} planar")
+                assert pl.CAPTURE_COUNTS["sp"] == before + 2
+            fetched = ScanResult(*(t.cpu() for t in got))
+            assert bool(fetched.ok) and int(fetched.overflow) == 0
+            labels, markers = fetched.labels.numpy(), fetched.markers.numpy()
+            assert np.isfinite(markers).all() and int(labels.max()) <= 2
+            agree, n_sys = device_parity_gate(scan, labels, markers, cfg,
+                                              name, channels=channels)
+            print(f"  (a) {name} {cname}: replay bit-equal to run.eager on "
+                  f"every field; parity {agree:.6f}, systematic {n_sys}, "
+                  f"rings {int(fetched.num_rings)}", flush=True)
+            assert agree >= 0.999 and n_sys == 0, (name, cname, agree, n_sys)
+            runs[name, cname] = (run, pts)
+
+    # (b) Hot swaps, on each deployment's default run.
+    for name, _, _, _ in deployments:
+        run, pts = runs[name, "default"]
+        base = run(pts)
+        before = dict(pl.CAPTURE_COUNTS)
+        for field, val in [*DYN_SWAPS.items(), ("all", None)]:
+            cfg = (FilterConfig(**DYN_SWAPS) if field == "all"
+                   else FilterConfig(**{field: val}))
+            same_fields(run(pts, cfg), run.eager(pts, cfg),
+                        f"SP {name} after the {field} swap")
+        assert pl.CAPTURE_COUNTS == before, (before, pl.CAPTURE_COUNTS)
+        assert not torch.equal(run(pts, FilterConfig(max_x=12.0)).labels,
+                               base.labels), name
+        same_fields(run(pts), base, f"SP {name} back to the default")
+        run(pts, FilterConfig(blind_spots=False))
+        assert pl.CAPTURE_COUNTS["sp"] == before["sp"] + 1, name
+    print(f"  (b) {len(DYN_SWAPS)} dynamic fields swapped in turn and all at "
+          f"once on both deployments: no capture, every replay equal to "
+          f"run.eager under the new configuration; max_x=12 changes the "
+          f"labels; a static swap (blind_spots=False) one capture each",
+          flush=True)
+
+    # (c) No synchronising call, eager or compiled.
+    run, pts = runs["os1_128_262k", "default"]
+    off, _ = runs["os1_128_262k", "star_off"]
+    calls = {"eager": lambda: run.eager(pts),
+             "compiled": lambda: run(pts),
+             "compiled, hot swap": lambda: run(
+                 pts, FilterConfig(beam_zone=42.5)),
+             "eager, star off": lambda: off.eager(pts),
+             "compiled, star off": lambda: off(pts)}
+    for fn in calls.values():
+        fn()
+    torch.cuda.synchronize()
+    for fn in calls.values():
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            fn()
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    print(f"  (c) no synchronising call under set_sync_debug_mode('error'):"
+          f" {', '.join(calls)}", flush=True)
+
+    # (d) Launches credited per replay (the counters zeroed just before).
+    reps = 5
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    for _ in range(reps):
+        run(pts)
+    launches = launch_counts()
+    for k, v in launches.items():
+        assert v == reps * SP_PER_SCAN.get(k, 0), (k, v, reps)
+    print(f"  (d) {reps} replays of the OS1-128 SP run: launches "
+          f"{ {k: v for k, v in launches.items() if v} }", flush=True)
+
+    # (e) The graphs.
+    for (name, cname), (r, _) in runs.items():
+        for key, e in r.entries.items():
+            st = e.stats
+            print(f"  (e) graph {name} {cname} {key[3]} {key[4]}"
+                  f"{' blind_spots off' if not key[1].blind_spots else ''}"
+                  f": nodes {st['nodes']}, capture {st['capture_ms']:.3f} "
+                  f"ms, instantiate {st['instantiate_ms']:.3f} ms, pool "
+                  f"{st['pool_bytes']} B", flush=True)
+
+    # (f) Eager against compiled in turns, host to host, on the OS1-128
+    # scan from pinned memory.
+    _, sdims, scan, _ = deployments[0]
+    host = torch.from_numpy(pad_scan(scan, sdims.max_points)).pin_memory()
+    modes = {"eager": run.eager, "compiled": run}
+
+    def one(fn):
+        t0 = time.perf_counter()
+        out = fn(host.to(dev, non_blocking=True))
+        t1 = time.perf_counter()
+        for t in out:
+            t.cpu()
+        return (t1 - t0) * 1e3, (time.perf_counter() - t0) * 1e3
+
+    times = {m: [] for m in modes}
+    for p in range(SP_PAIRS):
+        for m in (("eager", "compiled") if p % 2 == 0
+                  else ("compiled", "eager")):
+            times[m] += [one(modes[m]) for _ in range(SP_CALLS)]
+    busy = {}
+    for m in ("eager", "compiled", "compiled", "eager"):
+        busy[m] = device_busy(
+            lambda: [one(modes[m]) for _ in range(SP_CALLS)], SP_CALLS)
+    for m, tt in times.items():
+        enq, wall = zip(*tt)
+        b, share, ops = busy[m]
+        print(f"  (f) OS1-128 SP {m}: host enqueue p50 "
+              f"{statistics.median(enq):.4f} ms, host-to-host p50 "
+              f"{statistics.median(wall):.4f} ms ({SP_PAIRS} pairs of "
+              f"{SP_CALLS} calls in turns); device busy {b:.4f} ms a scan "
+              f"({100 * share:.1f} % of the profiled wall), {ops:.1f} device "
+              f"ops a scan; on {smi}", flush=True)
+
+    # (g) The harness in SP mode at 10 Hz, compiled against eager in turns
+    # (one SP run for all harness runs, so its capture comes before them).
+    cfg = FilterConfig()
+    scans = [azimuth_sorted(p) for p in make_drive(
+        HARNESS_SCANS, sensor="os1_128", seed=31, firings=2048)]
+    sp_run = make_azimuth_pipeline(WEDGES, cfg, sdims, device=dev)
+    sp_run(torch.from_numpy(pad_scan_planar(scans[0], sdims.max_points))
+           .to(dev), layout="planar")  # the harness's entry, captured
+
+    def harness(m):
+        got = []
+        h = ReplayHarness(cfg=cfg, dims=sdims, azimuth_shard=WEDGES,
+                          device=dev, rate_hz=HARNESS_HZ, on_scan=got.append)
+        h._sp_run = sp_run if m == "compiled" else sp_run.eager
+        s = h.run(iter(scans)).summary()
+        assert s["errors"] == 0 and s["not_ok"] == 0, s
+        return s, got
+
+    topics = {m: harness(m)[1] for m in ("eager", "compiled")}  # warm-up
+    same_outputs(topics["compiled"], topics["eager"], "SP harness")
+    before = pl.CAPTURE_COUNTS["sp"]
+    sums = {"eager": [], "compiled": []}
+    for p in range(HARNESS_PAIRS):
+        for m in (("eager", "compiled") if p % 2 == 0
+                  else ("compiled", "eager")):
+            sums[m].append(harness(m)[0])
+    assert pl.CAPTURE_COUNTS["sp"] == before
+    for m, ss in sums.items():
+        lat = [s["latency_ms"] for s in ss]
+        split = {k: statistics.median(s["breakdown_ms_p50"][k] for s in ss)
+                 for k in ss[0]["breakdown_ms_p50"]}
+        dropped = sum(s["dropped"] for s in ss)
+        print(f"  (g) SP harness {m}, {HARNESS_PAIRS} runs of "
+              f"{HARNESS_SCANS} OS1-128 scans at {HARNESS_HZ:g} Hz in "
+              f"turns: latency p50 "
+              f"{statistics.median(x['p50'] for x in lat):.3f} ms, p99 "
+              f"{statistics.median(x['p99'] for x in lat):.3f} ms, "
+              f"{dropped} dropped; dispatch / stage / fetch / post p50 "
+              f"{split} ms; on {smi}", flush=True)
+        assert dropped == 0, (m, dropped)
+    print("  (g) the compiled harness's topics equal the eager harness's",
+          flush=True)
     return launches
 
 
@@ -2703,6 +2968,14 @@ def main() -> int:
                               smi, gate_scans)
     assert_launched(launches, SCAN_KERNELS, "the compiled entry points")
     print(f"  phase 9 took {time.perf_counter() - t0:.1f} s", flush=True)
+    assert_no_jax()
+
+    print(f"phase 10: the compiled SP run ({WEDGES} wedges on the card, "
+          f"CUDA-graph replays)", flush=True)
+    t0 = time.perf_counter()
+    launches = phase_sp_compiled(dev, configs, smi, device_parity_gate)
+    assert_launched(launches, SP_KERNELS, "the compiled SP run")
+    print(f"  phase 10 took {time.perf_counter() - t0:.1f} s", flush=True)
     assert_no_jax()
 
     print(json.dumps({"kernels": [

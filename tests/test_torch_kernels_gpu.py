@@ -924,8 +924,9 @@ def test_xz_zero_ladder_kernel(dev):
                                  FilterConfig(star_shaped_method=False)])
 def test_sp_equals_process_scan(dev, cfg):
     """The 8-wedge SP path on an azimuth-sorted scan equals process_scan
-    on every field; K8 and K14 launch once per pass over all wedges, K12
-    once per wedge, K7 once over all wedges."""
+    on every field, eager and replayed; K8 and K14 launch once per pass
+    over all wedges, K12 once per wedge, K7 once over all wedges, in the
+    eager run and in each replay."""
     from urban_road_filter_torch.parallel.azimuth_parallel import (
         azimuth_sorted, make_azimuth_pipeline)
 
@@ -933,14 +934,17 @@ def test_sp_equals_process_scan(dev, cfg):
     scan = azimuth_sorted(make_scan(SCENES["two_curbs"](), n_rings=16,
                                     n_azimuth=384, seed=11))
     pts = torch.from_numpy(pad_scan(scan, dims.max_points)).to(dev)
-    _build.reset_launch_counts()
-    got = make_azimuth_pipeline(8, cfg, dims)(pts)
-    counts = _build.launch_counts()
-    assert counts["flood_road"] == 8 and counts["marker_state"] == 2
-    assert counts["flood_blocked"] == 1 and counts["xz_zero"] == 1
+    run = make_azimuth_pipeline(8, cfg, dims)
     want = process_scan(pts, cfg, dims)
-    for g, w in zip(got, want):
-        _assert_same((g,), (w,))
+    run(pts)  # the capture, after one eager run
+    for call in (run.eager, run):
+        _build.reset_launch_counts()
+        got = call(pts)
+        counts = _build.launch_counts()
+        assert counts["flood_road"] == 8 and counts["marker_state"] == 2
+        assert counts["flood_blocked"] == 1 and counts["xz_zero"] == 1
+        for g, w in zip(got, want):
+            _assert_same((g,), (w,))
 
 
 # --- K2 and K3 on the inputs that stress their designs (csrc/ingest.cu) ---
@@ -1522,3 +1526,117 @@ def test_replay_and_eager_launch_refuse_each_other(dev):
         got = packed_scan_jit(pts, cfg, dims)
     a.synchronize()
     _assert_same(got, want)
+
+
+# --- the compiled SP run (make_azimuth_pipeline on one card) ---
+
+def _sp_scan(dev, dims, seed=11):
+    from urban_road_filter_torch.parallel.azimuth_parallel import (
+        azimuth_sorted)
+
+    scan = azimuth_sorted(make_scan(SCENES["two_curbs"](), n_rings=16,
+                                    n_azimuth=384, seed=seed))
+    return torch.from_numpy(pad_scan(scan, dims.max_points)).to(dev)
+
+
+@pytest.mark.parametrize("layout", ["rows", "planar"])
+@pytest.mark.parametrize("star_on", [True, False])
+def test_sp_replay_equals_eager(dev, star_on, layout):
+    """One capture per key; each replay bit-equal to run.eager on every
+    field, the graph's launches credited per replay."""
+    from urban_road_filter_torch import pipeline as pl
+    from urban_road_filter_torch.parallel.azimuth_parallel import (
+        make_azimuth_pipeline)
+
+    dims = PipelineDims(max_points=8192, rings=RINGS, ring_capacity=CAP)
+    cfg = FilterConfig(star_shaped_method=star_on)
+    pts = _sp_scan(dev, dims)
+    if layout == "planar":
+        pts = pts[:, :3].T.contiguous()
+    run = make_azimuth_pipeline(8, cfg, dims)
+    before = pl.CAPTURE_COUNTS["sp"]
+    first = run(pts, layout=layout)
+    assert pl.CAPTURE_COUNTS["sp"] == before + 1
+    want = run.eager(pts, layout=layout)
+    _assert_same(first, want)
+    _build.reset_launch_counts()
+    for _ in range(3):
+        _assert_same(run(pts, layout=layout), want)
+    counts = _build.launch_counts()
+    assert counts["flood_road"] == 24 and counts["marker_state"] == 6
+    assert counts["star_walk"] == (24 if star_on else 0)
+    assert pl.CAPTURE_COUNTS["sp"] == before + 1
+    (entry,) = run.entries.values()
+    assert entry.stats["nodes"]["kernel"] > 0 and entry.graph is not None
+
+
+def test_sp_hot_swap_without_recapture(dev):
+    """Each dynamic field swapped, and all at once: the replay equals
+    run.eager under the new configuration, no capture; max_x=12 changes
+    the labels; a static swap captures once."""
+    from urban_road_filter_torch import pipeline as pl
+    from urban_road_filter_torch.parallel.azimuth_parallel import (
+        make_azimuth_pipeline)
+
+    dims = PipelineDims(max_points=8192, rings=RINGS, ring_capacity=CAP)
+    pts = _sp_scan(dev, dims)
+    run = make_azimuth_pipeline(8, FilterConfig(), dims)
+    base = run(pts)
+    before = dict(pl.CAPTURE_COUNTS)
+    for name, val in [*SWAPPED.items(), ("all", None)]:
+        cfg = (FilterConfig(**SWAPPED) if name == "all"
+               else FilterConfig(**{name: val}))
+        _assert_same(run(pts, cfg), run.eager(pts, cfg))
+    assert pl.CAPTURE_COUNTS == before
+    assert not torch.equal(run(pts, FilterConfig(max_x=12.0)).labels,
+                           base.labels)
+    _assert_same(run(pts), base)
+    run(pts, FilterConfig(blind_spots=False))
+    assert pl.CAPTURE_COUNTS["sp"] == before["sp"] + 1
+
+
+def test_sp_makes_no_synchronising_call(dev):
+    """Eager and compiled SP, and a hot swap, under
+    set_sync_debug_mode("error")."""
+    from urban_road_filter_torch.parallel.azimuth_parallel import (
+        make_azimuth_pipeline)
+
+    dims = PipelineDims(max_points=8192, rings=RINGS, ring_capacity=CAP)
+    pts = _sp_scan(dev, dims)
+    run = make_azimuth_pipeline(8, FilterConfig(), dims)
+    calls = [lambda: run.eager(pts), lambda: run(pts),
+             lambda: run(pts, FilterConfig(beam_zone=42.5))]
+    for fn in calls:
+        fn()
+    torch.cuda.synchronize()
+    for fn in calls:
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+
+
+def test_sp_failed_capture_raises(dev, monkeypatch):
+    """A host read inside the SP stages fails the capture, which raises;
+    nothing falls back to the eager stages."""
+    from urban_road_filter_torch import pipeline as pl
+    from urban_road_filter_torch.parallel import azimuth_parallel as ap
+
+    dims = PipelineDims(max_points=8192, rings=RINGS, ring_capacity=CAP)
+    pts = _sp_scan(dev, dims)
+    quadrants = ap._quadrants
+
+    def reads_back(*args):
+        q = quadrants(*args)
+        float(q[0])  # a synchronising host read
+        return q
+
+    monkeypatch.setattr(ap, "_quadrants", reads_back)
+    run = ap.make_azimuth_pipeline(8, FilterConfig(), dims)
+    before = dict(pl.CAPTURE_COUNTS)
+    with pytest.raises(RuntimeError, match="CUDA-graph capture failed"):
+        run(pts)
+    assert not run.entries and pl.CAPTURE_COUNTS == before
+    torch.cuda.synchronize()

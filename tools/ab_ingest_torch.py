@@ -32,7 +32,8 @@ measures:
   calls each tree's K4 and K6 in the form that tree takes);
 - scan latency p50 (packed_scan on the 9 scans of phase 3, default and
   star off), scans/s at batch 128 (phase 4's timing) and SP latency p50
-  (8 wedges on the OS1-128 scan, default and star off), host to host;
+  (8 wedges on the OS1-128 scan, default and star off; the stages op by
+  op, ``run.eager`` in trees that compile the SP run), host to host;
   with ``--e2e-only`` only these;
 - with ``--graph``, in trees that have the compiled entry points, the
   scan latency p50 and the batch's scans/s again through packed_scan_jit
@@ -224,6 +225,7 @@ def e2e(out, c, dev, cfg, sp_dims, sp_host, bench_dims, batch) -> None:
     out["sp_latency_p50_ms"] = {}
     for cname, conf in configs.items():
         run = make_azimuth_pipeline(c.WEDGES, conf, sp_dims, device=dev)
+        run = getattr(run, "eager", run)  # op by op in every tree
         times = []
         for _ in range(1 + c.SCAN_REPS):
             t0 = time.perf_counter()

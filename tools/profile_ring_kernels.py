@@ -246,8 +246,11 @@ def sp_wedge_calls(dev, c, cfg) -> dict:
     try:
         for name, (_, call) in saved.items():
             setattr(owner[name], name, call)
-        ap.make_azimuth_pipeline(c.WEDGES, FilterConfig(), dims,
-                                 device=dev)(host)
+        run = ap.make_azimuth_pipeline(c.WEDGES, FilterConfig(), dims,
+                                       device=dev)
+        # The stages op by op (run.eager, where the tree compiles run), so
+        # each call is recorded once.
+        getattr(run, "eager", run)(host)
     finally:
         for name, (fn, _) in saved.items():
             setattr(owner[name], name, fn)

@@ -4,7 +4,8 @@
     python tools/profile_torch_scan.py [--star-off] [--reps 3] [--batch B]
                                        [--sp D] [--out F.json]
     python tools/profile_torch_scan.py --graph [--pairs 10] [--star-off]
-                                       [--batch B | --harness] [--out F]
+                                       [--batch B | --sp D] [--harness]
+                                       [--out F]
 
 Runs urban_road_filter_torch.packed_scan (OS1-64 dims; the default
 configuration, or with ``--star-off`` the star search off) on the 7
@@ -16,7 +17,8 @@ it runs process_batch instead, on bench.py's batch of B planar scans
 alternating), one call per pass, and reports per scan of the batch.
 With ``--sp D`` it runs the azimuth-sharded path (make_azimuth_pipeline,
 D wedges on the card) on the emulated OS1-128 drive scan at 262144 points,
-128 rings x 2048 slots, azimuth-sorted (chip_smoke.py phase 5).
+128 rings x 2048 slots, azimuth-sorted (chip_smoke.py phase 5), its
+stages op by op (``run.eager``).
 Prints the card's name and power limit; per stage (the pipeline's
 ``urf::<stage>`` ranges; a batch's ingest range covers K1-K3 over the
 whole batch) per scan the host ms, the device ms of its device ops, the
@@ -28,17 +30,21 @@ ops per scan, profiled on its own (star_hits on each scan's K1 keys, or on
 each wedge's with ``--sp``).
 
 With ``--graph`` it times the eager entry point against its compiled
-counterpart (packed_scan against packed_scan_jit, or with ``--batch B``
-process_batch against process_batch_jit) in turns, ``--pairs`` pairs of
-passes over the scans (eager then compiled, then the other way round),
-in one process: per mode the host enqueue p50 and host-to-host wall p50
-per scan, and, profiled one pass each in turns, the device busy ms per
-scan, its share of the profiled wall and the device ops per scan; for
-the compiled entry its graph's kernel, memcpy and memset nodes, capture
-and instantiation ms and pool bytes.  ``--harness`` does the same for the
-replay harness at 10 Hz on 30 emulated OS1-64 drive scans (depth 1, drop
-mode), its default path (packed_scan_jit) against the same harness with
-packed_scan: latency p50 and its dispatch / stage / fetch / post split.
+counterpart (packed_scan against packed_scan_jit; with ``--batch B``
+process_batch against process_batch_jit; with ``--sp D`` the SP run's
+``run.eager`` against ``run``, its CUDA-graph replay) in turns,
+``--pairs`` pairs of passes over the scans (eager then compiled, then
+the other way round), in one process: per mode the host enqueue p50 and
+host-to-host wall p50 per scan, and, profiled one pass each in turns,
+the device busy ms per scan, its share of the profiled wall and the
+device ops per scan; for the compiled entry its graph's kernel, memcpy
+and memset nodes, capture and instantiation ms and pool bytes.
+``--harness`` does the same for the replay harness at 10 Hz on 30
+emulated OS1-64 drive scans (depth 1, drop mode), its default path
+(packed_scan_jit) against the same harness with packed_scan: latency p50
+and its dispatch / stage / fetch / post split; with ``--sp D`` on 10
+OS1-128 drive scans (azimuth-sorted) in SP mode, one SP run (captured
+before the first harness run) replayed against its ``run.eager``.
 The profiler's urf::<stage> ranges are recorded only while a graph is
 captured, so stage device times are an eager-path figure.  Needs a CUDA
 device.
@@ -143,7 +149,18 @@ def graph_main(args) -> int:
                "pairs": args.pairs, "modes": {}}
     if args.harness:
         return harness_graph(args, dev, cfg, smi, summary)
-    if args.batch:
+    entries = pl.compiled_entries()
+    if args.sp:
+        from urban_road_filter_torch.parallel.azimuth_parallel import (
+            make_azimuth_pipeline)
+
+        kind = "sp"
+        dims, hosts = sp_inputs()
+        per_call = 1
+        sp_run = make_azimuth_pipeline(args.sp, cfg, dims)
+        entries = sp_run.entries
+        calls = {"eager": sp_run.eager, "jit": sp_run}
+    elif args.batch:
         kind = "batch"
         dims = PipelineDims(max_points=131072, rings=64, ring_capacity=2048,
                             beam_capacity=512)
@@ -201,9 +218,25 @@ def graph_main(args) -> int:
             "device_ops_per_scan": ops}
     summary["graphs"] = [
         {"key": f"{k[0]} {k[3]} {tuple(k[4])}", **e.stats}
-        for k, e in pl.compiled_entries().items()
-        if k[0] == kind and k[-1] == dev]
+        for k, e in entries.items() if k[0] == kind and k[-1] == dev]
     return _report(args, summary)
+
+
+def sp_inputs():
+    """(dims, [pinned host scan]) of the SP profile: the emulated OS1-128
+    drive scan at 262144 points, 128 rings x 2048 slots, azimuth-sorted
+    (chip_smoke.py phase 5)."""
+    from urban_road_filter_torch import PipelineDims, pad_scan
+    from urban_road_filter_torch.io import make_drive
+    from urban_road_filter_torch.parallel.azimuth_parallel import (
+        azimuth_sorted)
+
+    dims = PipelineDims(max_points=262144, rings=128, ring_capacity=2048,
+                        beam_capacity=1024)
+    scan = azimuth_sorted(next(make_drive(1, sensor="os1_128", seed=31,
+                                          firings=2048)))
+    return dims, [torch.from_numpy(pad_scan(scan, dims.max_points))
+                  .pin_memory()]
 
 
 def harness_graph(args, dev, cfg, smi, summary) -> int:
@@ -214,14 +247,33 @@ def harness_graph(args, dev, cfg, smi, summary) -> int:
     from urban_road_filter_torch.io import make_drive
     from urban_road_filter_torch.io import replay as R
 
-    dims = PipelineDims.for_sensor("os1-64")
-    drive = list(make_drive(30, sensor="os1_64", seed=43))
     compiled = R.packed_scan_jit
+    kind = "packed"
+    entries = pl.compiled_entries()
+    if args.sp:
+        from urban_road_filter_torch import pad_scan_planar
+        from urban_road_filter_torch.parallel.azimuth_parallel import (
+            azimuth_sorted, make_azimuth_pipeline)
+
+        kind = "sp"
+        dims = sp_inputs()[0]
+        drive = [azimuth_sorted(p) for p in make_drive(
+            10, sensor="os1_128", seed=31, firings=2048)]
+        sp_run = make_azimuth_pipeline(args.sp, cfg, dims)
+        sp_run(torch.from_numpy(pad_scan_planar(drive[0], dims.max_points))
+               .to(dev), layout="planar")  # the harness's entry, captured
+        entries = sp_run.entries
+    else:
+        dims = PipelineDims.for_sensor("os1-64")
+        drive = list(make_drive(30, sensor="os1_64", seed=43))
 
     def harness(m):
         R.packed_scan_jit = compiled if m == "jit" else packed_scan
         try:
-            h = R.ReplayHarness(cfg=cfg, dims=dims, device=dev, rate_hz=10.0)
+            h = R.ReplayHarness(cfg=cfg, dims=dims, device=dev, rate_hz=10.0,
+                                azimuth_shard=args.sp)
+            if args.sp:  # one SP run for every harness run
+                h._sp_run = sp_run if m == "jit" else sp_run.eager
             s = h.run(iter(drive)).summary()
         finally:
             R.packed_scan_jit = compiled
@@ -252,8 +304,7 @@ def harness_graph(args, dev, cfg, smi, summary) -> int:
             "device_busy_share": share, "device_ops_per_scan": ops}
     summary["graphs"] = [
         {"key": f"{k[0]} {k[3]} {tuple(k[4])}", **e.stats}
-        for k, e in pl.compiled_entries().items()
-        if k[0] == "packed" and k[-1] == dev]
+        for k, e in entries.items() if k[0] == kind and k[-1] == dev]
     return _report(args, summary)
 
 
@@ -291,14 +342,12 @@ def main() -> int:
     ap.add_argument("--pairs", type=int, default=10,
                     help="--graph: pairs of passes in turns")
     ap.add_argument("--harness", action="store_true",
-                    help="--graph: the replay harness at 10 Hz")
+                    help="--graph: the replay harness at 10 Hz (in SP mode "
+                         "with --sp)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("profile_torch_scan: needs a CUDA device")
     if args.graph:
-        if args.sp:
-            sys.exit("profile_torch_scan: --graph has no SP mode (the SP "
-                     "run is not captured)")
         return graph_main(args)
 
     from torch.autograd import DeviceType
@@ -314,16 +363,12 @@ def main() -> int:
     cfg = FilterConfig(star_shaped_method=not args.star_off)
     if args.sp:
         from urban_road_filter_torch.parallel.azimuth_parallel import (
-            azimuth_sorted, make_azimuth_pipeline)
+            make_azimuth_pipeline)
 
-        dims = PipelineDims(max_points=262144, rings=128, ring_capacity=2048,
-                            beam_capacity=1024)
-        scan = azimuth_sorted(next(make_drive(1, sensor="os1_128", seed=31,
-                                              firings=2048)))
-        hosts = [torch.from_numpy(pad_scan(scan, dims.max_points))
-                 .pin_memory()]
+        dims, hosts = sp_inputs()
         scans_per_call = 1
-        call = make_azimuth_pipeline(args.sp, cfg, dims)
+        # The stages op by op: the urf::sp_* ranges exist only there.
+        call = make_azimuth_pipeline(args.sp, cfg, dims).eager
     elif args.batch:
         dims = PipelineDims(max_points=131072, rings=64, ring_capacity=2048,
                             beam_capacity=512)

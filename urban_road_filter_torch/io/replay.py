@@ -25,9 +25,10 @@ calls its packed_scan_jit: a CUDA graph captured on the first scan and
 replayed, a change of ``h.cfg``'s dynamic parameters between scans
 written into its parameter buffer without a re-capture), or with
 ``azimuth_shard``
-> 1 the run of ``parallel.azimuth_parallel.make_azimuth_pipeline`` (all
-wedges on the one card, or, with a process ``group``, spread over its
-ranks), built once; ``_to_device`` stages as above;
+> 1 the run of ``parallel.azimuth_parallel.make_azimuth_pipeline``, built
+once: with all wedges on the one card a CUDA graph too, captured on the
+first scan and hot-swapped the same way; with a process ``group``, spread
+over its ranks, op by op; ``_to_device`` stages as above;
 ``_fetch_outputs`` tells packed_scan's tuple from a ScanResult by its
 concrete type (the JAX harness tests ``isinstance(out, tuple)``, which a
 ScanResult NamedTuple also passes, so its SP mode cannot unpack a scan).
@@ -162,7 +163,9 @@ class ReplayHarness:
         # azimuth_shard > 1: run each scan cut into that many azimuth
         # wedges (the 128-beam multi-LiDAR SP mode), all on this device or,
         # with a process group, spread over its ranks (this one is rank 0,
-        # the others run follow()); the same five-topic ScanOutputs.
+        # the others run follow()); the same five-topic ScanOutputs.  On
+        # one device the run replays a CUDA graph (its input copied on the
+        # compute stream, after _process's wait on the copy stream).
         self.azimuth_shard = int(azimuth_shard)
         self.group = group
         if group is not None:

@@ -35,6 +35,11 @@ never straddle wedges (a wedge is a whole number of 1-degree beam
 sectors, so 360 % n_wedges == 0); points beyond a wedge's capacity are
 dropped and counted in ``overflow``.
 
+On one card the whole run is one CUDA graph per key, replayed, with the
+dynamic parameters in the entry's device buffer (make_azimuth_pipeline;
+the JAX run is one jax.jit of the partition and the shard_map); over a
+process group it runs op by op.
+
 The JAX path finds the rings with a 64-step loop that picks the globally
 first unmatched point through an all_gather.  That is the greedy of K2 over
 the scan in input order restricted to the points that fit in their wedge,
@@ -64,7 +69,7 @@ from urban_road_filter_torch.ops.rank import group_positions
 from urban_road_filter_torch.ops.star import star_hits
 from urban_road_filter_torch.ops.stencil_kernels import fused_xz_zero_halo
 from urban_road_filter_torch.pipeline import (
-    ScanResult, _stage, on_device, target_device)
+    ScanResult, _stage, on_device, run_entry, target_device)
 
 
 class LocalWedges:
@@ -537,16 +542,33 @@ def make_azimuth_pipeline(n_wedges: int, cfg: FilterConfig,
     replaces the configuration for that call.
 
     ``group=None``: every wedge on one device (LocalWedges); ``device`` as
-    for pipeline.process_scan: "cuda" unless "cpu" is asked for.  With a
-    torch.distributed process group, the wedges are spread over its ranks,
-    n_wedges // world each (RankWedges, ``run.wedges``, with its
+    for pipeline.process_scan: "cuda" unless "cpu" is asked for.  There
+    ``run`` is compiled, as pipeline.process_scan_jit is: one CUDA graph of
+    the whole SP run per key (static half of cfg, layout, input shape and
+    dtype, device), captured on the key's first call after one eager run
+    and replayed after the input is copied into the entry's buffer;
+    ``run.entries`` holds the run's entries (each with its ``stats``), and
+    each capture counts in pipeline.CAPTURE_COUNTS["sp"].  A change of the
+    dynamic half of cfg (config.DynConfig) is one device copy into the
+    entry's parameter buffer, no new capture.  A failed capture raises.
+    The outputs are new tensors.  On the CPU (``device="cpu"``) the entries
+    keep the same cache and counts and run the plain twins on their
+    buffer.  ``run.eager`` (same arguments) runs the stages op by op from
+    Python, as does ``run`` with a ``probe``: a probe reads intermediates
+    that a replay does not keep.
+
+    With a torch.distributed process group, the wedges are spread over its
+    ranks, n_wedges // world each (RankWedges, ``run.wedges``, with its
     ``census`` of the last run's collectives): every rank calls run on the
     same whole scan, in step, and every rank gets the whole result.
     ``device`` then defaults to cuda:<rank % card count>, and the group's
     backend must take tensors there (NCCL with a card per rank; gloo on
-    the CPU or for ranks that share a card).  Raises ValueError where
-    n_wedges does not divide 360 (star beams may not straddle wedges) or
-    the group's size does not divide n_wedges.
+    the CPU or for ranks that share a card).  Over a group ``run`` is
+    ``run.eager`` and ``run.entries`` stays empty: gloo's collectives run
+    on the host, which a graph cannot hold, and NCCL's under a stream
+    capture are not done here.  Raises ValueError where n_wedges does not
+    divide 360 (star beams may not straddle wedges) or the group's size
+    does not divide n_wedges.
 
     A dict passed as ``probe`` receives the kernels' (local) wedge inputs
     of that call: the ids of the two K5 calls ("rank_ids", {groups: ids}),
@@ -590,14 +612,19 @@ def make_azimuth_pipeline(n_wedges: int, cfg: FilterConfig,
             f"(min({n}, {n_wedges} wedges x {cap} slots) + 1)) are not "
             f"f32-exact; lower wedge_slack or ring_capacity")
 
-    def run(pts, cfg_now: FilterConfig | None = None, layout: str = "rows",
-            probe: dict | None = None) -> ScanResult:
-        x, y, z, m = geometry.xyz_of(on_device(pts, device), layout)
+    def checked(pts: torch.Tensor, layout: str):
+        x, y, z, m = geometry.xyz_of(pts, layout)
         if m != n:
             raise ValueError(f"expected {n} points (dims.max_points), got "
                              f"{m}")
         if x.dtype != F32:
             raise TypeError(f"points must be float32, got {x.dtype}")
+        return x, y, z
+
+    def eager(pts, cfg_now: FilterConfig | None = None,
+              layout: str = "rows", probe: dict | None = None
+              ) -> ScanResult:
+        x, y, z = checked(on_device(pts, device), layout)
         lw.census.clear()
         # The kernels and the glue read the dynamic parameters from the
         # configuration's cached buffer on the card (K4, K7's SP entry,
@@ -606,5 +633,25 @@ def make_azimuth_pipeline(n_wedges: int, cfg: FilterConfig,
             cfg if cfg_now is None else cfg_now, x.device), dims, lw,
             per_wedge, cap, probe)
 
+    def body(pts, bound_cfg, dims_, layout):
+        """The compiled entry's stages, on its input buffer under its
+        bound configuration."""
+        return _run(*checked(pts, layout), bound_cfg, dims_, lw, per_wedge,
+                    cap)
+
+    entries: dict = {}
+
+    def run(pts, cfg_now: FilterConfig | None = None, layout: str = "rows",
+            probe: dict | None = None) -> ScanResult:
+        if group is not None or probe is not None:
+            return eager(pts, cfg_now, layout, probe)
+        pts = torch.as_tensor(pts)
+        checked(pts, layout)
+        return run_entry(entries, "sp", body, pts,
+                         cfg if cfg_now is None else cfg_now, dims, layout,
+                         device)
+
+    run.eager = eager
+    run.entries = entries
     run.wedges = lw
     return run

@@ -245,8 +245,9 @@ def _batch_on(pts, cfg, dims: PipelineDims, layout: str) -> ScanResult:
 # ---- the compiled entry points ----
 
 # Captures per entry kind, as the JAX package's TRACE_COUNTS counts traces:
-# one per new key; a change of dynamic parameters adds none.
-CAPTURE_COUNTS = {"scan": 0, "packed": 0, "batch": 0}
+# one per new key; a change of dynamic parameters adds none.  "sp" counts
+# the captures of the azimuth-sharded runs (parallel.azimuth_parallel).
+CAPTURE_COUNTS = {"scan": 0, "packed": 0, "batch": 0, "sp": 0}
 
 _compiled: dict = {}  # key -> _Compiled
 
@@ -261,15 +262,17 @@ _BODIES = {"scan": lambda *a: _scan_on(*a)[0], "packed": _packed_outputs,
 
 
 class _Compiled:
-    """One compiled entry: its parameter buffer (the cfg its stages see is
-    bound to it), and on the card its input buffer, CUDA graph and the
-    graph's outputs, the kernel launches the graph holds, and what its
-    capture cost (``stats``: capture and instantiation ms, the graph's
-    kernel, memcpy and memset nodes, the bytes its memory pool reserved)."""
+    """One compiled entry: its body, ``body(input, cfg, dims, layout)``
+    (the stages, returning a ScanResult or a tuple of tensors), its
+    parameter buffer (the cfg its stages see is bound to it), and on the
+    card its input buffer, CUDA graph and the graph's outputs, the kernel
+    launches the graph holds, and what its capture cost (``stats``: capture
+    and instantiation ms, the graph's kernel, memcpy and memset nodes, the
+    bytes its memory pool reserved)."""
 
-    def __init__(self, kind: str, st, dyn, dims: PipelineDims, layout: str,
-                 pts: torch.Tensor):
-        self.kind, self.dims, self.layout = kind, dims, layout
+    def __init__(self, kind: str, body, st, dyn, dims: PipelineDims,
+                 layout: str, pts: torch.Tensor):
+        self.kind, self.body, self.dims, self.layout = kind, body, dims, layout
         dev = pts.device
         self.params = torch.empty((len(DynConfig._fields),),
                                   dtype=torch.float32, device=dev)
@@ -291,7 +294,7 @@ class _Compiled:
         """Capture the entry's stages into a CUDA graph, after one run of
         them on the current stream (it builds the kernels, fills the
         caches, and counts as launches).  A failed capture raises."""
-        body = _BODIES[self.kind]
+        body = self.body
         dev = pts.device
         self.input = torch.empty(pts.shape, dtype=pts.dtype, device=dev)
         self.input.copy_(pts)
@@ -322,7 +325,7 @@ class _Compiled:
     def __call__(self, pts, dyn):
         self._write_params(dyn)
         if self.graph is None:  # the CPU: the plain twins, run each call
-            return _BODIES[self.kind](pts, self.cfg, self.dims, self.layout)
+            return self.body(pts, self.cfg, self.dims, self.layout)
         # The ticket check (it may raise) before anything is enqueued.
         _build.replayed(self.launches, self.ticketed, self.input.device)
         self.input.copy_(pts, non_blocking=True)
@@ -331,8 +334,13 @@ class _Compiled:
         return self.out._make(outs) if hasattr(self.out, "_make") else outs
 
 
-def _run_compiled(kind: str, pts, cfg: FilterConfig, dims: PipelineDims,
-                  layout: str, device):
+def run_entry(cache: dict, kind: str, body, pts, cfg: FilterConfig,
+              dims: PipelineDims, layout: str, device):
+    """Call the entry of ``cache`` for this call's key (kind, static half of
+    cfg, dims, layout, input shape and dtype, device), made on a miss (on
+    the card: captured, and counted in CAPTURE_COUNTS[kind]) with ``body``
+    as its stages; the dynamic half of cfg goes into its parameter
+    buffer."""
     dev = target_device(device)
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
@@ -341,13 +349,19 @@ def _run_compiled(kind: str, pts, cfg: FilterConfig, dims: PipelineDims,
         pts = pts.to(dev)
     st, dyn = split_cached(cfg)
     key = (kind, st, dims, layout, tuple(pts.shape), pts.dtype, dev)
-    entry = _compiled.get(key)
+    entry = cache.get(key)
     if entry is None:
-        entry = _Compiled(kind, st, dyn, dims, layout,
+        entry = _Compiled(kind, body, st, dyn, dims, layout,
                           pts.to(dev, non_blocking=True))
-        _compiled[key] = entry
+        cache[key] = entry
         CAPTURE_COUNTS[kind] += 1
     return entry(pts, dyn)
+
+
+def _run_compiled(kind: str, pts, cfg: FilterConfig, dims: PipelineDims,
+                  layout: str, device):
+    return run_entry(_compiled, kind, _BODIES[kind], pts, cfg, dims, layout,
+                     device)
 
 
 def compiled_entries() -> dict:
