@@ -130,21 +130,30 @@
    --render-every 0 on 4 scans with the beam_zone hot swap.
 8. Drives the SP path over the ranks of a torch.distributed process group
    (make_azimuth_pipeline(8, ..., group=...)) on phase 5's two
-   deployments, star search on and off, 1 + 5 runs each, beside
-   make_azimuth_pipeline(8) on one card in this call: (a) a one-rank NCCL
-   group holding the 8 wedges, in this process; (b) 8 gloo ranks of one
-   wedge each, spawned on cuda:0 (the JAX layout of one wedge per
-   device), each reporting its launch counts, zeroed just before its runs
-   and read just after (K1-K8, K12 and K14 on every rank), then K1 20
-   times a rank at once under the 8 contexts (its tickets), and the SP
-   replay harness over the ranks (rank 0 replays 2 OS1-128 drive scans,
-   the others follow); (c) on 2 cards or more, NCCL over min(cards, 8)
-   ranks (a power of two), else the line "phase 8 (c) not run: 1 card".
-   Every field of every rank must be bit-equal to the one-card run, rank
-   0's results pass the oracle gate as in phase 5, the harness publishes
-   the one-card SP harness's topics; a rank's failure or a rank that does
-   not report within 300 s fails the run.  Prints the three host-to-host
-   SP p50s and the collective census of a scan at the OS1-128 dims.
+   deployments, star search on and off, beside make_azimuth_pipeline(8)
+   on one card in this call: (a) a one-rank NCCL group holding the 8
+   wedges, in this process: its run compiled (one CUDA graph per key, the
+   collectives inside) against run.eager, 10 pairs in turns after the
+   capture, each of the 15 dynamic swaps and all at once, eager, compiled
+   and a hot swap under torch.cuda.set_sync_debug_mode("error"), each
+   graph's nodes, capture and instantiation ms and pool bytes, then the
+   SP replay harness over the group (replaying); (b) 8 gloo ranks of one
+   wedge each, spawned on cuda:0 (the JAX layout of one wedge per device;
+   their run is run.eager, op by op, 1 + 5 runs), each reporting its
+   launch counts, zeroed just before its timed runs and read just after
+   (K1-K8, K12 and K14 on every rank), then K1 20 times a rank at once
+   under the 8 contexts (its tickets), and the SP replay harness over the
+   ranks (rank 0 replays 2 OS1-128 drive scans, the others follow); (c) on
+   2 cards or more, NCCL over min(cards, 8) ranks (a power of two),
+   compiled against run.eager as in (a), and the harness over them, else
+   the line "phase 8 (c) not run: 1 card".  Every field of every rank and
+   mode must be bit-equal to the one-card run, the census after every call
+   eager's, one capture per key and none under the swaps where compiled,
+   rank 0's results pass the oracle gate as in phase 5, the harness
+   publishes the one-card SP harness's topics; a rank's failure or a rank
+   that does not report within 300 s fails the run.  Prints the
+   host-to-host SP p50s (one card; (a) compiled and op by op; (b)) and the
+   collective census of a scan at the OS1-128 dims.
 9. Drives the compiled entry points (pipeline.process_scan_jit,
    packed_scan_jit, process_batch_jit: a CUDA graph captured once per key
    and replayed, the dynamic parameters in a device buffer): phase 3's 9
@@ -2044,45 +2053,128 @@ RANKS_LIMIT_S = 300  # every phase-8 rank reports and exits within this
 
 def ranked_runs(dev, group, data, configs) -> dict:
     """make_azimuth_pipeline(8 wedges, group=group) on phase 5's two
-    deployments in each configuration, 1 + SCAN_REPS runs each, host to
-    host (the padded scan from pinned memory, every field back): the
-    launch counts of the runs, each run's census, the p50 and the fields
-    that differ bitwise from the one-card results in ``data``; on rank 0
-    the labels and markers, for the oracle gate."""
+    deployments in each configuration, host to host (the padded scan from
+    pinned memory, every field back).  Where the group's run is compiled
+    (NCCL), ``run`` and ``run.eager`` in turns, SP_PAIRS pairs after one
+    call of each (the capture), and on a one-rank group the one-card
+    compiled run (make_azimuth_pipeline(8) with no group) as a third mode
+    in the same turns; else ``run.eager``, 1 + SCAN_REPS calls.  Returns
+    per mode the launch counts of its timed calls (the counters zeroed
+    just before each call and read just after), the counts those calls
+    should make (sp_per_scan) and their number; each mode's p50, each
+    run's eager census, the (deployment, configuration,
+    mode, field) that differ bitwise from the one-card results in
+    ``data``, the runs after whose calls the census differed from eager's,
+    each run's (captures, entries) and graph stats; where compiled, also
+    each default run's (swaps that differ from run.eager, captures they
+    made) over the 15 dynamic swaps and all at once, and the calls that
+    synchronised under torch.cuda.set_sync_debug_mode("error"); on rank 0
+    the labels and markers, for the oracle gate; where compiled, each
+    default run's device busy ms, busy share and device ops a scan, eager
+    and compiled (device_busy, in turns)."""
     import torch.distributed as dist
 
     from urban_road_filter_torch import (
-        ScanResult, launch_counts, reset_launch_counts)
+        FilterConfig, ScanResult, launch_counts, reset_launch_counts)
+    from urban_road_filter_torch import pipeline as pl
     from urban_road_filter_torch.parallel.azimuth_parallel import (
         make_azimuth_pipeline)
 
-    out = {"launches": {}, "p50": {}, "census": {}, "differ": [],
-           "gate": {}}
+    def census(run):
+        return {k: dict(v) for k, v in run.wedges.census.items()}
+
+    out = {"launches": {}, "want": {}, "calls": {}, "p50": {}, "census": {},
+           "differ": [], "census_differ": [], "captures": {}, "stats": {},
+           "swaps": {}, "synced": [], "busy": {}, "gate": {},
+           "compiled": False}
     for name, dims in sp_dims().items():
         host = torch.from_numpy(data[f"pts/{name}"]).pin_memory()
         for cname, cfg in configs.items():
             run = make_azimuth_pipeline(WEDGES, cfg, dims, device=dev,
                                         group=group)
+            out["compiled"] = compiled = run is not run.eager
+            modes = ({"eager": run.eager, "compiled": run} if compiled
+                     else {"eager": run.eager})
+            if compiled and dist.get_world_size(group) == 1:
+                modes["one card"] = make_azimuth_pipeline(WEDGES, cfg, dims,
+                                                          device=dev)
+                modes["one card"](host.to(dev))  # its capture
+            ref = [torch.from_numpy(data[f"ref/{name}/{cname}/{f}"])
+                   for f in ScanResult._fields]
+            per_scan = sp_per_scan(run.wedges.local, cfg.star_shaped_method)
+            before = pl.CAPTURE_COUNTS["sp"]
+            for fn in (run.eager, run):  # the warm-up, and the capture
+                fn(host.to(dev, non_blocking=True))
             torch.cuda.synchronize()
-            reset_launch_counts()
-            times = []
-            for _ in range(1 + SCAN_REPS):
-                t0 = time.perf_counter()
-                res = run(host.to(dev, non_blocking=True))
-                fetched = ScanResult(*(t.cpu() for t in res))
-                times.append(time.perf_counter() - t0)
-            for k, v in launch_counts().items():
-                out["launches"][k] = out["launches"].get(k, 0) + v
-            out["p50"][name, cname] = statistics.median(times[1:]) * 1e3
-            out["census"][name, cname] = {
-                k: dict(v) for k, v in run.wedges.census.items()}
-            for f in ScanResult._fields:
-                if not same_bits(getattr(fetched, f), torch.from_numpy(
-                        data[f"ref/{name}/{cname}/{f}"])):
-                    out["differ"].append((name, cname, f))
+            times = {m: [] for m in modes}
+            censuses = []
+            for p in range(SP_PAIRS if compiled else SCAN_REPS):
+                for m in (list(modes) if p % 2 == 0 else list(modes)[::-1]):
+                    reset_launch_counts()
+                    t0 = time.perf_counter()
+                    res = modes[m](host.to(dev, non_blocking=True))
+                    fetched = ScanResult(*(t.cpu() for t in res))
+                    times[m].append(time.perf_counter() - t0)
+                    seen, due = (out[k].setdefault(m, {})
+                                 for k in ("launches", "want"))
+                    for k, v in launch_counts().items():
+                        seen[k] = seen.get(k, 0) + v
+                    for k, v in per_scan.items():
+                        due[k] = due.get(k, 0) + v
+                    out["calls"][m] = out["calls"].get(m, 0) + 1
+                    if m != "one card":
+                        censuses.append(census(run))
+                    out["differ"] += [
+                        (name, cname, m, f) for f, got, want in zip(
+                            ScanResult._fields, fetched, ref)
+                        if not same_bits(got, want)]
+                    if m == "compiled" or not compiled:
+                        gate = (fetched.labels.numpy(),
+                                fetched.markers.numpy())
+            for m, tt in times.items():
+                out["p50"][name, cname, m] = statistics.median(tt) * 1e3
+            run.eager(host.to(dev))
+            out["census"][name, cname] = census(run)
+            if any(c != out["census"][name, cname] for c in censuses):
+                out["census_differ"].append((name, cname))
+            out["captures"][name, cname] = (pl.CAPTURE_COUNTS["sp"] - before,
+                                            len(run.entries))
+            for e in run.entries.values():
+                out["stats"][name, cname] = e.stats
             if dist.get_rank(group) == 0:
-                out["gate"][name, cname] = (fetched.labels.numpy(),
-                                            fetched.markers.numpy())
+                out["gate"][name, cname] = gate
+            if not compiled or cname != "default":
+                continue
+            # Device busy and ops a scan, in turns; the hot swaps; the
+            # synchronising calls.
+            for m in ("eager", "compiled", "compiled", "eager"):
+                out["busy"][name, m] = device_busy(lambda: [
+                    modes[m](host.to(dev, non_blocking=True))
+                    for _ in range(SP_CALLS)], SP_CALLS)
+            pts = host.to(dev)
+            before = pl.CAPTURE_COUNTS["sp"]
+            differ = []
+            for field, val in [*DYN_SWAPS.items(), ("all", None)]:
+                swap = FilterConfig(**(DYN_SWAPS if val is None
+                                       else {field: val}))
+                if not all(map(same_bits, run(pts, swap),
+                               run.eager(pts, swap))):
+                    differ.append(field)
+            out["swaps"][name] = (differ, pl.CAPTURE_COUNTS["sp"] - before)
+            calls = {"eager": lambda: run.eager(pts),
+                     "compiled": lambda: run(pts),
+                     "compiled, hot swap": lambda: run(
+                         pts, FilterConfig(beam_zone=42.5))}
+            torch.cuda.synchronize()
+            for what, fn in calls.items():
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    fn()
+                except RuntimeError as e:
+                    out["synced"].append((name, what, str(e)[:200]))
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+            torch.cuda.synchronize()
     return out
 
 
@@ -2128,9 +2220,10 @@ def sp_rank(rank: int, world: int, backend: str, store: str, data_path: str,
             configs: dict, q) -> None:
     """One rank of phase 8 (b) or (c), a process of its own: NCCL on
     cuda:<rank>, gloo on cuda:0 with every other rank.  Puts (rank,
-    results) on q: ranked_runs' results, the ticket check and, in (b),
+    results) on q: ranked_runs' results, in (b) the ticket check, and
     the SP harness over the ranks (rank 0 replays phase 6's OS1-128 scans,
-    the others follow); a failure puts its traceback under "error"."""
+    the others follow) with the captures it made on this rank; a failure
+    puts its traceback under "error"."""
     import datetime
     import traceback
 
@@ -2139,6 +2232,7 @@ def sp_rank(rank: int, world: int, backend: str, store: str, data_path: str,
     out = {}
     try:
         from urban_road_filter_torch import FilterConfig
+        from urban_road_filter_torch import pipeline as pl
         from urban_road_filter_torch.io.replay import ReplayHarness, follow
 
         dev = torch.device("cuda", rank if backend == "nccl" else 0)
@@ -2152,22 +2246,14 @@ def sp_rank(rank: int, world: int, backend: str, store: str, data_path: str,
         out = ranked_runs(dev, group, data, configs)
         if backend == "gloo":
             out["tickets_ok"] = ticket_check(dev, data)
-            dims = sp_dims()["os1_128_262k"]
-            if rank == 0:
-                got = []
-                h = ReplayHarness(cfg=FilterConfig(), dims=dims,
-                                  azimuth_shard=WEDGES, device=dev,
-                                  group=group, on_scan=got.append)
-                try:
-                    m = h.run(iter(data[f"harness/{k}"] for k in range(
-                        int(data["harness_scans"]))))
-                finally:
-                    h.close()
-                assert m.summary()["errors"] == 0, m.last_error
-                out["harness"] = got
-            else:
-                out["followed"] = follow(FilterConfig(), dims, WEDGES,
-                                         group, device=dev)
+        dims = sp_dims()["os1_128_262k"]
+        before = pl.CAPTURE_COUNTS["sp"]
+        if rank == 0:
+            out["harness"] = sp_harness(dev, group, dims, data)
+        else:
+            out["followed"] = follow(FilterConfig(), dims, WEDGES, group,
+                                     device=dev)
+        out["harness_captures"] = pl.CAPTURE_COUNTS["sp"] - before
         assert_no_jax()
     except Exception:  # noqa: BLE001 -- reported to the parent
         out["error"] = traceback.format_exc()
@@ -2175,6 +2261,24 @@ def sp_rank(rank: int, world: int, backend: str, store: str, data_path: str,
         q.put((rank, out))
         if dist.is_initialized():
             dist.destroy_process_group()
+
+
+def sp_harness(dev, group, dims, data) -> list:
+    """Rank 0 of the SP harness over the group: phase 8's harness scans
+    (the other ranks follow); returns the published topics."""
+    from urban_road_filter_torch import FilterConfig
+    from urban_road_filter_torch.io.replay import ReplayHarness
+
+    got = []
+    h = ReplayHarness(cfg=FilterConfig(), dims=dims, azimuth_shard=WEDGES,
+                      device=dev, group=group, on_scan=got.append)
+    try:
+        m = h.run(iter(data[f"harness/{k}"] for k in range(
+            int(data["harness_scans"]))))
+    finally:
+        h.close()
+    assert m.summary()["errors"] == 0, m.last_error
+    return got
 
 
 def spawn_ranks(world: int, backend: str, tmp: str, data_path: str,
@@ -2223,13 +2327,35 @@ def spawn_ranks(world: int, backend: str, tmp: str, data_path: str,
 
 def check_ranked(what: str, ranked: dict, deployments, configs,
                  device_parity_gate) -> None:
-    """Every rank bit-equal to the one-card run on every field, every
-    kernel of the SP path launched on every rank, the census alike on
-    every rank, rank 0's results gated against the oracle."""
+    """Every rank bit-equal to the one-card run on every field; on every
+    rank and in each mode, every kernel of the SP path launched and each
+    kernel's launches exactly sp_per_scan's over that mode's calls; the
+    census alike on every rank and after every call, rank 0's results
+    gated against the oracle.  Where the run is compiled: one capture and
+    one entry per run, each of the 15 dynamic swaps equal to run.eager
+    with no capture, and no synchronising call."""
     for rank, res in sorted(ranked.items()):
         assert not res["differ"], (what, rank, res["differ"][:5])
-        assert_launched(res["launches"], SP_KERNELS, f"{what} rank {rank}")
+        assert not res["census_differ"], (what, rank, res["census_differ"])
+        assert set(res["launches"]) >= (
+            {"eager", "compiled"} if res["compiled"] else {"eager"}), (
+                what, rank, set(res["launches"]))
+        for m, got in res["launches"].items():
+            assert_launched(got, SP_KERNELS, f"{what} rank {rank} {m}")
+            want = res["want"][m]
+            assert all(got.get(k, 0) == want.get(k, 0)
+                       for k in {*got, *want}), (what, rank, m, got, want)
         assert res["census"] == ranked[0]["census"], (what, rank)
+        assert res["compiled"] == ranked[0]["compiled"], (what, rank)
+        if res["compiled"]:
+            assert set(res["captures"].values()) == {(1, 1)}, (
+                what, rank, res["captures"])
+            assert res["swaps"] and all(
+                v == ([], 0) for v in res["swaps"].values()), (
+                    what, rank, res["swaps"])
+            assert not res["synced"], (what, rank, res["synced"])
+        else:
+            assert set(res["captures"].values()) == {(0, 0)}, (what, rank)
     for name, _, scan, channels in deployments:
         for cname, cfg in configs.items():
             labels, markers = ranked[0]["gate"][name, cname]
@@ -2242,16 +2368,19 @@ def check_ranked(what: str, ranked: dict, deployments, configs,
 def phase_ranks(dev, configs, smi, device_parity_gate) -> None:
     """Phase 8: the SP path over the ranks of a process group, 8 wedges,
     on phase 5's deployments, beside make_azimuth_pipeline(8) on one card
-    (p50s in this call): (a) a one-rank NCCL group in this process; (b) 8
-    gloo ranks of one wedge each, spawned on cuda:0 (with K1's tickets
-    under 8 contexts and the SP harness over the ranks); (c) NCCL over
-    min(cards, 8) ranks, a power of two, where there are 2 cards or more."""
+    (p50s in this call): (a) a one-rank NCCL group in this process, its
+    run compiled against run.eager, and the SP harness over it; (b) 8 gloo
+    ranks of one wedge each, spawned on cuda:0, op by op (with K1's
+    tickets under 8 contexts and the SP harness over the ranks); (c) NCCL
+    over min(cards, 8) ranks, a power of two, compiled against run.eager,
+    where there are 2 cards or more."""
     import os
     import tempfile
 
     import torch.distributed as dist
 
     from urban_road_filter_torch import FilterConfig, ScanResult, pad_scan
+    from urban_road_filter_torch import pipeline as pl
     from urban_road_filter_torch.io.replay import ReplayHarness
     from urban_road_filter_torch.parallel.azimuth_parallel import (
         make_azimuth_pipeline)
@@ -2264,7 +2393,8 @@ def phase_ranks(dev, configs, smi, device_parity_gate) -> None:
         data[f"pts/{name}"] = pts
         host = torch.from_numpy(pts).pin_memory()
         for cname, cfg in configs.items():
-            # Op by op, as the ranks run (phase 10 replays the graph).
+            # The one-card reference, op by op (phase 10 replays its
+            # graph).
             run = make_azimuth_pipeline(WEDGES, cfg, dims, device=dev).eager
             times = []
             for _ in range(1 + SCAN_REPS):
@@ -2289,19 +2419,25 @@ def phase_ranks(dev, configs, smi, device_parity_gate) -> None:
         np.savez(data_path, **data)
         ref = np.load(data_path)
 
-        # (a) One NCCL rank holding all 8 wedges, in this process.
+        # (a) One NCCL rank holding all 8 wedges, in this process: run (a
+        # CUDA-graph replay, the collectives inside) against run.eager in
+        # turns, then the SP harness over the group, replaying.
         dist.init_process_group(
             "nccl", store=dist.FileStore(os.path.join(tmp, "store_a"), 1),
             rank=0, world_size=1)
         try:
             a = ranked_runs(dev, dist.group.WORLD, ref, configs)
+            before = pl.CAPTURE_COUNTS["sp"]
+            topics = sp_harness(dev, dist.group.WORLD, hdims, ref)
+            harness_captures = pl.CAPTURE_COUNTS["sp"] - before
         finally:
             dist.destroy_process_group()
+        assert a["compiled"], "(a): the NCCL group's run is not compiled"
         check_ranked("(a)", {0: a}, deployments, configs,
                      device_parity_gate)
-        runs = 2 * len(configs) * (1 + SCAN_REPS)
-        assert a["launches"]["flood_blocked"] == runs, a["launches"]
-        assert a["launches"]["marker_state"] == 2 * runs, a["launches"]
+        assert set(a["calls"]) == {"eager", "compiled", "one card"}
+        same_outputs(topics, want_topics, "(a) SP harness")
+        assert harness_captures == 1, harness_captures
         census = a["census"]["os1_128_262k", "default"]
         print(f"  collective census per SP scan, OS1-128 production dims "
               f"(262144 points, 128 rings x 384 slots a wedge, 8 wedges): "
@@ -2309,51 +2445,93 @@ def phase_ranks(dev, configs, smi, device_parity_gate) -> None:
                           for k, v in sorted(census.items()))
               + f", {sum(v['bytes'] for v in census.values())} B in all "
               f"(received per rank)", flush=True)
+        for (name, cname), st in a["stats"].items():
+            print(f"  (a) graph {name} {cname} over the one-rank NCCL group:"
+                  f" nodes {st['nodes']}, capture {st['capture_ms']:.3f} ms,"
+                  f" instantiate {st['instantiate_ms']:.3f} ms, pool "
+                  f"{st['pool_bytes']} B", flush=True)
+        for (name, m), (busy, share, ops) in a["busy"].items():
+            print(f"  (a) {name} default {m} over the one-rank NCCL group: "
+                  f"device busy {busy:.4f} ms a scan ({100 * share:.1f} % "
+                  f"of the profiled wall), {ops:.1f} device ops a scan "
+                  f"(the second pass of the two in turns); on {smi}",
+                  flush=True)
+        print(f"  (a) one NCCL rank: every field of run and run.eager "
+              f"bit-equal to make_azimuth_pipeline(8) on one card, "
+              f"{SP_PAIRS} pairs in turns a run; each mode's launches "
+              f"exactly its calls' (eager {a['calls']['eager']}, compiled "
+              f"{a['calls']['compiled']}, one card compiled "
+              f"{a['calls']['one card']} calls: "
+              f"{ {k: v for k, v in a['launches']['compiled'].items() if v} }"
+              f" compiled); one capture a key; "
+              f"{len(DYN_SWAPS)} dynamic swaps and all at once equal to "
+              f"run.eager with no capture; the census after every replay "
+              f"eager's; no synchronising call (eager, compiled, hot swap); "
+              f"oracle gate passed; the SP harness over the group made one "
+              f"capture and published the one-card SP harness's topics on "
+              f"{len(hscans)} OS1-128 scans", flush=True)
 
         # (b) 8 gloo ranks of one wedge each, all on cuda:0.
         t0 = time.perf_counter()
         b = spawn_ranks(WEDGES, "gloo", tmp, data_path, configs)
         took = time.perf_counter() - t0
+        assert not b[0]["compiled"], "(b): a gloo group's run on the card"
         check_ranked("(b)", b, deployments, configs, device_parity_gate)
         assert all(res["tickets_ok"] for res in b.values()), "K1 tickets"
         for res in b.values():
             assert res["census"] == a["census"]
+            assert res["harness_captures"] == 0
         assert all(res["followed"] == len(hscans)
                    for r, res in b.items() if r)
         same_outputs(b[0]["harness"], want_topics, "(b) SP harness")
         for name, dims, _, _ in deployments:
             for cname in configs:
                 print(f"  {name} {cname}: SP p50 host to host on {smi}: "
-                      f"one card {one_p50[name, cname]:.3f} ms; (a) one "
-                      f"NCCL rank {a['p50'][name, cname]:.3f} ms; (b) 8 gloo "
-                      f"ranks on cuda:0 (a correctness run: gloo stages "
-                      f"every collective through the host) "
-                      f"{b[0]['p50'][name, cname]:.3f} ms at rank 0, "
-                      f"{max(r['p50'][name, cname] for r in b.values()):.3f}"
+                      f"one card, op by op {one_p50[name, cname]:.3f} ms; "
+                      f"(a) one NCCL rank, compiled "
+                      f"{a['p50'][name, cname, 'compiled']:.3f} ms, op by op "
+                      f"{a['p50'][name, cname, 'eager']:.3f} ms, beside one "
+                      f"card compiled "
+                      f"{a['p50'][name, cname, 'one card']:.3f} ms "
+                      f"({SP_PAIRS} rounds of the three in turns); (b) 8 gloo ranks on cuda:0, op by "
+                      f"op (a correctness run: gloo stages every collective "
+                      f"through the host) "
+                      f"{b[0]['p50'][name, cname, 'eager']:.3f} ms at rank "
+                      f"0, {max(r['p50'][name, cname, 'eager'] for r in b.values()):.3f}"
                       f" ms at the slowest rank", flush=True)
-        print(f"  (a) and (b): every field of every rank bit-equal to "
+        print(f"  (b) gloo ranks on the card run op by op (run is "
+              f"run.eager): every field of every rank bit-equal to "
               f"make_azimuth_pipeline(8) on one card, oracle gate passed; "
-              f"(b) {took:.1f} s with the spawn, every rank launched "
+              f"{took:.1f} s with the spawn, every rank launched "
               f"{', '.join(SP_KERNELS)}; K1 20 calls a rank under 8 "
               f"contexts equal to its plain twin; the SP harness over the "
               f"8 ranks published the one-card SP harness's topics on "
               f"{len(hscans)} OS1-128 scans", flush=True)
-        print(f"    launches at rank 0 (b): "
-              f"{ {k: v for k, v in b[0]['launches'].items() if v} }")
+        print(f"    launches at rank 0 (b), {b[0]['calls']['eager']} calls: "
+              f"{ {k: v for k, v in b[0]['launches']['eager'].items() if v} }")
 
-        # (c) NCCL over several cards.
+        # (c) NCCL over several cards, compiled beside run.eager.
         cards = torch.cuda.device_count()
         if cards < 2:
             print(f"phase 8 (c) not run: {cards} card", flush=True)
         else:
             world = 1 << (min(cards, WEDGES).bit_length() - 1)
             c = spawn_ranks(world, "nccl", tmp, data_path, configs)
+            assert c[0]["compiled"], "(c): the NCCL ranks' run"
             check_ranked("(c)", c, deployments, configs, device_parity_gate)
+            assert all(res["harness_captures"] == 1 for res in c.values())
+            assert all(res["followed"] == len(hscans)
+                       for r, res in c.items() if r)
+            same_outputs(c[0]["harness"], want_topics, "(c) SP harness")
             for name, dims, _, _ in deployments:
                 for cname in configs:
+                    p50 = c[0]["p50"]
                     print(f"  (c) {name} {cname}: SP p50 host to host over "
-                          f"{world} NCCL ranks {c[0]['p50'][name, cname]:.3f}"
-                          f" ms at rank 0", flush=True)
+                          f"{world} NCCL ranks at rank 0, compiled "
+                          f"{p50[name, cname, 'compiled']:.3f} ms, op by op "
+                          f"{p50[name, cname, 'eager']:.3f} ms; graph "
+                          f"{c[0]['stats'][name, cname]['nodes']}",
+                          flush=True)
 
 
 # ---- phase 9: the compiled entry points (CUDA-graph replays) ----
@@ -2579,12 +2757,16 @@ SP_CALLS = 5  # SP calls of one scan per pass
 HARNESS_PAIRS = 4  # eager / compiled pairs of SP harness runs, in turns
 HARNESS_SCANS = 5  # OS1-128 drive scans per harness run
 HARNESS_HZ = 10.0  # their rate (drop mode)
-# Launches of each kernel per SP scan, star search on (K4 and K12 one a
-# wedge, K5 and K6 two passes, K14 two).
-SP_PER_SCAN = {"ingest_prep": 1, "discover_rings": 1, "assign_rings": 1,
-               "star_walk": WEDGES, "group_rank": 2, "group_place": 2,
-               "xz_zero": 1, "flood_blocked": 1, "flood_road": WEDGES,
-               "marker_state": 2}
+
+
+def sp_per_scan(local: int, star: bool) -> dict:
+    """Launches of each kernel per SP scan on a rank of ``local`` wedges:
+    K4 (where the star search is on) and K12 one a local wedge, K5 and K6
+    two passes, K14 two, the others one."""
+    return {"ingest_prep": 1, "discover_rings": 1, "assign_rings": 1,
+            "star_walk": local if star else 0, "group_rank": 2,
+            "group_place": 2, "xz_zero": 1, "flood_blocked": 1,
+            "flood_road": local, "marker_state": 2}
 
 
 def device_busy(fn, n: int):
@@ -2716,8 +2898,9 @@ def phase_sp_compiled(dev, configs, smi, device_parity_gate) -> dict:
     for _ in range(reps):
         run(pts)
     launches = launch_counts()
+    per_scan = sp_per_scan(WEDGES, True)
     for k, v in launches.items():
-        assert v == reps * SP_PER_SCAN.get(k, 0), (k, v, reps)
+        assert v == reps * per_scan.get(k, 0), (k, v, reps)
     print(f"  (d) {reps} replays of the OS1-128 SP run: launches "
           f"{ {k: v for k, v in launches.items() if v} }", flush=True)
 

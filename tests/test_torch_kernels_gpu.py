@@ -27,7 +27,12 @@ blocks, its first-block tickets), one device op a call; the curb stencils
 (K7) in place at 64 x 4096, 64 x 2048 and 128 x 2048 with star labels on
 the table and its SP entry on one SP run's stacked wedges (8 x 128 x
 384), at window sizes 3 to 30, one device op and idempotent, the
-returning form leaving its input as it was.  Run on a machine with the
+returning form leaving its input as it was; the compiled SP run on the
+card and over a one-rank NCCL group in this process (a FileStore): each
+replay bit-equal to run.eager, one capture per key and none under each
+of the 15 dynamic swaps, the census of eager after each replay, no
+synchronising call, a gloo group's run op by op, a failed capture
+raising with no fallback.  Run on a machine with the
 card
 (tests/conftest.py imports jax, which a GPU host without JAX skips with
 --noconftest):
@@ -1638,5 +1643,171 @@ def test_sp_failed_capture_raises(dev, monkeypatch):
     before = dict(pl.CAPTURE_COUNTS)
     with pytest.raises(RuntimeError, match="CUDA-graph capture failed"):
         run(pts)
+    assert not run.entries and pl.CAPTURE_COUNTS == before
+    torch.cuda.synchronize()
+
+
+# --- the compiled SP run over an NCCL group (one rank, in this process) ---
+
+@pytest.fixture(scope="module")
+def nccl(dev, tmp_path_factory):
+    """A one-rank NCCL process group met through a FileStore, destroyed
+    after the module's tests."""
+    import torch.distributed as dist
+
+    store = dist.FileStore(str(tmp_path_factory.mktemp("nccl") / "store"), 1)
+    dist.init_process_group("nccl", store=store, rank=0, world_size=1)
+    yield dist.group.WORLD
+    dist.destroy_process_group()
+
+
+def _census(run):
+    return {k: dict(v) for k, v in run.wedges.census.items()}
+
+
+@pytest.mark.parametrize("layout", ["rows", "planar"])
+@pytest.mark.parametrize("star_on", [True, False])
+def test_sp_nccl_replay_equals_eager(dev, nccl, star_on, layout):
+    """Over the NCCL group ``run`` captures one graph per key, its
+    collectives inside; each replay is bit-equal to run.eager, leaves
+    eager's census and credits the graph's launches."""
+    from urban_road_filter_torch import pipeline as pl
+    from urban_road_filter_torch.parallel.azimuth_parallel import (
+        make_azimuth_pipeline)
+
+    dims = PipelineDims(max_points=8192, rings=RINGS, ring_capacity=CAP)
+    cfg = FilterConfig(star_shaped_method=star_on)
+    pts = _sp_scan(dev, dims)
+    if layout == "planar":
+        pts = pts[:, :3].T.contiguous()
+    run = make_azimuth_pipeline(8, cfg, dims, group=nccl)
+    assert run is not run.eager
+    before = pl.CAPTURE_COUNTS["sp"]
+    first = run(pts, layout=layout)
+    assert pl.CAPTURE_COUNTS["sp"] == before + 1
+    replayed = _census(run)
+    want = run.eager(pts, layout=layout)
+    eager = _census(run)
+    assert eager and replayed == eager
+    assert eager["all_gather"]["calls"] == 3
+    assert eager["all_reduce"]["calls"] == 11
+    _assert_same(first, want)
+    _build.reset_launch_counts()
+    for _ in range(3):
+        run.wedges.census.clear()
+        _assert_same(run(pts, layout=layout), want)
+        assert _census(run) == eager
+    counts = _build.launch_counts()
+    assert counts["flood_road"] == 24 and counts["marker_state"] == 6
+    assert counts["star_walk"] == (24 if star_on else 0)
+    assert pl.CAPTURE_COUNTS["sp"] == before + 1
+    (entry,) = run.entries.values()
+    nodes = entry.stats["nodes"]
+    assert nodes["kernel"] > 0 and entry.graph is not None
+    assert sum(nodes.values()) > 400, nodes
+    assert entry.stats["pool_bytes"] > 0
+
+
+def test_sp_nccl_hot_swap_without_recapture(dev, nccl):
+    """Each of the 15 dynamic fields swapped, and all at once: the replay
+    equals run.eager under the new configuration, no capture; a static
+    swap captures once."""
+    from urban_road_filter_torch import config as C
+    from urban_road_filter_torch import pipeline as pl
+    from urban_road_filter_torch.parallel.azimuth_parallel import (
+        make_azimuth_pipeline)
+
+    assert len(SWAPPED) == len(C.DynConfig._fields)
+    dims = PipelineDims(max_points=8192, rings=RINGS, ring_capacity=CAP)
+    pts = _sp_scan(dev, dims)
+    run = make_azimuth_pipeline(8, FilterConfig(), dims, group=nccl)
+    base = run(pts)
+    before = dict(pl.CAPTURE_COUNTS)
+    for name, val in [*SWAPPED.items(), ("all", None)]:
+        cfg = (FilterConfig(**SWAPPED) if name == "all"
+               else FilterConfig(**{name: val}))
+        _assert_same(run(pts, cfg), run.eager(pts, cfg))
+    assert pl.CAPTURE_COUNTS == before and len(run.entries) == 1
+    assert not torch.equal(run(pts, FilterConfig(max_x=12.0)).labels,
+                           base.labels)
+    _assert_same(run(pts), base)
+    run(pts, FilterConfig(blind_spots=False))
+    assert pl.CAPTURE_COUNTS["sp"] == before["sp"] + 1
+
+
+def test_sp_nccl_makes_no_synchronising_call(dev, nccl):
+    """Eager and compiled over the NCCL group, and a hot swap, under
+    set_sync_debug_mode("error")."""
+    from urban_road_filter_torch.parallel.azimuth_parallel import (
+        make_azimuth_pipeline)
+
+    dims = PipelineDims(max_points=8192, rings=RINGS, ring_capacity=CAP)
+    pts = _sp_scan(dev, dims)
+    run = make_azimuth_pipeline(8, FilterConfig(), dims, group=nccl)
+    calls = [lambda: run.eager(pts), lambda: run(pts),
+             lambda: run(pts, FilterConfig(beam_zone=42.5))]
+    for fn in calls:
+        fn()
+    torch.cuda.synchronize()
+    for fn in calls:
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+
+
+def test_sp_gloo_group_on_the_card_runs_eager(dev, nccl):
+    """A gloo group's run on the card is run.eager (gloo stages each
+    collective through the host), with no entries; it equals the one-card
+    run."""
+    import torch.distributed as dist
+
+    from urban_road_filter_torch.parallel.azimuth_parallel import (
+        make_azimuth_pipeline)
+
+    dims = PipelineDims(max_points=8192, rings=RINGS, ring_capacity=CAP)
+    pts = _sp_scan(dev, dims)
+    gloo = dist.new_group(backend="gloo")
+    run = make_azimuth_pipeline(8, FilterConfig(), dims, device=dev,
+                                group=gloo)
+    assert run is run.eager and run.entries == {}
+    _assert_same(run(pts), make_azimuth_pipeline(8, FilterConfig(),
+                                                 dims).eager(pts))
+    dist.destroy_process_group(gloo)
+
+
+def test_sp_nccl_failed_capture_raises(dev, nccl, monkeypatch):
+    """A host read inside the SP stages fails the capture over a (new)
+    NCCL group, which raises; the stages ran twice (the eager run before
+    the capture, and the capture), nothing fell back to them."""
+    import torch.distributed as dist
+
+    from urban_road_filter_torch import pipeline as pl
+    from urban_road_filter_torch.parallel import azimuth_parallel as ap
+
+    dims = PipelineDims(max_points=8192, rings=RINGS, ring_capacity=CAP)
+    pts = _sp_scan(dev, dims)
+    quadrants, body = ap._quadrants, ap._run
+    runs = []
+
+    def reads_back(*args):
+        q = quadrants(*args)
+        float(q[0])  # a synchronising host read
+        return q
+
+    def counted(*args, **kw):
+        runs.append(1)
+        return body(*args, **kw)
+
+    group = dist.new_group(backend="nccl")
+    run = ap.make_azimuth_pipeline(8, FilterConfig(), dims, group=group)
+    monkeypatch.setattr(ap, "_quadrants", reads_back)
+    monkeypatch.setattr(ap, "_run", counted)
+    before = dict(pl.CAPTURE_COUNTS)
+    with pytest.raises(RuntimeError, match="CUDA-graph capture failed"):
+        run(pts)
+    assert len(runs) == 2
     assert not run.entries and pl.CAPTURE_COUNTS == before
     torch.cuda.synchronize()

@@ -28,17 +28,15 @@ On the card chip_smoke.py phase 10 and tests/test_torch_kernels_gpu.py run
 the same through the graphs.
 """
 
-import traceback
-
 import jax
 import numpy as np
 import pytest
 import torch
-from torch.utils._python_dispatch import TorchDispatchMode
 
-from test_config_dynamic import DYNAMIC_SWAPS, STATIC_SWAPS
+from test_config_dynamic import STATIC_SWAPS
 from test_torch_pipeline import (
     _assert_labels_vs_jax, _assert_markers_vs_jax, _envelope)
+from torch_ranks import DYNAMIC_SWAPS, SWAPS, HostReads
 from urban_road_filter_tpu.config import FilterConfig as JaxConfig
 from urban_road_filter_tpu.config import PipelineDims as JaxDims
 from urban_road_filter_tpu.io.synthetic import SCENES, make_scan
@@ -63,8 +61,6 @@ JAX_DIMS = JaxDims(**DIMS.__dict__)
 CONFIGS = {"default": FilterConfig(),
            "star_off": FilterConfig(star_shaped_method=False)}
 SCENE_NAMES = ("two_curbs", "blind_spot")
-SWAPS = {**{k: {k: v} for k, v in DYNAMIC_SWAPS.items()},
-         "all": dict(DYNAMIC_SWAPS)}
 STRUCTURAL = ("ok", "roi", "num_rings", "ring_id", "counts", "overflow",
               "star_overflow", "probably_road")
 
@@ -262,27 +258,6 @@ def test_harness_sp_mode_replays_the_compiled_run():
         got[1].road, got[0].road)
 
 
-# The ops that read a tensor's value back to the host (.item(), float(),
-# int(), bool() of a tensor, and the data-dependent shapes).
-_HOST_READS = ("aten._local_scalar_dense", "aten.nonzero",
-               "aten.masked_select", "aten._unique", "aten.unique")
-
-
-class _HostReads(TorchDispatchMode):
-    """Records each host read with the port's function that made it."""
-
-    def __init__(self):
-        super().__init__()
-        self.seen = []
-
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        if str(func).startswith(_HOST_READS):
-            frames = [f.name for f in traceback.extract_stack()
-                      if "urban_road_filter_torch" in f.filename]
-            self.seen.append((str(func), frames))
-        return func(*args, **(kwargs or {}))
-
-
 @pytest.mark.parametrize("entry", ["compiled", "eager"])
 @pytest.mark.parametrize("cname", list(CONFIGS))
 def test_sp_glue_reads_nothing_back(cname, entry, runs, pts):
@@ -291,7 +266,7 @@ def test_sp_glue_reads_nothing_back(cname, entry, runs, pts):
     cfg = FilterConfig(star_shaped_method=CONFIGS[cname].star_shaped_method,
                        **DYNAMIC_SWAPS)
     call(pts, cfg)
-    with _HostReads() as mode:
+    with HostReads() as mode:
         call(pts, cfg)
     glue = [(op, frames[-3:]) for op, frames in mode.seen
             if "star_walk_plain" not in frames]

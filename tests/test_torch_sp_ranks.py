@@ -20,7 +20,16 @@ every job in the same order and reports its results.
   card.  The collective census of a scan is pinned.
 * The replay harness in SP mode over the ranks (rank 0 replays, ranks 1-3
   follow) publishes the one-card SP harness's topics, a mid-run beam_zone
-  swap reaches every rank, and close() stops every follower.
+  swap reaches every rank, and close() stops every follower; rank 0's SP
+  run and each follower's make one entry, which the swap keeps.
+* The group's ``run`` goes through the compiled entries (on the CPU the
+  plain twins, with the cache and counts of the card's CUDA graphs), so
+  the runs above are its; on every rank it equals ``run.eager`` bit for
+  bit, rows and planar, makes one entry per key, none under each of the
+  15 dynamic swaps and one under a static change, and leaves after every
+  call the census of that call's collectives.  RankWedges.all_gather
+  into one tensor gives the list form's bytes; the rank path reads no
+  tensor value back to the host (tests/test_torch_sp_jit.py's check).
 
 Every spawned rank ends within the fixture's own time limit (a collective
 that waits past the group's timeout ends its rank), so a hang fails the
@@ -36,6 +45,7 @@ import pytest
 import torch
 
 import torch_ranks as tr
+from test_config_dynamic import DYNAMIC_SWAPS
 from test_torch_pipeline import (
     _assert_labels_vs_jax, _assert_markers_vs_jax, _envelope)
 from urban_road_filter_tpu.config import FilterConfig as JaxConfig
@@ -44,6 +54,7 @@ from urban_road_filter_tpu.parallel.azimuth_parallel import (
     make_azimuth_pipeline as jax_sp)
 from urban_road_filter_tpu.parallel.mesh import make_mesh
 from urban_road_filter_torch import ScanResult
+from urban_road_filter_torch.config import DynConfig
 from urban_road_filter_torch.convert import to_numpy
 from urban_road_filter_torch.parallel.azimuth_parallel import (
     LocalWedges, make_azimuth_pipeline)
@@ -320,3 +331,121 @@ def test_followers_stop_after_every_scan(ranks):
 
 def test_ranks_import_no_jax(ranks):
     assert all(res["jax_free"] for res in ranks.values())
+
+
+# --- the group's run through the compiled entries (on the CPU, the plain
+# twins through the same cache and counts as on one card) ---
+
+def test_group_run_compiles_by_backend(ranks):
+    """Over a gloo group on the CPU ``run`` goes through the entries; on a
+    card a gloo group's would be ``run.eager`` (decided from the backend
+    when the pipeline is made)."""
+    for res in ranks.values():
+        assert res["backend_compiles"] == (True, True, False)
+
+
+@pytest.mark.parametrize("layout", ["rows", "planar"])
+@pytest.mark.parametrize("d", tr.WEDGES)
+@pytest.mark.parametrize("scene,cname", tr.SP_CASES)
+def test_compiled_equals_eager_over_ranks(ranks, one_card, d, scene, cname,
+                                          layout):
+    """On every rank the compiled run equals run.eager bit for bit on every
+    field, rows and planar, and both equal the one-card run."""
+    want = one_card[d, scene, cname]
+    for rank, res in ranks.items():
+        got, _ = res["calls", d, scene, cname]["compiled", layout]
+        eager, _ = res["calls", d, scene, cname]["eager", layout]
+        what = f"rank {rank} {d} wedges {scene} {cname} {layout}"
+        _bit_equal(ScanResult(*got), ScanResult(*eager), what)
+        _bit_equal(ScanResult(*got), want, what)
+
+
+def test_one_entry_per_key_over_ranks(ranks):
+    """Rows, rows again and planar: two entries on every rank, each counted
+    once in CAPTURE_COUNTS["sp"]."""
+    for rank, res in ranks.items():
+        for d in tr.WEDGES:
+            for scene, cname in tr.SP_CASES:
+                assert res["captures", d, scene, cname] == (2, 2), (
+                    rank, d, scene, cname)
+
+
+def test_census_after_every_call_over_ranks(ranks):
+    """After every call, a CPU entry's or run.eager's, rows or planar,
+    run.wedges.census holds that call's collectives: the eager census."""
+    for rank, res in ranks.items():
+        for d in tr.WEDGES:
+            for scene, cname in tr.SP_CASES:
+                want = res["census", d, scene, cname]
+                assert want and all(
+                    c == want for _, c in
+                    res["calls", d, scene, cname].values()), (
+                        rank, d, scene, cname)
+
+
+def test_swaps_are_every_dynamic_field():
+    assert tr.DYNAMIC_SWAPS == DYNAMIC_SWAPS
+    assert len(tr.DYNAMIC_SWAPS) == len(DynConfig._fields)
+
+
+@pytest.mark.parametrize("swap", list(tr.SWAPS))
+def test_dynamic_swap_over_ranks(ranks, swap):
+    """Each dynamic field swapped alone, and all at once, on the warm
+    entry of every rank: run.eager's result under the new configuration,
+    no capture and no entry."""
+    for rank, res in ranks.items():
+        got, eager, captures, entries = res["swaps"][swap]
+        _bit_equal(ScanResult(*got), ScanResult(*eager),
+                   f"rank {rank} {swap}")
+        assert (captures, entries) == (0, 0), (rank, swap)
+
+
+def test_swaps_take_effect_over_ranks(ranks):
+    base = ScanResult(*ranks[0]["sp", 8, "two_curbs", "star"])
+    assert any(not np.array_equal(ScanResult(*got).labels, base.labels)
+               for got, _, _, _ in ranks[0]["swaps"].values())
+
+
+def test_static_change_over_ranks(ranks):
+    """A static change (blind_spots off) makes one entry on every rank."""
+    for rank, res in ranks.items():
+        got, eager, captures, entries = res["swaps"]["static"]
+        _bit_equal(ScanResult(*got), ScanResult(*eager), f"rank {rank}")
+        assert (captures, entries) == (1, 1), rank
+
+
+@pytest.mark.parametrize("size", tr.WEDGES)
+def test_all_gather_into_one_tensor_equals_list_form(ranks, size):
+    """RankWedges.all_gather (one (world * local, ...) tensor) gives the
+    bytes of dist.all_gather's list form concatenated, in global wedge
+    order, on every rank."""
+    ins = tr.method_inputs(size)
+    for rank, res in ranks.items():
+        for k, (one, listed) in res[f"gather_forms_{size}"].items():
+            assert one.shape == listed.shape == ins[k].shape, (rank, k)
+            assert one.astype(listed.dtype).tobytes() == listed.tobytes()
+            np.testing.assert_array_equal(one, ins[k], err_msg=f"{rank} {k}")
+
+
+@pytest.mark.parametrize("mode", ["compiled", "eager"])
+@pytest.mark.parametrize("cname", ["star", "star_off"])
+def test_rank_glue_reads_nothing_back(ranks, cname, mode):
+    """tests/test_torch_sp_jit.py's host-read check on each rank: the
+    rank path (its collectives included) reads no tensor value back to
+    the host, apart from the plain star walk's step count (a CPU twin that
+    on the card is K4)."""
+    for rank, res in ranks.items():
+        seen = res["host_reads", cname][mode]
+        glue = [(op, frames[-3:]) for op, frames in seen
+                if "star_walk_plain" not in frames]
+        assert not glue, (rank, glue[:5])
+        if cname == "star_off":
+            assert not seen, rank
+
+
+def test_harness_ranks_make_one_entry(ranks):
+    """Rank 0's SP run and each follower's make one entry, on the first
+    scan, and keep it across the mid-run beam_zone swap (the topics of
+    the two harness tests above)."""
+    for rank, res in ranks.items():
+        assert res["harness_captures"] == 1, rank

@@ -6,7 +6,8 @@ port's users run them.
 ``main`` joins the group through a FileStore, runs every job below in the
 same order on every rank (the collectives pair up in that order) and puts
 ``(rank, results)`` on the queue, numpy arrays and plain values only; a
-failure puts its traceback under "error".
+failure puts its traceback under "error".  The swaps and the host-read
+check below serve tests/test_torch_sp_jit.py too.
 """
 
 from __future__ import annotations
@@ -19,14 +20,16 @@ import traceback
 import numpy as np
 import torch
 import torch.distributed as dist
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from urban_road_filter_torch import FilterConfig, PipelineDims, pad_scan
+from urban_road_filter_torch import pipeline as pl
 from urban_road_filter_torch.convert import to_numpy
 from urban_road_filter_torch.io import SCENES, make_scan
 from urban_road_filter_torch.io.replay import (
     ReplayHarness, follow, pcd_dir_source)
 from urban_road_filter_torch.parallel.azimuth_parallel import (
-    RankWedges, azimuth_sorted, make_azimuth_pipeline)
+    RankWedges, _compiles, azimuth_sorted, make_azimuth_pipeline)
 
 WORLD = 4
 TIMEOUT_S = 120  # a collective that waits longer ends its rank
@@ -48,6 +51,23 @@ SP_CASES = [(scene, c) for scene in ("two_curbs", "blind_spot")
     ("two_curbs", "stencils_off"), ("two_curbs_dense", "star")]
 WEDGES = (8, 4)  # 2 and 1 wedges a rank
 SWAP_AT = 1  # the harness's scan after which beam_zone becomes 50
+# One new value for each of the 15 dynamic fields (config.DynConfig; cos_x,
+# cos_z and slope_param through the three angles), for the port's tests: a
+# copy that imports no JAX of the JAX tests' tests/test_config_dynamic.py
+# DYNAMIC_SWAPS, which tests/test_torch_sp_ranks.py pins it to.
+DYNAMIC_SWAPS = dict(
+    interval=0.3, curb_height=0.11, beam_zone=42.5,
+    min_x=1.0, max_x=25.0, min_y=-8.0, max_y=8.0, min_z=-2.8, max_z=-1.2,
+    cylinder_deg_x=140.0, cylinder_deg_z=130.0, curb_slope_deg=45.0,
+    kdev_param=1.5, kdist_param=3.0, dmin_param=8,
+)
+SWAPS = {**{k: {k: v} for k, v in DYNAMIC_SWAPS.items()},
+         "all": dict(DYNAMIC_SWAPS)}
+STATIC_CHANGE = {"blind_spots": False}
+# The ops that read a tensor's value back to the host (.item(), float(),
+# int(), bool() of a tensor, and the data-dependent shapes).
+HOST_READS = ("aten._local_scalar_dense", "aten.nonzero",
+              "aten.masked_select", "aten._unique", "aten.unique")
 FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                         "fixtures")
 
@@ -65,6 +85,11 @@ def sp_raw(name: str) -> np.ndarray:
 
 def sp_scan(scene: str) -> np.ndarray:
     return pad_scan(sp_raw(scene), DIMS.max_points)
+
+
+def sp_planar(scene: str) -> np.ndarray:
+    """sp_scan's (3, N) planes."""
+    return np.ascontiguousarray(sp_scan(scene)[:, :3].T)
 
 
 def one_wedge_scan() -> np.ndarray:
@@ -110,6 +135,85 @@ def methods(lw, ins: dict) -> dict:
            "index": lw.index(), "all_index": lw.all_index(),
            "before": lw.before(torch.from_numpy(ins["i"]))}
     return {k: v.numpy() for k, v in out.items()}
+
+
+def gather_forms(lw, ins: dict) -> dict:
+    """lw.all_gather (one tensor) beside the list form of dist.all_gather
+    and a concatenation, on this rank's rows of each stack: {name: (one
+    tensor, list form)} as numpy arrays."""
+    sl = slice(lw.first, lw.first + lw.local)
+    out = {}
+    for k, v in ins.items():
+        t = torch.from_numpy(v[sl])
+        wire = RankWedges._wire(t)
+        parts = [torch.empty_like(wire) for _ in range(lw.world)]
+        dist.all_gather(parts, wire, group=lw.group)
+        out[k] = (lw.all_gather(t).numpy(), torch.cat(parts).numpy())
+    return out
+
+
+def census(run) -> dict:
+    return {k: dict(v) for k, v in run.wedges.census.items()}
+
+
+def calls(run, scene: str) -> dict:
+    """The compiled run against run.eager on one SP case, rows and planar:
+    {(mode, layout): (each call's fields, the census left after it)}."""
+    out = {}
+    for layout, pts in (("rows", sp_scan(scene)),
+                        ("planar", sp_planar(scene))):
+        for mode, fn in (("compiled", run), ("eager", run.eager)):
+            out[mode, layout] = (tuple(to_numpy(fn(pts, layout=layout))),
+                                 census(run))
+    return out
+
+
+def swaps(run) -> dict:
+    """Each dynamic swap (and all at once) on the run's warm rows entry,
+    then one static change: {swap: (compiled fields, eager fields, new
+    captures, new entries)}."""
+    pts = sp_scan("two_curbs")
+    run(pts)
+    out = {}
+    for name, kw in {**SWAPS, "static": STATIC_CHANGE}.items():
+        cfg = FilterConfig(**kw)
+        before, entries = pl.CAPTURE_COUNTS["sp"], len(run.entries)
+        got = tuple(to_numpy(run(pts, cfg)))
+        out[name] = (got, tuple(to_numpy(run.eager(pts, cfg))),
+                     pl.CAPTURE_COUNTS["sp"] - before,
+                     len(run.entries) - entries)
+    return out
+
+
+class HostReads(TorchDispatchMode):
+    """Records each host read of a tensor value with the port's function
+    that made it."""
+
+    def __init__(self):
+        super().__init__()
+        self.seen = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if str(func).startswith(HOST_READS):
+            frames = [f.name for f in traceback.extract_stack()
+                      if "urban_road_filter_torch" in f.filename]
+            self.seen.append((str(func), frames))
+        return func(*args, **(kwargs or {}))
+
+
+def host_reads(run, star: bool) -> dict:
+    """{mode: [(op, the port's frames)]}: the host reads of one warm
+    compiled call and one eager call of the run, under every dynamic
+    swap at once (``star``: the run's star_shaped_method)."""
+    pts = torch.from_numpy(sp_scan("two_curbs"))
+    cfg = FilterConfig(star_shaped_method=star, **DYNAMIC_SWAPS)
+    out = {}
+    for mode, fn in (("compiled", run), ("eager", run.eager)):
+        fn(pts, cfg)
+        with HostReads() as seen:
+            fn(pts, cfg)
+        out[mode] = seen.seen
+    return out
 
 
 def stencil_frame(run) -> tuple:
@@ -164,11 +268,27 @@ def _jobs(rank: int, group) -> dict:
         for scene, cname in SP_CASES:
             run = make_azimuth_pipeline(d, config(cname), DIMS,
                                         device="cpu", group=group)
+            before = pl.CAPTURE_COUNTS["sp"]
             out["sp", d, scene, cname] = tuple(to_numpy(run(sp_scan(scene))))
             out["census", d, scene, cname] = {
                 k: dict(v) for k, v in run.wedges.census.items()}
+            out["calls", d, scene, cname] = calls(run, scene)
+            out["captures", d, scene, cname] = (
+                pl.CAPTURE_COUNTS["sp"] - before, len(run.entries))
+            if d == 8 and scene == "two_curbs" and cname in ("star",
+                                                             "star_off"):
+                out["host_reads", cname] = host_reads(run, cname == "star")
+                if cname == "star":
+                    out["swaps"] = swaps(run)
+    for size in WEDGES:
+        out[f"gather_forms_{size}"] = gather_forms(RankWedges(size, group),
+                                                   method_inputs(size))
     run = make_azimuth_pipeline(8, FilterConfig(), DIMS, device="cpu",
                                 group=group)
+    # On the CPU the group's run goes through the entries; a gloo group's
+    # on a card would stay op by op.
+    out["backend_compiles"] = (run is not run.eager, _compiles(
+        group, torch.device("cpu")), _compiles(group, torch.device("cuda", 0)))
     out["overflow"] = tuple(to_numpy(run(one_wedge_scan())))
     out["frame"] = stencil_frame(run)
     for d in (6, 7):  # 6 % 4 ranks, 360 % 7
@@ -181,11 +301,13 @@ def _jobs(rank: int, group) -> dict:
         make_azimuth_pipeline(8, FilterConfig(), DIMS, group=group)
     except RuntimeError as e:
         out["no_card"] = str(e)
+    before = pl.CAPTURE_COUNTS["sp"]
     if rank == 0:
         out["harness"] = run_harness(group)
     else:
         out["followed"] = follow(FilterConfig(), HDIMS, 4, group,
                                  device="cpu")
+    out["harness_captures"] = pl.CAPTURE_COUNTS["sp"] - before
     out["jax_free"] = not [m for m in sys.modules if m.split(".")[0] in (
         "jax", "jaxlib", "urban_road_filter_tpu")]
     return out

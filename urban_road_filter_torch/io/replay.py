@@ -26,9 +26,11 @@ replayed, a change of ``h.cfg``'s dynamic parameters between scans
 written into its parameter buffer without a re-capture), or with
 ``azimuth_shard``
 > 1 the run of ``parallel.azimuth_parallel.make_azimuth_pipeline``, built
-once: with all wedges on the one card a CUDA graph too, captured on the
-first scan and hot-swapped the same way; with a process ``group``, spread
-over its ranks, op by op; ``_to_device`` stages as above;
+once: a CUDA graph too, captured on the first scan and hot-swapped the
+same way, with all wedges on the one card or, with a process ``group``,
+spread over its ranks (an NCCL group: each rank's graph holds its
+collectives; a gloo group on the card runs op by op); ``_to_device``
+stages as above;
 ``_fetch_outputs`` tells packed_scan's tuple from a ScanResult by its
 concrete type (the JAX harness tests ``isinstance(out, tuple)``, which a
 ScanResult NamedTuple also passes, so its SP mode cannot unpack a scan).
@@ -44,7 +46,12 @@ multi-device mesh): rank 0 runs ``ReplayHarness(azimuth_shard=n,
 group=pg)`` and the other ranks ``follow(cfg, dims, n, pg)``.  Before each
 scan rank 0 broadcasts a one-int32 header (scan, config or stop), then the
 staged (3, N) scan; a changed ``h.cfg`` goes out once, before the scan that
-first uses it; ``close()`` stops the followers.
+first uses it; ``close()`` stops the followers.  Rank 0's SP run and each
+follower's meet their key on the same first scan, so all capture there
+and replay after; a configuration swap reaches every rank's entry buffer
+with no new capture.  The broadcasts are eager and share the
+communicator with the replayed collectives, in the same order on every
+rank: header, configuration, header, scan, the run.
 
 Run as a CLI:  python -m urban_road_filter_torch.io.replay --scene two_curbs
 (under ``torchrun --nproc-per-node W ... --azimuth-shard n``: SP mode over
@@ -163,9 +170,10 @@ class ReplayHarness:
         # azimuth_shard > 1: run each scan cut into that many azimuth
         # wedges (the 128-beam multi-LiDAR SP mode), all on this device or,
         # with a process group, spread over its ranks (this one is rank 0,
-        # the others run follow()); the same five-topic ScanOutputs.  On
-        # one device the run replays a CUDA graph (its input copied on the
-        # compute stream, after _process's wait on the copy stream).
+        # the others run follow()); the same five-topic ScanOutputs.  The
+        # run replays a CUDA graph (its input copied on the compute
+        # stream, after _process's wait on the copy stream), but over a
+        # gloo group on the card, which runs op by op.
         self.azimuth_shard = int(azimuth_shard)
         self.group = group
         if group is not None:
@@ -638,8 +646,11 @@ def follow(cfg: FilterConfig, dims: PipelineDims, azimuth_shard: int,
     """The other ranks' side of ``ReplayHarness(azimuth_shard=...,
     group=group)`` on rank 0: receive each scan (and each new
     configuration) from rank 0's broadcasts and run the same SP run on it,
-    this rank's wedges, until rank 0 stops (``close()``).  ``device`` as
-    for parallel.azimuth_parallel.rank_device.  Returns the scans run."""
+    this rank's wedges, until rank 0 stops (``close()``): on an NCCL group
+    (or the CPU) the compiled run, captured on the first scan with rank
+    0's and replayed after, a new configuration's dynamic half written
+    into the entry's buffer.  ``device`` as for
+    parallel.azimuth_parallel.rank_device.  Returns the scans run."""
     from urban_road_filter_torch.parallel.azimuth_parallel import (
         make_azimuth_pipeline, rank_device)
 

@@ -35,10 +35,12 @@ never straddle wedges (a wedge is a whole number of 1-degree beam
 sectors, so 360 % n_wedges == 0); points beyond a wedge's capacity are
 dropped and counted in ``overflow``.
 
-On one card the whole run is one CUDA graph per key, replayed, with the
-dynamic parameters in the entry's device buffer (make_azimuth_pipeline;
-the JAX run is one jax.jit of the partition and the shard_map); over a
-process group it runs op by op.
+The whole run is one CUDA graph per key, replayed, with the dynamic
+parameters in the entry's device buffer (make_azimuth_pipeline; the JAX
+run is one jax.jit of the partition and the shard_map): on one card, and
+on each rank of an NCCL group, whose graph holds the rank's collectives.
+Over a gloo group on a card it runs op by op: gloo stages each collective
+through host memory, which no graph can hold.
 
 The JAX path finds the rings with a 64-step loop that picks the globally
 first unmatched point through an all_gather.  That is the greedy of K2 over
@@ -69,7 +71,7 @@ from urban_road_filter_torch.ops.rank import group_positions
 from urban_road_filter_torch.ops.star import star_hits
 from urban_road_filter_torch.ops.stencil_kernels import fused_xz_zero_halo
 from urban_road_filter_torch.pipeline import (
-    ScanResult, _stage, on_device, run_entry, target_device)
+    ScanResult, _stage, compiled_entry, on_device, target_device)
 
 
 class LocalWedges:
@@ -120,6 +122,11 @@ class LocalWedges:
 # the CPU or the card) both take them; neither backend takes bool reliably,
 # so masks go as uint8.
 _WIRE_DTYPES = (torch.int32, torch.uint8, torch.float32)
+# The all_gather into one tensor: all_gather_single where PyTorch has it
+# (from there on all_gather_into_tensor is its deprecated alias, which
+# warns), all_gather_into_tensor where it has only that (2.11 does).
+_all_gather_single = (getattr(dist, "all_gather_single", None)
+                      or dist.all_gather_into_tensor)
 
 
 class RankWedges:
@@ -127,11 +134,12 @@ class RankWedges:
     torch.distributed process group: rank r holds the ``local = size //
     world`` global wedges r * local ... r * local + local - 1, contiguous
     in azimuth.  A combine reduces over the local axis, then all_reduces
-    over the group; all_gather is the list form of dist.all_gather, then a
-    concatenation.  Only all_gather, all_reduce and broadcast run, on
-    contiguous int32, uint8 or float32 tensors.  ``census`` counts the
-    collectives since it was last cleared by kind, {kind: {"calls",
-    "bytes"}}, the bytes being each call's result on one rank."""
+    over the group; all_gather gathers into one (world * local, ...)
+    tensor, rank r's rows at r * local.  Only all_gather, all_reduce and
+    broadcast run, on contiguous int32, uint8 or float32 tensors.
+    ``census`` counts the collectives since it was last cleared by kind,
+    {kind: {"calls", "bytes"}}, the bytes being each call's result on one
+    rank."""
 
     def __init__(self, size: int, group):
         world = dist.get_world_size(group)
@@ -159,9 +167,8 @@ class RankWedges:
 
     def all_gather(self, t: torch.Tensor) -> torch.Tensor:
         wire = self._wire(t)
-        parts = [torch.empty_like(wire) for _ in range(self.world)]
-        dist.all_gather(parts, wire, group=self.group)
-        out = torch.cat(parts)
+        out = wire.new_empty((self.world * wire.shape[0], *wire.shape[1:]))
+        _all_gather_single(out, wire, group=self.group)
         self._count("all_gather", out)
         return out.bool() if t.dtype == torch.bool else out
 
@@ -563,12 +570,22 @@ def make_azimuth_pipeline(n_wedges: int, cfg: FilterConfig,
     same whole scan, in step, and every rank gets the whole result.
     ``device`` then defaults to cuda:<rank % card count>, and the group's
     backend must take tensors there (NCCL with a card per rank; gloo on
-    the CPU or for ranks that share a card).  Over a group ``run`` is
-    ``run.eager`` and ``run.entries`` stays empty: gloo's collectives run
-    on the host, which a graph cannot hold, and NCCL's under a stream
-    capture are not done here.  Raises ValueError where n_wedges does not
-    divide 360 (star beams may not straddle wedges) or the group's size
-    does not divide n_wedges.
+    the CPU or for ranks that share a card).  Which groups compile is
+    decided here, from the group's backend for CUDA tensors, never from a
+    failed capture: on an NCCL group ``run`` is compiled as on one card,
+    each rank's graph holding its whole run with every all_gather and
+    all_reduce of it (captured after one eager run, which really
+    communicates and creates the communicator, so every rank meets a new
+    key on the same call: the key holds only values alike on every rank,
+    and the device); a failed capture raises there too.  On the CPU, over
+    any group, the entries run the plain twins as above.  Over a gloo
+    group on a card ``run`` is ``run.eager`` and ``run.entries`` stays
+    empty: gloo stages each collective through host memory, which no
+    graph can hold.  After every call, eager, a CPU entry or a replay,
+    ``run.wedges.census`` holds that call's collectives (a replay's are
+    those its capture recorded).  Raises ValueError where n_wedges does
+    not divide 360 (star beams may not straddle wedges) or the group's
+    size does not divide n_wedges.
 
     A dict passed as ``probe`` receives the kernels' (local) wedge inputs
     of that call: the ids of the two K5 calls ("rank_ids", {groups: ids}),
@@ -636,22 +653,49 @@ def make_azimuth_pipeline(n_wedges: int, cfg: FilterConfig,
     def body(pts, bound_cfg, dims_, layout):
         """The compiled entry's stages, on its input buffer under its
         bound configuration."""
+        lw.census.clear()
         return _run(*checked(pts, layout), bound_cfg, dims_, lw, per_wedge,
                     cap)
 
     entries: dict = {}
+    censuses: dict = {}  # a captured entry -> its capture's census
 
     def run(pts, cfg_now: FilterConfig | None = None, layout: str = "rows",
             probe: dict | None = None) -> ScanResult:
-        if group is not None or probe is not None:
+        if probe is not None:
             return eager(pts, cfg_now, layout, probe)
         pts = torch.as_tensor(pts)
         checked(pts, layout)
-        return run_entry(entries, "sp", body, pts,
-                         cfg if cfg_now is None else cfg_now, dims, layout,
-                         device)
+        entry, pts, dyn = compiled_entry(
+            entries, "sp", body, pts, cfg if cfg_now is None else cfg_now,
+            dims, layout, device)
+        if entry.graph is None:  # the CPU: the body runs, and counts
+            return entry(pts, dyn)
+        # A replay runs no Python, so its collectives count nothing: the
+        # census is the capture's, which the body left in lw.census.
+        if entry not in censuses:
+            censuses[entry] = _copy(lw.census)
+        out = entry(pts, dyn)
+        lw.census = _copy(censuses[entry])
+        return out
 
+    if group is not None and not _compiles(group, device):
+        run = eager
     run.eager = eager
     run.entries = entries
     run.wedges = lw
     return run
+
+
+def _copy(census: dict) -> dict:
+    return {k: dict(v) for k, v in census.items()}
+
+
+def _compiles(group, device: torch.device) -> bool:
+    """Whether the SP run over ``group`` on ``device`` goes through the
+    compiled entries: on the CPU always (the plain twins); on a card
+    where the group's backend for CUDA tensors is NCCL, whose collectives
+    a CUDA graph can hold, and not gloo's, which stage through the
+    host."""
+    # The backend reads "nccl", "gloo", or per device "cpu:gloo,cuda:nccl".
+    return device.type == "cpu" or "nccl" in str(dist.get_backend(group))

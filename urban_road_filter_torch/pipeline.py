@@ -334,13 +334,14 @@ class _Compiled:
         return self.out._make(outs) if hasattr(self.out, "_make") else outs
 
 
-def run_entry(cache: dict, kind: str, body, pts, cfg: FilterConfig,
-              dims: PipelineDims, layout: str, device):
-    """Call the entry of ``cache`` for this call's key (kind, static half of
-    cfg, dims, layout, input shape and dtype, device), made on a miss (on
-    the card: captured, and counted in CAPTURE_COUNTS[kind]) with ``body``
-    as its stages; the dynamic half of cfg goes into its parameter
-    buffer."""
+def compiled_entry(cache: dict, kind: str, body, pts, cfg: FilterConfig,
+                   dims: PipelineDims, layout: str, device):
+    """``(entry, pts, dyn)``: the entry of ``cache`` for this call's key
+    (kind, static half of cfg, dims, layout, input shape and dtype,
+    device), made on a miss (on the card: captured, and counted in
+    CAPTURE_COUNTS[kind]) with ``body`` as its stages; ``entry(pts, dyn)``
+    is the call, which writes the dynamic half of cfg into the entry's
+    parameter buffer."""
     dev = target_device(device)
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
@@ -355,13 +356,14 @@ def run_entry(cache: dict, kind: str, body, pts, cfg: FilterConfig,
                           pts.to(dev, non_blocking=True))
         cache[key] = entry
         CAPTURE_COUNTS[kind] += 1
-    return entry(pts, dyn)
+    return entry, pts, dyn
 
 
 def _run_compiled(kind: str, pts, cfg: FilterConfig, dims: PipelineDims,
                   layout: str, device):
-    return run_entry(_compiled, kind, _BODIES[kind], pts, cfg, dims, layout,
-                     device)
+    entry, pts, dyn = compiled_entry(_compiled, kind, _BODIES[kind], pts, cfg,
+                                     dims, layout, device)
+    return entry(pts, dyn)
 
 
 def compiled_entries() -> dict:
