@@ -1056,7 +1056,7 @@ def phase_gather_batch(dev, planar, dims):
     """K11 over the phase-4 batch (128 planar scans, default configuration)
     in one launch, on the inputs process_batch gives it (recorded from a
     run): bit-equal to its plain version, one device op, timed beside the
-    library call (one indexed gather of the 128 tables stacked beforehand)
+    library call (one indexed gather of the stages' (128, R, P) tables)
     and its bound."""
     from urban_road_filter_torch import (
         FilterConfig, _build, pipeline, process_batch)
@@ -1073,7 +1073,7 @@ def phase_gather_batch(dev, planar, dims):
     ops = _build.device_ops(k11)
     assert ops == -(-b // 128), f"K11 over {b} lanes: {ops} device ops"
     r, p = tables[0].shape
-    stacked, spos = torch.stack(tables), torch.stack(pos)
+    stacked, spos = tables, pos  # the stages' (B, R, P) and (B, N)
     lane = torch.arange(b, device=dev)[:, None]
     l11 = lambda: stacked[lane, torch.clamp(ids, 0, r - 1).long(),
                           torch.clamp(spos, 0, p - 1).long()]
@@ -1087,6 +1087,249 @@ def phase_gather_batch(dev, planar, dims):
           f"{res['bound_ms']:.4f} ms ({res['bound_by']}), library "
           f"{res['library_ms']:.4f} ms", flush=True)
     return res
+
+
+# ---- phase 2: the batched kernels (the batch path's lane axis) ----
+
+BATCHED_KERNELS = ("star_walk", "group_rank", "group_place", "flood_blocked",
+                   "flood_labeled", "marker_points")
+
+
+def lane_scans(bench):
+    """Phase 2's batch of lanes that differ, at the bench dims: 4 bench
+    scans (64 rings), a scan of 10 points (under the 30-point gate), an
+    empty scan, curb_gap at 24 rings and wall at 12 rings (2048
+    azimuths)."""
+    from urban_road_filter_torch.io import SCENES, make_scan
+
+    return ([p for _, p in bench[:4]]
+            + [np.tile(np.float32([[1, 0, -2, 0]]), (10, 1)),
+               np.zeros((0, 4), np.float32),
+               make_scan(SCENES["curb_gap"](), n_rings=24, n_azimuth=2048,
+                         seed=5),
+               make_scan(SCENES["wall"](), n_rings=12, n_azimuth=2048,
+                         seed=6)])
+
+
+def batch_probe(dev, pts, cfg, dims):
+    """(probe, bound cfg): what each batched kernel was given in one
+    process_batch run of the planar batch pts (pipeline._stages' probe)."""
+    from urban_road_filter_torch import pipeline
+    from urban_road_filter_torch.config import device_config
+
+    bound_cfg = device_config(cfg, dev)
+    probe = {}
+    pipeline._batch_on(pts, bound_cfg, dims, "planar", probe=probe)
+    return probe, bound_cfg
+
+
+def lanewise(fn, *args):
+    """fn on each lane of args through its B = 1 form (a lane's tensors, a
+    RingLayout's fields; anything else as it is), stacked."""
+    b = next(a for a in args if isinstance(a, torch.Tensor)).shape[0]
+
+    def lane(a, k):
+        if isinstance(a, torch.Tensor):
+            return a[k]
+        if isinstance(a, tuple) and hasattr(a, "_fields"):
+            return a._make(lane(u, k) for u in a)
+        return a
+
+    outs = [fn(*(lane(a, k) for a in args)) for k in range(b)]
+    if isinstance(outs[0], tuple):
+        return tuple(torch.stack(f) for f in zip(*outs))
+    return (torch.stack(outs),)
+
+
+def first_lane(fn, *args):
+    """fn on lane 0 of args through its B = 1 form."""
+    return lambda: fn(*(a[0] if isinstance(a, torch.Tensor)
+                        else a._make(u[0] for u in a)
+                        if isinstance(a, tuple) and hasattr(a, "_fields")
+                        else a for a in args))
+
+
+def batch_kernel_calls(d, bound_cfg, dims, curbs: bool) -> dict:
+    """{kernel: (args, call, plain, nbytes, ops)} of each batched kernel
+    on a batch probe: call(*args) launches it once over the batch, plain
+    (*args) is its plain twin, the same call on a lane of args its B = 1
+    form.  With ``curbs``, K8-K10 get one lane more: lane 0 with every
+    slot a curb.  The bounds sum phase 2's per-scan formulas over the
+    lanes."""
+    from urban_road_filter_torch.ops import blind_spots as bs
+    from urban_road_filter_torch.ops import markers as mk
+    from urban_road_filter_torch.ops import star
+    from urban_road_filter_torch.ops.place import (
+        group_place, group_place_plain)
+    from urban_road_filter_torch.ops.rank import (
+        group_positions, group_positions_plain)
+
+    r, p = dims.rings, dims.ring_capacity
+    x, y, z, valid, keys = d["star"]
+    ring_id = d["ring_id"]
+    b, n = ring_id.shape
+    calls = {}
+    if keys is not None:
+        fk, rk = star._star_keys(x, y, z, valid, bound_cfg, keys)
+        nb = int((fk < 360).sum())
+        calls["star_walk"] = (
+            (fk, rk, z), lambda *a: star.star_search(*a, bound_cfg),
+            lambda *a: star.star_search_plain(*a, bound_cfg),
+            8 * b * n + 4 * nb + 360 * 4 * b, 20 * nb + 4 * b * n)
+    calls["group_rank"] = (
+        (ring_id,), lambda i: group_positions(i, r + 1),
+        lambda i: group_positions_plain(i, r + 1),
+        8 * b * n + 4 * (r + 1) * b, 4 * b * n)
+    pos, counts = group_positions(ring_id, r + 1)
+    calls["group_place"] = (
+        (ring_id, pos, counts, x, y, z),
+        lambda i, q, c, *f: group_place(i, q, c, f, r, p),
+        lambda i, q, c, *f: group_place_plain(i, q, c, f, r, p),
+        20 * b * n + 4 * (r + 1) * b + 12 * b * r * p + 4 * b, 2 * b * n)
+    layout, max_dist = d["stenciled"]
+    num_rings = d["num_rings"]
+    if curbs:
+        cat = {f: torch.cat([getattr(layout, f), getattr(layout, f)[:1]])
+               for f in layout._fields}
+        cat["label"][-1] = 2
+        layout = layout._replace(**cat)
+        max_dist = torch.cat([max_dist, max_dist[:1]])
+        num_rings = torch.cat([num_rings, num_rings[:1]])
+    rows = layout.alpha.shape[0] * r
+    slot_ok = torch.arange(p, device=ring_id.device) < layout.counts[..., None]
+    counted = int(torch.clamp(layout.counts, 0, p).sum())
+    n_curb = int((slot_ok & (layout.label == 2)).sum())
+    n_aok = int((slot_ok & (layout.alpha >= 0)
+                 & (layout.alpha <= 360)).sum())
+    bz = bound_cfg.beam_zone
+    w = bs.window_widths(max_dist, bz)
+    calls["flood_blocked"] = (
+        (layout, w), lambda lay, wk: bs.flood_blocked(lay, wk, bz),
+        lambda lay, wk: bs.flood_blocked_plain(lay, wk, bz),
+        8 * counted + 8 * rows + 2 * rows * 362,
+        4 * n_curb + 2 * 362 * rows * 20)
+    reach = bs.sweep_reach(layout, bs.flood_blocked(layout, w, bz), w,
+                           num_rings, bound_cfg)
+    lanes = layout.alpha.shape[0]
+    calls["flood_labeled"] = (
+        (layout, *reach, w, num_rings),
+        lambda lay, rf, rb, wk, nr: bs.flood_labeled(lay, rf, rb, wk, bz,
+                                                     nr),
+        lambda lay, rf, rb, wk, nr: bs.flood_labeled_plain(lay, rf, rb, wk,
+                                                           bz, nr),
+        12 * rows * p + 2 * rows * 362 + 8 * rows + 361 * 8 * lanes,
+        48 * n_aok)
+    label, kf = bs.flood_labeled(layout, *reach, w, bz, num_rings)
+    road = layout._replace(label=label)
+    active = int(torch.where(torch.arange(r, device=ring_id.device)
+                             < num_rings[:, None],
+                             torch.clamp(road.counts, max=p), 0).sum())
+    calls["marker_points"] = (
+        (road, num_rings, kf), mk.marker_points, mk.marker_points_plain,
+        12 * active + 4 * rows + 361 * 32 * lanes, 10 * active)
+    return calls
+
+
+def batch_library(name, args, dims):
+    """The one PyTorch call that computes a batched kernel's function on
+    its batch_kernel_calls args, or None where there is none: for K6 an
+    index_put_ of the stacked x/y/z into a buffer with a dump ring and a
+    dump slot per lane, indexed by lane, clamped ring and clamped slot (as
+    phase 2's per-scan call, with the lane index it needs)."""
+    if name != "group_place":
+        return None
+    r, p = dims.rings, dims.ring_capacity
+    ring_id, pos, _, x, y, z = args
+    b, n = ring_id.shape
+
+    def l6():
+        buf = torch.zeros((b, r + 1, p + 1, 3), dtype=torch.float32,
+                          device=ring_id.device)
+        lane = torch.arange(b, device=ring_id.device)[:, None].expand(b, n)
+        return buf.index_put_((lane, torch.clamp(ring_id, max=r).long(),
+                               torch.clamp(pos, max=p).long()),
+                              torch.stack([x, y, z], -1))
+
+    return l6
+
+
+def once_ms(fn) -> float:
+    """Device time of one call of fn, in ms (CUDA events, no repeats: for
+    plain twins that take seconds on a batch)."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
+
+
+def phase_batch_kernels(dev, bench, planar, dims) -> dict:
+    """Each batched kernel (K4, K5, K6, K8 with a window row per lane, K9,
+    K10) on the inputs process_batch gives it, with the star search on and
+    off: over phase 4's batch (128 bench lanes) bit-equal to its plain
+    twin and to the same kernel launched lane by lane through its B = 1
+    form; over a batch of 8 lanes that differ (lane_scans, and a ninth of
+    curbs only for K8-K10) the same.  Over the 128 lanes, star search on,
+    each is timed: one launch for the batch (one device op), the 128
+    launches of the B = 1 form, one launch on lane 0 (B = 1), the twin and
+    the library call where there is one (batch_library), beside its bound.
+    Returns {kernel: the b128 entry}."""
+    from urban_road_filter_torch import FilterConfig, _build, pad_scan
+    from urban_road_filter_torch import planarize_batch
+
+    lanes8 = torch.from_numpy(planarize_batch(np.stack(
+        [pad_scan(s, dims.max_points) for s in lane_scans(bench)]))).to(dev)
+    out = {}
+    for cname, cfg in (("star on", FilterConfig()),
+                       ("star off", FilterConfig(star_shaped_method=False))):
+        for differ, pts in ((False, planar), (True, lanes8)):
+            what = (f"{pts.shape[1]} lanes that differ" if differ
+                    else f"{pts.shape[1]} bench lanes")
+            d, bound_cfg = batch_probe(dev, pts, cfg, dims)
+            if differ:
+                nr = d["num_rings"].tolist()
+                assert len(set(nr)) >= 4 and 0 in nr, nr
+            calls = batch_kernel_calls(d, bound_cfg, dims, curbs=differ)
+            for name, (args, call, plain, nbytes, ops) in calls.items():
+                k = lambda: call(*args)
+                got = k()
+                got = got if isinstance(got, tuple) else (got,)
+                want = plain(*args)
+                err = max_abs_err(got, want if isinstance(want, tuple)
+                                  else (want,))
+                max_abs_err(got, lanewise(call, *args))
+                if cname != "star on" or differ:
+                    continue
+                ops1 = _build.device_ops(k)
+                assert ops1 == 1, f"{name} over the batch: {ops1} device ops"
+                lanes = lambda: lanewise(call, *args)
+                lib = batch_library(name, args, dims)
+                out[name] = {
+                    "max_abs_err": err, "ms": cuda_ms(k),
+                    "plain_ms": once_ms(lambda: plain(*args)),
+                    **bound(nbytes, ops),
+                    "library_ms": None if lib is None else cuda_ms(lib),
+                    "device_ops": ops1, "lanes_ms": cuda_ms(lanes, 5),
+                    "b1_ms": cuda_ms(first_lane(call, *args))}
+                e = out[name]
+                lib_ms = e["library_ms"]
+                print(f"    {name} over {what}: bit-equal to its twin and "
+                      f"to {pts.shape[1]} B = 1 launches; one launch "
+                      f"{e['ms']:.4f} ms, {pts.shape[1]} B = 1 launches "
+                      f"{e['lanes_ms']:.4f} ms, B = 1 (lane 0) "
+                      f"{e['b1_ms']:.4f} ms, plain (once) "
+                      f"{e['plain_ms']:.4f} ms, bound {e['bound_ms']:.4f} "
+                      f"ms ({e['bound_by']}), library "
+                      f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}",
+                      flush=True)
+            print(f"  batched {', '.join(calls)} over {what}, {cname}: "
+                  f"bit-equal to the twins and to lane-by-lane launches",
+                  flush=True)
+    assert set(out) == set(BATCHED_KERNELS), sorted(out)
+    return out
 
 
 def scans_for_pipeline():
@@ -1163,8 +1406,8 @@ def phase_batch(dev, cfg, scans, merged, dims, mdims, smi,
     multi-LiDAR scans (merged, at mdims).  Returns the launch counts of the
     benchmark batch's runs."""
     from urban_road_filter_torch import (
-        ScanResult, launch_counts, pad_scan, planarize_batch, process_batch,
-        reset_launch_counts)
+        ScanResult, _build, launch_counts, pad_scan, planarize_batch,
+        process_batch, reset_launch_counts)
 
     host = torch.from_numpy(planarize_batch(np.stack(
         [pad_scan(pts, dims.max_points) for _, pts in scans]))).pin_memory()
@@ -1185,7 +1428,15 @@ def phase_batch(dev, cfg, scans, merged, dims, mdims, smi,
           f"{smi}", flush=True)
     assert int(fetched.overflow.max()) == 0, "ring capacity overflow"
     assert int(fetched.star_overflow.max()) == 0
-    same_lanes(res, host.to(dev), cfg, dims)
+    x = host.to(dev)
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    torch.cuda.synchronize()
+    with _build.recording(), torch.cuda.graph(graph):
+        process_batch(x, cfg, dims, layout="planar")
+    print(f"  one process_batch of {b} lanes: {_build.graph_nodes(graph)} "
+          f"device ops (the nodes of its capture)", flush=True)
+    graph.reset()
+    same_lanes(res, x, cfg, dims)
     print(f"  all {b} lanes equal process_scan bit for bit", flush=True)
     gate_lanes(device_parity_gate, fetched, scans, range(4), cfg, "bench")
 
@@ -2555,6 +2806,32 @@ def same_fields(got, want, what: str) -> None:
             raise AssertionError(f"{what}, field {k}: {e}") from None
 
 
+def jit_lanes(dev, planar, dims, cfg, what: str) -> None:
+    """process_batch_jit of a planar batch bit-equal on every field to
+    process_scan_jit of each lane, and its packed planes, markers, gates,
+    ring counts and overflows to packed_scan_jit's."""
+    from urban_road_filter_torch import (
+        packed_scan_jit, process_batch_jit, process_scan_jit)
+
+    got = process_batch_jit(planar, cfg, dims, layout="planar", device=dev)
+    for b in range(planar.shape[1]):
+        lane = planar[:, b]
+        same_fields([f[b] for f in got],
+                    process_scan_jit(lane, cfg, dims, layout="planar",
+                                     device=dev),
+                    f"process_batch_jit lane {b} vs process_scan_jit")
+        packed = (got.labels[b].to(torch.uint8) | (got.roi[b].to(
+            torch.uint8) << 2) | (got.probably_road[b].to(torch.uint8) << 3))
+        same_fields((packed, got.markers[b], got.ok[b], got.num_rings[b],
+                     got.overflow[b]),
+                    packed_scan_jit(lane, cfg, dims, layout="planar",
+                                    device=dev),
+                    f"process_batch_jit lane {b} vs packed_scan_jit")
+    print(f"  (b) process_batch_jit on {what} ({planar.shape[1]} lanes) "
+          f"bit-equal on every field to process_scan_jit and "
+          f"packed_scan_jit lane by lane", flush=True)
+
+
 def replay_topics(dev, source, dims, cfg, swap_at=None):
     """The harness's published outputs over a source, with h.cfg's
     beam_zone swapped to 50 after scan ``swap_at`` (the demo's swap)."""
@@ -2638,6 +2915,12 @@ def phase_compiled(dev, dims, bench_dims, configs, scans, bench, smi,
     print(f"  (b) process_batch_jit on {planar.shape[1]} planar scans "
           f"bit-equal to process_batch (default and beam_zone 45.5)",
           flush=True)
+    jit_lanes(dev, planar, bench_dims, FilterConfig(), "the bench batch")
+    mixed = torch.from_numpy(planarize_batch(np.stack(
+        [pad_scan(p, bench_dims.max_points) for _, p in scans]))).to(dev)
+    for cname, cfg in (("star on", FilterConfig()),
+                       ("star off", FilterConfig(star_shaped_method=False))):
+        jit_lanes(dev, mixed, bench_dims, cfg, f"the 9 scenes, {cname}")
 
     # (c) The harness on the fixtures, the demo's swap after scan 1.
     fixtures = os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -2703,9 +2986,8 @@ def phase_compiled(dev, dims, bench_dims, configs, scans, bench, smi,
                           layout="planar", device=dev)
     launches = launch_counts()
     b = planar.shape[1]
-    for k in SCAN_KERNELS:
-        per = ({"ingest_prep": 2, "discover_rings": 2, "assign_rings": 2,
-                "gather_pack": 1 + -(-b // 128)}.get(k, 1 + b))
+    for k in SCAN_KERNELS:  # one per scan and one per batch (K11 per 128)
+        per = 1 + (-(-b // 128) if k == "gather_pack" else 1)
         assert launches[k] == reps * per, (k, launches[k], reps * per)
     print(f"  (e) {reps} replays each of packed_scan_jit and "
           f"process_batch_jit (B = {b}): launches {launches}", flush=True)
@@ -3038,6 +3320,10 @@ def main() -> int:
     kernels.update(per_scan)
     kernels["gather_pack"]["b128"] = phase_gather_batch(dev, planar,
                                                         bench_dims)
+    print("  the batched kernels (process_batch's lane axis)", flush=True)
+    for k, entry in phase_batch_kernels(dev, bench, planar,
+                                        bench_dims).items():
+        kernels[k]["b128"] = entry
     del planar
     assert set(kernels) == set(_build.KERNELS), sorted(kernels)
     kernels["xz_zero"]["sp"] = phase_sp_stacked(dev, FilterConfig())
@@ -3096,10 +3382,13 @@ def main() -> int:
                            mdims, smi, device_parity_gate)
     print(f"  launches: {launches}")
     assert_launched(launches, SCAN_KERNELS, "the batch path")
-    # One K11 launch per 128 lanes of each batch run, not one per lane.
+    # One launch of each kernel per batch run (K11 one per 128 lanes), not
+    # one per lane.
     batch_runs = 1 + BATCH_REPS
-    assert launches["gather_pack"] == batch_runs * -(-BATCH // 128), (
-        launches["gather_pack"])
+    per_batch = {k: launches[k] / batch_runs for k in SCAN_KERNELS}
+    print(f"  launches per batch of {BATCH}: {per_batch}", flush=True)
+    assert per_batch == {**dict.fromkeys(SCAN_KERNELS, 1),
+                         "gather_pack": -(-BATCH // 128)}, per_batch
 
     print(f"phase 5: the azimuth-sharded path, {WEDGES} wedges on the card",
           flush=True)

@@ -120,7 +120,7 @@ def _bad_star_pid(monkeypatch):
 
     def bad(x, y, z, valid, cfg, keys=None):
         hp = orig(x, y, z, valid, cfg, keys).clone()
-        hp[0] = x.shape[0] + 5
+        hp[..., 0] = x.shape[-1] + 5  # a scan's hits, or each lane's
         return hp
 
     monkeypatch.setattr(pipeline, "star_hits", bad)
@@ -137,10 +137,10 @@ def _bad_tensorize(monkeypatch, what):
         layout, pos = orig(x, y, z, ring_id, cap, rings=rings)
         if what == "bin":
             alpha = layout.alpha.clone()
-            alpha[0, 0] = 400.0
+            alpha[..., 0, 0] = 400.0
             return layout._replace(alpha=alpha), pos
         pos = pos.clone()
-        pos[int(torch.nonzero(ring_id < rings)[0])] = -1
+        pos.view(-1)[int(torch.nonzero(ring_id.reshape(-1) < rings)[0])] = -1
         return layout, pos
 
     monkeypatch.setattr(geometry, "tensorize", bad)

@@ -32,7 +32,13 @@ card and over a one-rank NCCL group in this process (a FileStore): each
 replay bit-equal to run.eager, one capture per key and none under each
 of the 15 dynamic swaps, the census of eager after each replay, no
 synchronising call, a gloo group's run op by op, a failed capture
-raising with no fallback.  Run on a machine with the
+raising with no fallback; the batch's lane axis: K4, K5, K6, K8, K9 and
+K10 over a batch whose lanes differ (an empty lane, a gated lane, a lane
+of curbs only, other ring counts; chip_smoke.py's phase-2 calls) against
+their twins and lane-by-lane launches, K9's tickets under batched and
+single-lane launches in turns and a graph replay, one launch of each
+kernel per batch and process_batch_jit against process_scan_jit lane by
+lane.  Run on a machine with the
 card
 (tests/conftest.py imports jax, which a GPU host without JAX skips with
 --noconftest):
@@ -1811,3 +1817,110 @@ def test_sp_nccl_failed_capture_raises(dev, nccl, monkeypatch):
     assert len(runs) == 2
     assert not run.entries and pl.CAPTURE_COUNTS == before
     torch.cuda.synchronize()
+
+
+# ---- the batch path's lane axis: K4-K6, K8-K10 once over a batch ----
+
+LANE_DIMS = PipelineDims(max_points=N, rings=RINGS, ring_capacity=CAP)
+
+
+def _lane_planes(dev):
+    """Five lanes that differ, (3, 5, N) planes: two_curbs (24 rings),
+    blind_spot (16 rings, 512 azimuths), a 10-point scan (under the gate),
+    an empty scan and curb_gap (8 rings, 1024 azimuths)."""
+    scans = [make_scan(SCENES["two_curbs"](), n_rings=24, n_azimuth=384,
+                       seed=0),
+             make_scan(SCENES["blind_spot"](), n_rings=16, n_azimuth=512,
+                       seed=1),
+             np.tile(np.float32([[1, 0, -2, 0]]), (10, 1)),
+             np.zeros((0, 4), np.float32),
+             make_scan(SCENES["curb_gap"](), n_rings=8, n_azimuth=1024,
+                       seed=2)]
+    return torch.from_numpy(planarize_batch(np.stack(
+        [pad_scan(s, N) for s in scans]))).to(dev)
+
+
+@pytest.mark.parametrize("cfg", [
+    FilterConfig(), FilterConfig(star_shaped_method=False),
+    FilterConfig(x_direction=1, starbeam_filter=True, beam_zone=45.0)])
+def test_batched_kernels_vs_twins_and_lanes(dev, cfg):
+    """Each batched kernel (K4, K5, K6, K8 with a window row per lane, K9,
+    K10) bit-equal to its plain twin and to the same kernel launched lane
+    by lane, on the stage inputs of a batch whose lanes differ, with a
+    lane of curbs only for K8-K10 (chip_smoke.py's phase-2 calls), and the
+    markers under another ring count per lane."""
+    c = _smoke()
+    d, bound = c.batch_probe(dev, _lane_planes(dev), cfg, LANE_DIMS)
+    calls = c.batch_kernel_calls(d, bound, LANE_DIMS, curbs=True)
+    assert set(calls) == set(c.BATCHED_KERNELS) - (
+        set() if cfg.star_shaped_method else {"star_walk"})
+    for name, (args, call, plain, _, _) in calls.items():
+        got = call(*args)
+        got = got if isinstance(got, tuple) else (got,)
+        want = plain(*args)
+        _assert_same(got, want if isinstance(want, tuple) else (want,))
+        _assert_same(got, c.lanewise(call, *args))
+    if cfg.star_shaped_method:
+        hp = calls["star_walk"][1](*calls["star_walk"][0])
+        assert hp.shape == (5, 360) and not hp[2:4].any() and hp[0].any()
+    road, _, kf = calls["marker_points"][0]
+    nr = torch.tensor([5, 1, 0, 0, 3, 64], dtype=torch.int32, device=dev)
+    table = mk.marker_points(road, nr, kf)
+    _assert_same((table,), (mk.marker_points_plain(road, nr, kf),))
+    _assert_same((table,), c.lanewise(mk.marker_points, road, nr, kf))
+
+
+def test_flood_labeled_batched_tickets(dev):
+    """K9's tickets count every block of a batched grid: batched and
+    single-lane launches in turns, then a graph of a batched launch
+    replayed between eager ones (kf reset before each replay), each
+    bit-equal to the twin."""
+    c = _smoke()
+    d, bound = c.batch_probe(dev, _lane_planes(dev), FilterConfig(),
+                             LANE_DIMS)
+    args, k9, p9, _, _ = c.batch_kernel_calls(
+        d, bound, LANE_DIMS, curbs=False)["flood_labeled"]
+    want = p9(*args)
+    lane0 = c.first_lane(k9, *args)
+    for _ in range(3):
+        _assert_same(k9(*args), want)
+        _assert_same(lane0(), (want[0][0], want[1][0]))
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with _build.recording() as launches, torch.cuda.graph(graph):
+        out = k9(*args)
+    assert dict(launches) == {"flood_labeled": 1}
+    for _ in range(3):
+        out[0].fill_(-1)
+        out[1].fill_(0)
+        _build.replayed(launches, ["flood_labeled"], dev)
+        graph.replay()
+        _assert_same(out, want)
+        _assert_same(lane0(), (want[0][0], want[1][0]))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("cfg", [FilterConfig(),
+                                 FilterConfig(star_shaped_method=False)])
+def test_batch_launches_once_and_jit_equals_lanes(dev, cfg):
+    """process_batch launches each kernel of its path once per batch, and
+    process_batch_jit equals process_batch and each lane's
+    process_scan_jit on every field."""
+    from urban_road_filter_torch import (
+        process_batch_jit, process_scan_jit)
+
+    planes = _lane_planes(dev)
+    _build.reset_launch_counts()
+    eager = process_batch(planes, cfg, LANE_DIMS, layout="planar")
+    torch.cuda.synchronize()
+    counts = _build.launch_counts()
+    on_path = [k for k in _build.KERNELS if k not in (
+        "flood_road", "marker_first_nonroad", "marker_state")]
+    if not cfg.star_shaped_method:
+        on_path.remove("star_walk")
+    assert {k: counts[k] for k in on_path} == dict.fromkeys(on_path, 1)
+    got = process_batch_jit(planes, cfg, LANE_DIMS, layout="planar")
+    _assert_same(got, eager)
+    for b in range(planes.shape[1]):
+        _assert_same([f[b] for f in got], process_scan_jit(
+            planes[:, b], cfg, LANE_DIMS, layout="planar"))

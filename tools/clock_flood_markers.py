@@ -61,9 +61,10 @@ FLOOD = (
     ("  const int k = row % A.rings;  // the ring within its wedge\n",
      "  const int k = row % A.rings;  // the ring within its wedge\n"
      "  const unsigned long long t_start = gtime();\n"),
-    ("  cp_async_wait_all();\n  __syncthreads();\n\n  // The row's curbs",
+    ("  cp_async_wait_all();\n  __syncthreads();\n  // The special starts",
      "  cp_async_wait_all();\n  __syncthreads();\n"
-     "  const unsigned long long t_loaded = gtime();\n\n  // The row's curbs"),
+     "  const unsigned long long t_loaded = gtime();\n  // The special "
+     "starts"),
     ("  if (sp_b) s_special[1] = 1;\n  __syncthreads();\n",
      "  if (sp_b) s_special[1] = 1;\n"
      "  const unsigned long long t_curbs = gtime();\n  __syncthreads();\n"

@@ -58,26 +58,30 @@ STAR = (
     ("namespace {\n\nconstexpr int kBeams = 360;",
      _clock.declare("g_clk_star", ROWS)
      + "namespace {\n\nconstexpr int kBeams = 360;"),
-    ("  // 1. Partition this block's points into its region, beam after "
+    ("  // 1. Partition each unit's points into its region, beam after "
      "beam.\n",
      "  const unsigned long long t_start = gtime();\n"
+     "  unsigned long long t_hist = t_start;\n"
      "  unsigned long long p_col = 0, p_sel = 0, p_sort = 0, p_walk = 0;\n"
      "  int chunks = 0, nbeams = 0;\n"
-     "  // 1. Partition this block's points into its region, beam after "
+     "  // 1. Partition each unit's points into its region, beam after "
      "beam.\n"),
-    ("    if (in && (same & lt) == 0) atomicAdd(&s_cnt[f], __popc(same));\n"
-     "  }\n  __syncthreads();\n",
-     "    if (in && (same & lt) == 0) atomicAdd(&s_cnt[f], __popc(same));\n"
-     "  }\n  __syncthreads();\n"
-     "  const unsigned long long t_hist = gtime();\n"),
-    ("  cooperative_groups::this_grid().sync();\n\n  // 2. Walk each beam.\n",
-     "  __syncthreads();\n  const unsigned long long t_part = gtime();\n"
+    ("      if (in && (same & lt) == 0) atomicAdd(&s_cnt[f], __popc(same));\n"
+     "    }\n    __syncthreads();\n",
+     "      if (in && (same & lt) == 0) atomicAdd(&s_cnt[f], __popc(same));\n"
+     "    }\n    __syncthreads();\n"
+     "    t_hist = gtime();\n"),
+    ("  cooperative_groups::this_grid().sync();\n\n"
+     "  // 2. Walk each (lane, beam) pair.\n",
+     "  const unsigned long long t_part = gtime();\n"
      "  cooperative_groups::this_grid().sync();\n"
      "  const unsigned long long t_sync = gtime();\n\n"
-     "  // 2. Walk each beam.\n"),
-    ("    // The beam's runs (column b of the run table) and their offsets.\n",
+     "  // 2. Walk each (lane, beam) pair.\n"),
+    ("    // The beam's runs (column b of the lane's rows) and their "
+     "offsets.\n",
      "    unsigned long long q0 = gtime();\n    ++nbeams;\n"
-     "    // The beam's runs (column b of the run table) and their offsets.\n"),
+     "    // The beam's runs (column b of the lane's rows) and their "
+     "offsets.\n"),
     ("      before += cnt[k];\n    }\n    __syncthreads();\n",
      "      before += cnt[k];\n    }\n    __syncthreads();\n    "
      + _lap("p_col")),
@@ -90,8 +94,8 @@ STAR = (
      "      __syncthreads();\n      " + _lap("p_sort")),
     ("      __syncthreads();\n      hit = s_hit;\n",
      "      __syncthreads();\n      hit = s_hit;\n      " + _lap("p_walk")),
-    ("    if (tid == 0) a.hp[b] = hit;\n  }\n}\n",
-     "    if (tid == 0) a.hp[b] = hit;\n  }\n"
+    ("    if (tid == 0) a.hp[q] = hit;\n  }\n}\n",
+     "    if (tid == 0) a.hp[q] = hit;\n  }\n"
      "  if (tid == 0 && blockIdx.x < 512) {\n"
      "    unsigned long long* d = g_clk_star + blockIdx.x * 16;\n"
      "    d[0] = t_start; d[1] = t_hist; d[2] = t_part; d[3] = t_sync;\n"
@@ -103,13 +107,14 @@ RANK = (
     ("namespace {\n\nconstexpr int kBlock = 1024;",
      _clock.declare("g_clk_rank", ROWS)
      + "namespace {\n\nconstexpr int kBlock = 1024;"),
-    ("  // 1. Tile histograms.\n",
+    ("  // 1. Tile histograms;",
      "  const unsigned long long t_start = gtime();\n"
-     "  unsigned long long p_ord = 0;\n  // 1. Tile histograms.\n"),
-    ("  cooperative_groups::this_grid().sync();\n\n  // 2. Per group",
+     "  unsigned long long p_ord = 0;\n  // 1. Tile histograms;"),
+    ("  cooperative_groups::this_grid().sync();\n\n  // 2. Per (scan, group)",
      "  const unsigned long long t_hist = gtime();\n"
      "  cooperative_groups::this_grid().sync();\n"
-     "  const unsigned long long t_s1 = gtime();\n\n  // 2. Per group"),
+     "  const unsigned long long t_s1 = gtime();\n\n"
+     "  // 2. Per (scan, group)"),
     ("  cooperative_groups::this_grid().sync();\n\n  // 3. Stable ranks",
      "  const unsigned long long t_scan = gtime();\n"
      "  cooperative_groups::this_grid().sync();\n"
@@ -120,9 +125,9 @@ RANK = (
     ("    base = __shfl_sync(~0u, base, leader);\n",
      "    base = __shfl_sync(~0u, base, leader);\n"
      "    p_ord += gtime() - o0;\n"),
-    ("    if (i < a.n) a.pos[i] = in ? base + __popc(same & lt) : -1;\n"
+    ("    if (i < a.n) a.pos[at] = in ? base + __popc(same & lt) : -1;\n"
      "    __syncthreads();\n  }\n}\n",
-     "    if (i < a.n) a.pos[i] = in ? base + __popc(same & lt) : -1;\n"
+     "    if (i < a.n) a.pos[at] = in ? base + __popc(same & lt) : -1;\n"
      "    __syncthreads();\n  }\n"
      "  if (threadIdx.x == 0 && blockIdx.x < 512) {\n"
      "    unsigned long long* d = g_clk_rank + blockIdx.x * 16;\n"

@@ -76,10 +76,11 @@ def _union_us(intervals) -> float:
 
 
 def star_calls(dev, cfg, args, hosts, call):
-    """[star_hits call] of each scan of a pass, on the card, as the
-    pipeline calls it: rows views (planar lanes of the batch) with the
-    scan's K1 keys, or, with ``--sp``, on each wedge's streams as one run of
-    the SP path hands them to its star search (its probe's "star")."""
+    """[star_hits call] of each call of a pass, on the card, as the
+    pipeline calls it: once over the (B, N) views of a batch (B = 1 for a
+    scan) with their K1 keys, or, with ``--sp``, on each wedge's streams as
+    one run of the SP path hands them to its star search (its probe's
+    "star")."""
     from urban_road_filter_torch.ops import geometry, ingest
     from urban_road_filter_torch.ops.star import star_hits
 
@@ -99,9 +100,8 @@ def star_calls(dev, cfg, args, hosts, call):
             x, y, z, _ = geometry.xyz_of(pts, "rows")
             x, y, z = x[None], y[None], z[None]
         valid, fk, r_key, _ = ingest.ingest_prep(x, y, z, cfg)
-        out += [lambda b=b, x=x, y=y, z=z, v=valid, f=fk, r=r_key: star_hits(
-            x[b], y[b], z[b], v[b], cfg, (f[b], r[b]))
-            for b in range(x.shape[0])]
+        out.append(lambda x=x, y=y, z=z, v=valid, f=fk, r=r_key: star_hits(
+            x, y, z, v, cfg, (f, r)))
     return out
 
 
@@ -149,7 +149,7 @@ def graph_main(args) -> int:
                "pairs": args.pairs, "modes": {}}
     if args.harness:
         return harness_graph(args, dev, cfg, smi, summary)
-    entries = pl.compiled_entries()
+    entries = None  # the process's compiled entries, read after the runs
     if args.sp:
         from urban_road_filter_torch.parallel.azimuth_parallel import (
             make_azimuth_pipeline)
@@ -218,7 +218,9 @@ def graph_main(args) -> int:
             "device_ops_per_scan": ops}
     summary["graphs"] = [
         {"key": f"{k[0]} {k[3]} {tuple(k[4])}", **e.stats}
-        for k, e in entries.items() if k[0] == kind and k[-1] == dev]
+        for k, e in (pl.compiled_entries() if entries is None
+                     else entries).items()
+        if k[0] == kind and k[-1] == dev]
     return _report(args, summary)
 
 
@@ -249,7 +251,7 @@ def harness_graph(args, dev, cfg, smi, summary) -> int:
 
     compiled = R.packed_scan_jit
     kind = "packed"
-    entries = pl.compiled_entries()
+    entries = None  # the process's compiled entries, read after the runs
     if args.sp:
         from urban_road_filter_torch import pad_scan_planar
         from urban_road_filter_torch.parallel.azimuth_parallel import (
@@ -304,7 +306,9 @@ def harness_graph(args, dev, cfg, smi, summary) -> int:
             "device_busy_share": share, "device_ops_per_scan": ops}
     summary["graphs"] = [
         {"key": f"{k[0]} {k[3]} {tuple(k[4])}", **e.stats}
-        for k, e in entries.items() if k[0] == kind and k[-1] == dev]
+        for k, e in (pl.compiled_entries() if entries is None
+                     else entries).items()
+        if k[0] == kind and k[-1] == dev]
     return _report(args, summary)
 
 

@@ -75,18 +75,21 @@ _SIGNATURES = {
                         _P, _P, _P),
     "urf_discover_rings": (_P, _P, _I, _I, _P, _I, _P, _P, _P, _P, _P),
     "urf_assign_rings": (_P, _P, _P, _I, _I, _I, _P, _P, _P, _P),
-    "urf_star_search": (_P, _P, _P, _L, _I, _P, _P, _P, _P, _P, _P, _P),
-    "urf_group_rank": (_P, _I, _I, _P, _P, _P, _P),
-    "urf_group_place": (_P, _P, _P, _I, _I, _P, _P, _P, _L, _L, _L, _I, _I,
-                        _P, _P, _P),
+    "urf_star_search": (_P, _P, _P, _L, _L, _I, _I, _P, _P, _P, _P, _P, _P,
+                        _P),
+    "urf_star_scratch_bytes": (_I, _I, ctypes.POINTER(_L)),
+    "urf_group_rank": (_P, _I, _I, _I, _P, _P, _P, _P),
+    "urf_group_place": (_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _L, _L, _L,
+                        _L, _L, _L, _I, _I, _P, _P, _P),
     "urf_xz_zero": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P,
                     _P, _P),
     "urf_xz_zero_halo": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                          _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P),
-    "urf_flood_blocked": (_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P),
-    "urf_flood_labeled": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P),
-    "urf_marker_points": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _I,
-                          _P, _P),
+    "urf_flood_blocked": (_P, _P, _P, _P, _L, _I, _I, _I, _P, _P, _P, _P),
+    "urf_flood_labeled": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P,
+                          _P),
+    "urf_marker_points": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P,
+                          _I, _P, _P),
     "urf_gather_pack": (_P, _P, _I, _I, _I, _P, _P, _P, _I, _I, _P, _P, _P,
                         _P, _P),
     "urf_flood_road": (_P, _P, _P, _P, _P, _I, _I, _P, _P, _P),

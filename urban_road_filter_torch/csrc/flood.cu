@@ -80,7 +80,10 @@
 // instead of a loop over the 362 starts (~190M predicated compares per
 // 64 x 4096 layout before).
 //
-// Layout of the work: one block per (ring, tile of 4 x blockDim slots);
+// Layout of the work: one block per (ring, tile of 4 x blockDim slots),
+// and for K9 per lane of a batch (the grid's third axis: a batch of scans'
+// stacked layouts is one launch, each lane with its own w, reach bits,
+// num_rings and row of kf, its keys counting rings within the lane);
 // each thread takes four slots blockDim apart, so every load and store of a
 // warp is one contiguous segment.  The slots' loads are issued before the
 // block packs the reach bits, so the two overlap.  What bounds it on
@@ -95,7 +98,8 @@
 // 0.0106 against 0.0063 ms per launch at 64 x 4096, PERF.md.)  Each block
 // then folds its touched bins into kf with global atomicMin.  kf needs its
 // initial value (kNoKey) before the first fold, and the launch writes it
-// itself, so a call is one device op: as it starts, each block takes a
+// itself (every lane's row), so a call is one device op: as it starts,
+// each block takes a
 // ticket from a per-device counter; tickets run on across launches, and
 // g_kf_first holds the first ticket of the launch that has not yet
 // initialised kf.  The block holding that ticket writes kf, fences, and
@@ -222,7 +226,8 @@ struct BlockedArgs {
   const float* alpha;
   const int* label;
   const int* counts;
-  const float* w;  // (rings,), shared by every wedge
+  const float* w;  // (wedges, rings), lane stride w_stride (0: shared)
+  long long w_stride;
   bool* blocked_f;  // (rows, kStarts)
   bool* blocked_b;
   int rings;  // rings per wedge
@@ -300,7 +305,7 @@ __global__ void __launch_bounds__(kThreads) blocked_kernel(BlockedArgs A) {
   const size_t total = (size_t)A.rows * A.p;
   // Quads of the flat arrays that hold the row's slots, from q_lo.
   const size_t q_lo = row0 / 4;
-  const float wk = __ldg(A.w + k);
+  const float wk = __ldg(A.w + (size_t)(row / A.rings) * A.w_stride + k);
   const int cnt = min(max(__ldg(A.counts + row), 0), A.p);
   // Quads that hold the row's counted slots [0, cnt).
   const int nq = cnt > 0 ? (int)((row0 + cnt - 1) / 4 - q_lo + 1) : 0;
@@ -428,9 +433,12 @@ __global__ void __launch_bounds__(kThreads) blocked_kernel(BlockedArgs A) {
   }
 }
 
-// Grid: (slot tiles of kSlots * blockDim, rings), blockDim a multiple of
-// 32.  kMarker (K9): label_out and kf; without it (K12): road_out only, and
-// label_in, num_rings, label_out, kf are unused.
+// Grid: (slot tiles of kSlots * blockDim, rings, lanes), blockDim a
+// multiple of 32; ring r of lane b is row b * rings + r of the stacked
+// (lanes * rings, p) layout, and of w and the reach bits.  kMarker (K9):
+// label_out and kf (lanes, 361), with num_rings (lanes,); without it (K12,
+// one lane): road_out only, and label_in, num_rings, label_out, kf are
+// unused.
 template <bool kMarker>
 __global__ void __launch_bounds__(kThreads)
     labeled_kernel(const float* __restrict__ alpha,
@@ -450,8 +458,9 @@ __global__ void __launch_bounds__(kThreads)
   __shared__ float s_bz;  // the beam zone, read once per block
   const int tid = threadIdx.x;
   const int lane = tid & 31;
-  const int r = blockIdx.y;
-  const size_t row = (size_t)r * p;
+  const int r = blockIdx.y;  // the ring within its lane: the key's ring
+  const size_t lr = (size_t)blockIdx.z * gridDim.y + r;  // the stacked row
+  const size_t row = lr * p;
   const int tile = blockIdx.x * blockDim.x * kSlots;
   // K9: this block's ticket, and whether it is the launch's first.
   unsigned long long ticket = 0ULL, first_ticket = 1ULL;
@@ -471,14 +480,14 @@ __global__ void __launch_bounds__(kThreads)
     a[j] = in ? alpha[row + s] : -1.0f;
     lab[j] = (kMarker && in) ? label_in[row + s] : 0;
   }
-  const int cnt = counts[r];
-  const float wk = w[r];
-  const int nr = kMarker ? *num_rings : 0;
+  const int cnt = counts[lr];
+  const float wk = w[lr];
+  const int nr = kMarker ? num_rings[blockIdx.z] : 0;
 
   for (int v = tid >> 5; v < 2 * kWords; v += blockDim.x >> 5) {
     const int sw = v / kWords, i = (v % kWords) * 32 + lane;
     const bool* reach = sw ? reach_b : reach_f;
-    const bool bit = i < kStarts && reach[(size_t)r * kStarts + i];
+    const bool bit = i < kStarts && reach[lr * kStarts + i];
     const unsigned int bits = __ballot_sync(~0u, bit);
     if (lane == 0) rr.word[sw][v % kWords] = bits;
   }
@@ -489,7 +498,8 @@ __global__ void __launch_bounds__(kThreads)
   if (tid == 0) s_bz = __ldg(bz_p);
   __syncthreads();
   if (kMarker && first) {  // kf's initial value, before any block's minima
-    for (int b = tid; b < kBins; b += blockDim.x) kf[b] = kNoKey;
+    for (int b = tid; b < kBins * (int)gridDim.z; b += blockDim.x)
+      kf[b] = kNoKey;
     __threadfence();
   }
   if (tid < 2) {
@@ -501,7 +511,9 @@ __global__ void __launch_bounds__(kThreads)
   }
   __syncthreads();
   if (kMarker && first && tid == 0)
-    store_release(&g_kf_first, ticket + gridDim.x * gridDim.y);
+    store_release(&g_kf_first,
+                  ticket + (unsigned long long)gridDim.x * gridDim.y *
+                               gridDim.z);
 
   // The special starts, each an integer start or none (-1), rings >= 1.
   const float bz = s_bz;
@@ -545,7 +557,8 @@ __global__ void __launch_bounds__(kThreads)
       }
     __syncthreads();
     for (int b = tid; b < kBins; b += blockDim.x)
-      if (kf_blk[b] != kNoKey) atomicMin(&kf[b], kf_blk[b]);
+      if (kf_blk[b] != kNoKey)
+        atomicMin(&kf[(size_t)blockIdx.z * kBins + b], kf_blk[b]);
   }
 }
 
@@ -559,14 +572,17 @@ int labeled_threads(int p) {
 }  // namespace
 
 // blocked_f / blocked_b: (wedges * rings, 362) bool, row w * rings + k
-// for ring k of wedge w.  alpha (wedges * rings, p) f32, label int32,
-// counts (wedges * rings,) int32, w (rings,) f32, shared by the wedges;
-// the special starts apply to rings k >= 1 of each wedge.  One launch.
+// for ring k of wedge w (a wedge or a lane of a batch: one layout each).
+// alpha (wedges * rings, p) f32, label int32, counts (wedges * rings,)
+// int32, w (wedges, rings) f32 with lane stride w_stride (0: one (rings,)
+// row shared by the wedges); the special starts apply to rings k >= 1 of
+// each wedge.  One launch.
 // bz (here and in K9, K12): the beam zone, one float32 in device memory,
 // read by each block as it starts.
 extern "C" int urf_flood_blocked(const float* alpha, const int* label,
                                  const int* counts, const float* w,
-                                 int wedges, int rings, int p,
+                                 long long w_stride, int wedges, int rings,
+                                 int p,
                                  const float* bz, bool* blocked_f,
                                  bool* blocked_b,
                                  void* stream) {
@@ -578,7 +594,7 @@ extern "C" int urf_flood_blocked(const float* alpha, const int* label,
     return reinterpret_cast<uintptr_t>(ptr) % 16 == 0;
   };
   // 128 threads for rows of up to 1024 slots, else 384.
-  BlockedArgs a{alpha,  label,       counts, w,        blocked_f,
+  BlockedArgs a{alpha,     label, counts,    w, w_stride, blocked_f,
                 blocked_b, rings, (int)rows, p, bz,
                 is16(alpha) && is16(label)};
   if (p <= 1024)
@@ -588,19 +604,25 @@ extern "C" int urf_flood_blocked(const float* alpha, const int* label,
   return (int)cudaGetLastError();
 }
 
-// label_out (rings, p) int32: LABEL_ROAD where the flood reaches a non-curb
-// slot, else label_in.  kf (361,) uint64, written whole (no pre-fill): per
-// bin, the smallest marker key of a non-road slot of a ring < num_rings,
-// kNoKey where there is none.  One launch; rings and p must be positive.
+// Over lanes scans of rings rings: alpha, label_in, label_out (lanes *
+// rings, p), counts and w (lanes * rings,), reach_f / reach_b (lanes *
+// rings, 362), num_rings (lanes,) int32.  label_out: LABEL_ROAD where the
+// flood reaches a non-curb slot, else label_in.  kf (lanes, 361) uint64,
+// written whole (no pre-fill): per lane and bin, the smallest marker key
+// (its ring counted within the lane) of a non-road slot of a ring <
+// num_rings[lane], kNoKey where there is none.  One launch; rings, p and
+// lanes must be positive.
 extern "C" int urf_flood_labeled(const float* alpha, const int* label_in,
                                  const int* counts, const float* w,
                                  const bool* reach_f, const bool* reach_b,
                                  const int* num_rings, int rings, int p,
-                                 const float* bz, int* label_out,
+                                 int lanes, const float* bz, int* label_out,
                                  unsigned long long* kf, void* stream) {
-  if (rings <= 0 || p <= 0) return (int)cudaErrorInvalidValue;
+  if (rings <= 0 || p <= 0 || lanes <= 0 || rings > 65535 || lanes > 65535)
+    return (int)cudaErrorInvalidValue;
   const int threads = labeled_threads(p);
-  const dim3 grid((p + threads * kSlots - 1) / (threads * kSlots), rings);
+  const dim3 grid((p + threads * kSlots - 1) / (threads * kSlots), rings,
+                  lanes);
   labeled_kernel<true><<<grid, threads, 0, (cudaStream_t)stream>>>(
       alpha, label_in, counts, w, reach_f, reach_b, num_rings, p, bz,
       label_out, kf, nullptr);

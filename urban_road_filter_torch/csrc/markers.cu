@@ -68,6 +68,13 @@
 //   k & 0xffff) and writes the row [exists, x, y, z, red, bin].  (A warp
 //   rather than one thread per bin: the merge reads G / 32 partials per
 //   lane instead of G in a row.)
+//   A batch of scans (lanes) is one launch: each lane's rows are cut into
+//   parts = min(rings, co-resident blocks / lanes) units (at least 1), a
+//   block runs its units one after the other (kf, partials and row counts
+//   per lane), the partials are per lane, and pass 2 has one warp per
+//   (lane, bin).  Keys count rings within their lane, so a lane's table
+//   equals a launch over that lane alone; at one lane the units are the
+//   single-scan grid's rows.
 //   On an H100 (tools/profile_ring_kernels.py) the launch takes 7.1-7.3 us
 //   at 64 x 4096, 64 x 2048 and 128 x 2048 alike, against a bound below
 //   1 us: fixed costs (launch, two shared-memory passes with their
@@ -176,17 +183,18 @@ constexpr int kMarkQuads = 4;  // quads per thread per chunk
 constexpr int kMarkChunk = kMarkThreads * kMarkQuads;  // quads per chunk
 
 struct MarkerArgs {
-  const float* field[3];  // x, y, z
+  const float* field[3];  // x, y, z; every layout array (lanes * rings, p)
   const float* alpha;
   const float* d2;
   const int* label;
-  const int* counts;
-  const int* num_rings;
-  const unsigned long long* kf;
-  unsigned long long* part_k;  // (361, grid) bin-major
-  unsigned int* part_d;        // (361, grid)
-  float* table;
-  int rings, p;
+  const int* counts;     // (lanes * rings,)
+  const int* num_rings;  // (lanes,)
+  const unsigned long long* kf;  // (lanes, 361)
+  unsigned long long* part_k;  // (lanes, 361, parts) bin-major per lane
+  unsigned int* part_d;        // (lanes, 361, parts)
+  float* table;                // (lanes, 361, 6)
+  int rings, p, lanes;
+  int parts;  // partial units per lane
   bool vec;  // alpha, d2 and label are 16-byte aligned
 };
 
@@ -210,108 +218,119 @@ __global__ void __launch_bounds__(kMarkThreads)
   __shared__ unsigned int s_d[kBins], s_prev[kBins];
   __shared__ int s_nr, s_cnt;
   const int tid = threadIdx.x;
-  for (int b = tid; b < kBins; b += kMarkThreads) {
-    s_kf[b] = a.kf[b];
-    s_key[b] = kNoKey;
-    s_d[b] = 0u;
-    s_prev[b] = 0u;
-  }
-  if (tid == 0) s_nr = min(*a.num_rings, a.rings);
-  __syncthreads();
-  const int nr = s_nr;
-  const size_t total = (size_t)a.rings * a.p;
+  const size_t total = (size_t)a.lanes * a.rings * a.p;
 
-  // Pass 1: this block's rows.
-  for (int r = blockIdx.x; r < nr; r += gridDim.x) {
-    __syncthreads();  // every thread has read the previous row's s_cnt
-    if (tid == 0) s_cnt = min(max(a.counts[r], 0), a.p);
+  // Pass 1: per unit (scan unit / parts, part j = unit % parts) of this
+  // block,
+  // the scan's rows j, j + parts, ...
+  for (int unit = blockIdx.x; unit < a.lanes * a.parts; unit += gridDim.x) {
+    const int scan = unit / a.parts;
+    __syncthreads();  // the previous unit's partials are written
+    for (int b = tid; b < kBins; b += kMarkThreads) {
+      s_kf[b] = a.kf[(size_t)scan * kBins + b];
+      s_key[b] = kNoKey;
+      s_d[b] = 0u;
+      s_prev[b] = 0u;
+    }
+    if (tid == 0) s_nr = min(a.num_rings[scan], a.rings);
     __syncthreads();
-    const int cnt = s_cnt;
-    const size_t row = (size_t)r * a.p;
-    // Quads of the flat arrays that hold slots [0, cnt) of this row.
-    const size_t q_lo = row / 4;
-    const int nq = cnt > 0 ? (int)((row + cnt - 1) / 4 - q_lo + 1) : 0;
-    for (int c = 0; c < nq; c += kMarkChunk) {
-      // All of the chunk's loads first, then the tests and the atomics.
-      float av[kMarkQuads][4], dv[kMarkQuads][4];
-      int lv[kMarkQuads][4];
+    const int nr = s_nr;
+    for (int r = unit % a.parts; r < nr; r += a.parts) {
+      __syncthreads();  // every thread has read the previous row's s_cnt
+      if (tid == 0)
+        s_cnt = min(max(a.counts[(size_t)scan * a.rings + r], 0), a.p);
+      __syncthreads();
+      const int cnt = s_cnt;
+      const size_t row = ((size_t)scan * a.rings + r) * a.p;
+      // Quads of the flat arrays that hold slots [0, cnt) of this row.
+      const size_t q_lo = row / 4;
+      const int nq = cnt > 0 ? (int)((row + cnt - 1) / 4 - q_lo + 1) : 0;
+      for (int c = 0; c < nq; c += kMarkChunk) {
+        // All of the chunk's loads first, then the tests and the atomics.
+        float av[kMarkQuads][4], dv[kMarkQuads][4];
+        int lv[kMarkQuads][4];
 #pragma unroll
-      for (int u = 0; u < kMarkQuads; ++u) {
-        const int qi = c + tid + u * kMarkThreads;
-        const size_t e = 4 * (q_lo + (size_t)qi);
-        if (qi < nq && a.vec && e + 4 <= total) {
-          const float4 a4 = __ldg(reinterpret_cast<const float4*>(a.alpha) +
+        for (int u = 0; u < kMarkQuads; ++u) {
+          const int qi = c + tid + u * kMarkThreads;
+          const size_t e = 4 * (q_lo + (size_t)qi);
+          if (qi < nq && a.vec && e + 4 <= total) {
+            const float4 a4 = __ldg(reinterpret_cast<const float4*>(a.alpha) +
+                                    e / 4);
+            const float4 d4 = __ldg(reinterpret_cast<const float4*>(a.d2) +
+                                    e / 4);
+            const int4 l4 = __ldg(reinterpret_cast<const int4*>(a.label) +
                                   e / 4);
-          const float4 d4 = __ldg(reinterpret_cast<const float4*>(a.d2) +
-                                  e / 4);
-          const int4 l4 = __ldg(reinterpret_cast<const int4*>(a.label) +
-                                e / 4);
-          av[u][0] = a4.x, av[u][1] = a4.y, av[u][2] = a4.z, av[u][3] = a4.w;
-          dv[u][0] = d4.x, dv[u][1] = d4.y, dv[u][2] = d4.z, dv[u][3] = d4.w;
-          lv[u][0] = l4.x, lv[u][1] = l4.y, lv[u][2] = l4.z, lv[u][3] = l4.w;
-        } else {
+            av[u][0] = a4.x, av[u][1] = a4.y, av[u][2] = a4.z, av[u][3] = a4.w;
+            dv[u][0] = d4.x, dv[u][1] = d4.y, dv[u][2] = d4.z, dv[u][3] = d4.w;
+            lv[u][0] = l4.x, lv[u][1] = l4.y, lv[u][2] = l4.z, lv[u][3] = l4.w;
+          } else {
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              const bool in = qi < nq && e + j >= row && e + j < row + cnt;
+              av[u][j] = in ? __ldg(a.alpha + e + j) : -1.0f;
+              dv[u][j] = in ? __ldg(a.d2 + e + j) : 0.0f;
+              lv[u][j] = in ? __ldg(a.label + e + j) : 0;
+            }
+          }
+        }
+        unsigned int cand = 0u;  // bit 4u + j: element j of quad u
+#pragma unroll
+        for (int u = 0; u < kMarkQuads; ++u) {
+          const int qi = c + tid + u * kMarkThreads;
+          const size_t e = 4 * (q_lo + (size_t)qi);
 #pragma unroll
           for (int j = 0; j < 4; ++j) {
-            const bool in = qi < nq && e + j >= row && e + j < row + cnt;
-            av[u][j] = in ? __ldg(a.alpha + e + j) : -1.0f;
-            dv[u][j] = in ? __ldg(a.d2 + e + j) : 0.0f;
-            lv[u][j] = in ? __ldg(a.label + e + j) : 0;
+            const long long s = (long long)(e + j) - (long long)row;
+            if (qi < nq && s >= 0 && s < cnt &&
+                marker_cand(av[u][j], dv[u][j], lv[u][j], r, (int)s, s_kf)) {
+              cand |= 1u << (4 * u + j);
+              atomicMax(&s_d[(int)floorf(av[u][j])],
+                        __float_as_uint(dv[u][j]));
+            }
           }
         }
-      }
-      unsigned int cand = 0u;  // bit 4u + j: element j of quad u
+        __syncthreads();
+        for (int b = tid; b < kBins; b += kMarkThreads)
+          if (s_d[b] != s_prev[b]) {  // the max rose: its old key is stale
+            s_prev[b] = s_d[b];
+            s_key[b] = kNoKey;
+          }
+        __syncthreads();
 #pragma unroll
-      for (int u = 0; u < kMarkQuads; ++u) {
-        const int qi = c + tid + u * kMarkThreads;
-        const size_t e = 4 * (q_lo + (size_t)qi);
+        for (int u = 0; u < kMarkQuads; ++u) {
+          const size_t e = 4 * (q_lo + (size_t)(c + tid + u * kMarkThreads));
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const long long s = (long long)(e + j) - (long long)row;
-          if (qi < nq && s >= 0 && s < cnt &&
-              marker_cand(av[u][j], dv[u][j], lv[u][j], r, (int)s, s_kf)) {
-            cand |= 1u << (4 * u + j);
-            atomicMax(&s_d[(int)floorf(av[u][j])],
-                      __float_as_uint(dv[u][j]));
+          for (int j = 0; j < 4; ++j) {
+            if (!(cand >> (4 * u + j) & 1u)) continue;
+            const int bin = (int)floorf(av[u][j]);
+            if (__float_as_uint(dv[u][j]) == s_d[bin])
+              atomicMin(&s_key[bin],
+                        marker_key(r, av[u][j], (int)(e + j - row)));
           }
         }
+        __syncthreads();
       }
-      __syncthreads();
-      for (int b = tid; b < kBins; b += kMarkThreads)
-        if (s_d[b] != s_prev[b]) {  // the max rose: its old key is stale
-          s_prev[b] = s_d[b];
-          s_key[b] = kNoKey;
-        }
-      __syncthreads();
-#pragma unroll
-      for (int u = 0; u < kMarkQuads; ++u) {
-        const size_t e = 4 * (q_lo + (size_t)(c + tid + u * kMarkThreads));
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          if (!(cand >> (4 * u + j) & 1u)) continue;
-          const int bin = (int)floorf(av[u][j]);
-          if (__float_as_uint(dv[u][j]) == s_d[bin])
-            atomicMin(&s_key[bin],
-                      marker_key(r, av[u][j], (int)(e + j - row)));
-        }
-      }
-      __syncthreads();
     }
-  }
-  for (int b = tid; b < kBins; b += kMarkThreads) {
-    a.part_d[(size_t)b * gridDim.x + blockIdx.x] = s_d[b];
-    a.part_k[(size_t)b * gridDim.x + blockIdx.x] = s_key[b];
+    for (int b = tid; b < kBins; b += kMarkThreads) {
+      const size_t at = ((size_t)scan * kBins + b) * a.parts + unit % a.parts;
+      a.part_d[at] = s_d[b];
+      a.part_k[at] = s_key[b];
+    }
   }
   cooperative_groups::this_grid().sync();
 
-  // Pass 2: one warp per bin merges the partials and writes the row.
+  // Pass 2: one warp per (scan, bin) merges the partials and writes the
+  // row.
   const int lane = tid & 31;
   const int nwarps = gridDim.x * (kMarkThreads / 32);
-  for (int b = (blockIdx.x * kMarkThreads + tid) >> 5; b < kBins;
-       b += nwarps) {
+  for (int sb = (blockIdx.x * kMarkThreads + tid) >> 5; sb < a.lanes * kBins;
+       sb += nwarps) {
+    const int b = sb % kBins;
+    const size_t scan = sb / kBins;
     unsigned int bd = 0u;
     unsigned long long bk = kNoKey;
-    for (int g = lane; g < (int)gridDim.x; g += 32) {
-      const size_t at = (size_t)b * gridDim.x + g;
+    for (int g = lane; g < a.parts; g += 32) {
+      const size_t at = (size_t)sb * a.parts + g;
       const unsigned int d = __ldcg(a.part_d + at);
       const unsigned long long k = __ldcg(a.part_k + at);
       if (better(d, k, bd, bk)) {
@@ -336,13 +355,14 @@ __global__ void __launch_bounds__(kMarkThreads)
       const float* f = lane == 1 ? a.field[0]
                        : lane == 2 ? a.field[1] : a.field[2];
       if (exists)
-        v = f[(size_t)(bk >> 48) * a.p + (size_t)(bk & 0xffffULL)];
+        v = f[(scan * a.rings + (size_t)(bk >> 48)) * a.p +
+              (size_t)(bk & 0xffffULL)];
     } else if (lane == 4) {
-      v = s_kf[b] != kNoKey ? 1.0f : 0.0f;
+      v = a.kf[sb] != kNoKey ? 1.0f : 0.0f;
     } else {
       v = (float)b;
     }
-    if (lane < 6) a.table[(size_t)b * 6 + lane] = v;
+    if (lane < 6) a.table[(size_t)sb * 6 + lane] = v;
   }
 }
 
@@ -950,19 +970,24 @@ __global__ void __launch_bounds__(kStateThreads)
 
 }  // namespace
 
-// K10.  table (361, 6) f32: [exists, x, y, z, red, bin].  Layout arrays
-// are (rings, p) row-major; kf (361,) from urf_flood_labeled or
-// urf_marker_first_nonroad.  scratch: 12 * 361 * scratch_blocks bytes,
-// 8-byte aligned, uninitialised; the grid is min(rings, the co-resident
-// block count), at least 1, and must not exceed scratch_blocks.  One
-// cooperative launch; a refused launch returns its error.
+// K10, over lanes scans.  table (lanes, 361, 6) f32: [exists, x, y, z,
+// red, bin].  Layout arrays are (lanes * rings, p) row-major, ring r of
+// lane b at row b * rings + r; counts (lanes * rings,), num_rings (lanes,);
+// kf (lanes, 361) from urf_flood_labeled or urf_marker_first_nonroad.
+// scratch: 12 * 361 * lanes * scratch_blocks bytes, 8-byte aligned,
+// uninitialised.  Each lane gets parts = min(rings, co-resident blocks /
+// lanes) units (at least 1; at most scratch_blocks), the grid is
+// min(lanes * parts, co-resident blocks): at one lane, min(rings, the
+// co-resident block count).  One cooperative launch; a refused launch
+// returns its error.
 extern "C" int urf_marker_points(const float* x, const float* y,
                                  const float* z, const float* alpha,
                                  const float* d2, const int* label,
                                  const int* counts, const int* num_rings,
                                  const unsigned long long* kf, int rings,
-                                 int p, void* scratch, int scratch_blocks,
-                                 float* table, void* stream) {
+                                 int p, int lanes, void* scratch,
+                                 int scratch_blocks, float* table,
+                                 void* stream) {
   constexpr int kMaxDevices = 64;
   static int resident[kMaxDevices];  // co-resident blocks, per device
   int dev = 0;
@@ -978,8 +1003,13 @@ extern "C" int urf_marker_points(const float* x, const float* y,
     if (err != cudaSuccess) return (int)err;
     resident[dev] = per_sm * sms;
   }
-  const int grid = max(1, min(rings, resident[dev]));
-  if (grid > scratch_blocks || rings < 0 || p < 0)
+  if (rings < 0 || p < 0 || lanes < 1 || resident[dev] < 1)
+    return (int)cudaErrorInvalidValue;
+  const int parts =
+      max(1, resident[dev] >= lanes ? min(rings, resident[dev] / lanes) : 1);
+  const long long units = (long long)lanes * parts;
+  const int grid = (int)min(units, (long long)resident[dev]);
+  if (parts > scratch_blocks || units * kBins > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   auto is16 = [](const void* ptr) {
     return reinterpret_cast<uintptr_t>(ptr) % 16 == 0;
@@ -988,8 +1018,9 @@ extern "C" int urf_marker_points(const float* x, const float* y,
                static_cast<unsigned long long*>(scratch),
                reinterpret_cast<unsigned int*>(
                    static_cast<unsigned long long*>(scratch) +
-                   (size_t)kBins * grid),
-               table, rings, p, is16(alpha) && is16(d2) && is16(label)};
+                   (size_t)kBins * units),
+               table, rings, p, lanes, parts,
+               is16(alpha) && is16(d2) && is16(label)};
   void* args[] = {&a};
   err = cudaLaunchCooperativeKernel((const void*)marker_points_kernel,
                                     dim3(grid), dim3(kMarkThreads), args, 0,

@@ -21,23 +21,29 @@
 // plain version in ops/star.py sorts with torch.sort).  Radii from the
 // ingest kernel K1 are finite and >= +0 inside a beam.
 //
-// Design: one cooperative launch, grid min(360, co-resident blocks) of 256
-// threads, two phases split by one grid barrier, no global atomics and no
-// state kept between launches.
-//   1. Partition.  Block g takes the points grid-stride and owns the
-//      region [g * cap, (g + 1) * cap) of the scratch, cap >= its point
-//      count.  It counts its points per beam in shared memory (warp-
-//      aggregated with __match_any_sync), lays its beams out one after the
-//      other in its region (an exclusive prefix of the counts), publishes
-//      each beam's run (start, count) in row g of the (grid, 360) run
-//      table, and scatters each beam point's 64-bit key (order(r) << 32 |
-//      index) and its (r, z) to its run (a shared cursor per beam).  The
-//      order inside a run is arbitrary; the keys are unique, and sorting
-//      them gives exactly the stable (radius, input order) order.  order()
-//      maps the float's bits to an unsigned int that orders like
-//      torch.sort.
-//   2. Walk.  One block per beam (grid-stride over beams) reads its column
-//      of the run table (one load per run, a block scan of the counts), so
+// Design: one cooperative launch over a batch of lanes (one scan each; in
+// the code below a lane of a warp keeps the name lane, a lane of the batch
+// is a scan), grid
+// min(lanes * 360, co-resident blocks) of 256 threads, two phases split by
+// one grid barrier, no global atomics and no state kept between launches.
+// Each lane is cut into P parts (P = min(360, co-resident blocks / lanes),
+// at least 1), and a partition unit is one (lane, part) pair.
+//   1. Partition.  Block g takes the units g, g + grid, ...; for unit u
+//      (lane l, part j) it takes lane l's points j, j + P, ... (256 at a
+//      time) and owns the region [u * cap, (u + 1) * cap) of the scratch,
+//      cap >= its point count.  It counts its points per beam in shared
+//      memory (warp-aggregated with __match_any_sync), lays its beams out
+//      one after the other in its region (an exclusive prefix of the
+//      counts), publishes each beam's run (start, count) in row u of the
+//      (units, 360) run table, and scatters each beam point's 64-bit key
+//      (order(r) << 32 | index within the lane) and its (r, z) to its run
+//      (a shared cursor per beam).  The order inside a run is arbitrary;
+//      the keys are unique within a lane, and sorting them gives exactly
+//      the stable (radius, input order) order.  order() maps the float's
+//      bits to an unsigned int that orders like torch.sort.
+//   2. Walk.  One block per (lane, beam) pair (grid-stride over the lanes *
+//      360 pairs) reads its lane's P runs of the beam (one load per run, a
+//      block scan of the counts), so
 //      element e of the beam is found by a bisection over the runs.  It
 //      selects up to kChunk of the beam's smallest keys above the last one
 //      walked (all of them when the rest of the beam fits; otherwise the
@@ -47,6 +53,9 @@
 //      bitonic sort), and walks them.  The walk usually trips in its first
 //      few steps, so later chunks are rarely needed; no beam length is
 //      capped and nothing is read back by the host.
+// The result does not depend on the partition (the walk sees each beam's
+// keys sorted), so a lane's hits equal those of a launch over that lane
+// alone; at one lane the plan is the single-scan one (P = grid).
 // Buckets that are contiguous per beam would need the beam lengths of all
 // blocks first: global counters that every block reads back, and a second
 // grid barrier.  Per-block regions need neither; a beam's walk pays for
@@ -96,20 +105,22 @@ constexpr int kBeamsPerLane = (kBeams + 31) / 32;  // beams per lane, prefix
 constexpr int kRunsPerThread = (kBeams + kThreads - 1) / kThreads;
 
 struct StarArgs {
-  const int* fk;
-  const float* r;
+  const int* fk;  // (lanes, n), contiguous
+  const float* r;  // (lanes, n), contiguous
   const float* z;
-  long long z_stride;
-  int n;
+  long long z_stride, z_lane_stride;
+  int n, lanes;
+  int parts;  // partition units per lane
+  int units;  // lanes * parts
   // The walk's thresholds in device memory (float32; dmin int32), read by
   // each block as it starts.
   const float *slope_param, *kdev, *kdist;
   const int* dmin;
-  int cap;                   // scratch entries per block
-  unsigned long long* keys;  // (grid * cap,) scratch
-  float2* rz;                // (grid * cap,) scratch
-  int2* runs;                // (grid, 360) scratch: (start, count)
-  int* hp;                   // (360,)
+  int cap;                   // scratch entries per unit
+  unsigned long long* keys;  // (units * cap,) scratch
+  float2* rz;                // (units * cap,) scratch
+  int2* runs;                // (units, 360) scratch: (start, count)
+  int* hp;                   // (lanes, 360)
 };
 
 // Unsigned image of a float that orders like torch.sort's ascending order:
@@ -247,82 +258,92 @@ __global__ void __launch_bounds__(kThreads) star_search_kernel(StarArgs a) {
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const unsigned lt = (1u << lane) - 1u;
-  const int stride = gridDim.x * kThreads;
-  const int region = blockIdx.x * a.cap;
+  const int stride = a.parts * kThreads;
 
-  // 1. Partition this block's points into its region, beam after beam.
-  for (int b = tid; b < kBeams; b += kThreads) {
-    s_cnt[b] = 0;
-    s_cur[b] = 0;
-  }
   if (tid == 0)
     s_wp = {__ldg(a.slope_param), __ldg(a.kdev), __ldg(a.kdist),
             __ldg(a.dmin)};
-  __syncthreads();
+  // 1. Partition each unit's points into its region, beam after beam.
+  for (int u = blockIdx.x; u < a.units; u += gridDim.x) {
+    const int part = u % a.parts;
+    const size_t scan = (size_t)(u / a.parts);  // the unit's lane
+    const int* fk = a.fk + scan * a.n;
+    const float* rr = a.r + scan * a.n;
+    const float* zz = a.z + scan * a.z_lane_stride;
+    const int region = u * a.cap;
+    __syncthreads();  // the previous unit's s_loc and s_cur are consumed
+    for (int b = tid; b < kBeams; b += kThreads) {
+      s_cnt[b] = 0;
+      s_cur[b] = 0;
+    }
+    __syncthreads();
+    for (int base = part * kThreads; base < a.n; base += stride) {
+      const int i = base + tid;
+      const int f = i < a.n ? fk[i] : -1;
+      const bool in = f >= 0 && f < kBeams;
+      const unsigned same = __match_any_sync(~0u, in ? f : -1);
+      if (in && (same & lt) == 0) atomicAdd(&s_cnt[f], __popc(same));
+    }
+    __syncthreads();
+    if (warp == 0) {
+      int c[kBeamsPerLane];
+      int sum = 0;
+#pragma unroll
+      for (int k = 0; k < kBeamsPerLane; ++k) {
+        const int b = lane * kBeamsPerLane + k;
+        c[k] = b < kBeams ? s_cnt[b] : 0;
+        sum += c[k];
+      }
+      int incl = sum;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const int v = __shfl_up_sync(~0u, incl, o);
+        if (lane >= o) incl += v;
+      }
+      int run = incl - sum;
+#pragma unroll
+      for (int k = 0; k < kBeamsPerLane; ++k) {
+        const int b = lane * kBeamsPerLane + k;
+        if (b < kBeams) s_loc[b] = run;
+        run += c[k];
+      }
+    }
+    __syncthreads();
+    for (int b = tid; b < kBeams; b += kThreads)
+      a.runs[(size_t)u * kBeams + b] = make_int2(region + s_loc[b], s_cnt[b]);
+    for (int base = part * kThreads; base < a.n; base += stride) {
+      const int i = base + tid;
+      const int f = i < a.n ? fk[i] : -1;
+      const bool in = f >= 0 && f < kBeams;
+      const unsigned same = __match_any_sync(~0u, in ? f : -1);
+      const int leader = __ffs(same) - 1;
+      int slot = 0;
+      if (in && lane == leader) slot = atomicAdd(&s_cur[f], __popc(same));
+      slot = __shfl_sync(~0u, slot, leader);
+      if (in) {
+        const size_t at = (size_t)region + s_loc[f] + slot + __popc(same & lt);
+        const float r = rr[i];
+        a.keys[at] = ((unsigned long long)order_bits(r) << 32) | (unsigned)i;
+        a.rz[at] = make_float2(r, zz[(size_t)i * a.z_stride]);
+      }
+    }
+  }
+  __syncthreads();  // s_wp is written (a block without a unit)
   const WalkParams wp = s_wp;
-  for (int base = blockIdx.x * kThreads; base < a.n; base += stride) {
-    const int i = base + tid;
-    const int f = i < a.n ? a.fk[i] : -1;
-    const bool in = f >= 0 && f < kBeams;
-    const unsigned same = __match_any_sync(~0u, in ? f : -1);
-    if (in && (same & lt) == 0) atomicAdd(&s_cnt[f], __popc(same));
-  }
-  __syncthreads();
-  if (warp == 0) {
-    int c[kBeamsPerLane];
-    int sum = 0;
-#pragma unroll
-    for (int k = 0; k < kBeamsPerLane; ++k) {
-      const int b = lane * kBeamsPerLane + k;
-      c[k] = b < kBeams ? s_cnt[b] : 0;
-      sum += c[k];
-    }
-    int incl = sum;
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const int u = __shfl_up_sync(~0u, incl, o);
-      if (lane >= o) incl += u;
-    }
-    int run = incl - sum;
-#pragma unroll
-    for (int k = 0; k < kBeamsPerLane; ++k) {
-      const int b = lane * kBeamsPerLane + k;
-      if (b < kBeams) s_loc[b] = run;
-      run += c[k];
-    }
-  }
-  __syncthreads();
-  for (int b = tid; b < kBeams; b += kThreads)
-    a.runs[(size_t)blockIdx.x * kBeams + b] =
-        make_int2(region + s_loc[b], s_cnt[b]);
-  for (int base = blockIdx.x * kThreads; base < a.n; base += stride) {
-    const int i = base + tid;
-    const int f = i < a.n ? a.fk[i] : -1;
-    const bool in = f >= 0 && f < kBeams;
-    const unsigned same = __match_any_sync(~0u, in ? f : -1);
-    const int leader = __ffs(same) - 1;
-    int slot = 0;
-    if (in && lane == leader) slot = atomicAdd(&s_cur[f], __popc(same));
-    slot = __shfl_sync(~0u, slot, leader);
-    if (in) {
-      const size_t at = (size_t)region + s_loc[f] + slot + __popc(same & lt);
-      const float r = a.r[i];
-      a.keys[at] = ((unsigned long long)order_bits(r) << 32) | (unsigned)i;
-      a.rz[at] = make_float2(r, a.z[(size_t)i * a.z_stride]);
-    }
-  }
   cooperative_groups::this_grid().sync();
 
-  // 2. Walk each beam.
-  const int nruns = gridDim.x;
-  for (int b = blockIdx.x; b < kBeams; b += gridDim.x) {
-    // The beam's runs (column b of the run table) and their offsets.
+  // 2. Walk each (lane, beam) pair.
+  const int nruns = a.parts;
+  for (int q = blockIdx.x; q < a.lanes * kBeams; q += gridDim.x) {
+    const int b = q % kBeams;
+    const size_t run0 = (size_t)(q / kBeams) * a.parts;  // the lane's units
+    // The beam's runs (column b of the lane's rows) and their offsets.
     int cnt[kRunsPerThread];
     int mine = 0;
 #pragma unroll
     for (int k = 0; k < kRunsPerThread; ++k) {
       const int j = tid * kRunsPerThread + k;
-      const int2 run = j < nruns ? __ldcg(&a.runs[(size_t)j * kBeams + b])
+      const int2 run = j < nruns ? __ldcg(&a.runs[(run0 + j) * kBeams + b])
                                  : make_int2(0, 0);
       if (j < nruns) s_run[j] = run;
       cnt[k] = run.y;
@@ -438,7 +459,7 @@ __global__ void __launch_bounds__(kThreads) star_search_kernel(StarArgs a) {
       walked += m;
       __syncthreads();  // srt is rewritten by the next pass
     }
-    if (tid == 0) a.hp[b] = hit;
+    if (tid == 0) a.hp[q] = hit;
   }
 }
 
@@ -463,38 +484,70 @@ int resident_blocks(int* out) {
   return 0;
 }
 
+// The launch's plan for lanes x n points: grid, parts per lane, scratch
+// entries per unit, and the scratch bytes (keys and (r, z) of every unit's
+// region, then the (units, 360) run table).
+struct StarPlan {
+  int grid, parts, cap;
+  long long units, bytes;
+};
+
+int star_plan(int lanes, int n, StarPlan* out) {
+  if (n < 0 || n >= (1 << 24) || lanes < 1) return (int)cudaErrorInvalidValue;
+  int resident = 0;
+  const int err = resident_blocks(&resident);
+  if (err != 0) return err;
+  if (resident < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
+  const int parts = resident >= lanes ? min(kBeams, resident / lanes) : 1;
+  const long long units = (long long)lanes * parts;
+  const int per = (n + parts * kThreads - 1) / (parts * kThreads);
+  const int cap = per * kThreads;
+  // Run starts are int: every region must start below 2^31.
+  if (units * cap >= 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const int grid = (int)min((long long)lanes * kBeams, (long long)resident);
+  *out = {grid, parts, cap, units,
+          units * cap * 16 + units * kBeams * (long long)sizeof(int2)};
+  return 0;
+}
+
 }  // namespace
 
-// fk (n,) int32, r (n,) f32 (contiguous), z (n,) f32 with element stride
-// z_stride; scratch: (n + 360 * 256) * 16 + 360 * 360 * 8 bytes (at most
-// 360 blocks, each with a region of a multiple of 256 entries of a key and
-// (r, z), and the (grid, 360) run table), 16-byte aligned, uninitialised;
-// hp (360,) int32, written in full; slope_param, kdev, kdist (float32) and
-// dmin (int32): one value each in device memory.  n < 2^24.  One
-// cooperative launch; a refused launch returns its error.
+// The scratch bytes urf_star_search needs for lanes x n points on the
+// current device.
+extern "C" int urf_star_scratch_bytes(int lanes, int n, long long* bytes) {
+  StarPlan plan;
+  const int err = star_plan(lanes, n, &plan);
+  if (err != 0) return err;
+  *bytes = plan.bytes;
+  return 0;
+}
+
+// fk (lanes, n) int32 and r (lanes, n) f32, contiguous; z (lanes, n) f32
+// with element stride z_stride and lane stride z_lane_stride; scratch:
+// urf_star_scratch_bytes(lanes, n) bytes, 16-byte aligned, uninitialised;
+// hp (lanes, 360) int32, written in full; slope_param, kdev, kdist
+// (float32) and dmin (int32): one value each in device memory.  n < 2^24.
+// One cooperative launch; a refused launch returns its error.
 extern "C" int urf_star_search(const int* fk, const float* r, const float* z,
-                               long long z_stride, int n,
-                               const float* slope_param, const float* kdev,
-                               const float* kdist, const int* dmin,
-                               void* scratch, int* hp, void* stream) {
-  if (n < 0 || n >= (1 << 24)) return (int)cudaErrorInvalidValue;
-  int resident = 0;
-  const int err0 = resident_blocks(&resident);
+                               long long z_stride, long long z_lane_stride,
+                               int n, int lanes, const float* slope_param,
+                               const float* kdev, const float* kdist,
+                               const int* dmin, void* scratch, int* hp,
+                               void* stream) {
+  StarPlan plan;
+  const int err0 = star_plan(lanes, n, &plan);
   if (err0 != 0) return err0;
-  const int grid = min(kBeams, resident);
-  if (grid < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
-  const int per = (n + grid * kThreads - 1) / (grid * kThreads);
-  const int cap = per * kThreads;
-  const long long entries = (long long)grid * cap;
+  const long long entries = plan.units * plan.cap;
   unsigned long long* keys = static_cast<unsigned long long*>(scratch);
   float2* rz = reinterpret_cast<float2*>(keys + entries);
   int2* runs = reinterpret_cast<int2*>(rz + entries);
-  StarArgs a{fk, r, z, z_stride, n, slope_param, kdev, kdist, dmin, cap,
+  StarArgs a{fk, r, z, z_stride, z_lane_stride, n, lanes, plan.parts,
+             (int)plan.units, slope_param, kdev, kdist, dmin, plan.cap,
              keys, rz, runs, hp};
   void* args[] = {&a};
   cudaError_t err = cudaLaunchCooperativeKernel(
-      (const void*)star_search_kernel, dim3(grid), dim3(kThreads), args, 0,
-      (cudaStream_t)stream);
+      (const void*)star_search_kernel, dim3(plan.grid), dim3(kThreads), args,
+      0, (cudaStream_t)stream);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

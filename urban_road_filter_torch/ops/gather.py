@@ -59,14 +59,26 @@ def gather_pack_batch_plain(tables, ids, pos, valid, ok,
     return tuple(torch.stack(f) for f in zip(*lanes))
 
 
-def _launch(tables, pos, r, p, ids, valid, ok, prr, n, outs) -> None:
-    """One K11 launch over len(tables) <= LANES lanes: ids, valid, ok and
-    outs have them on their leading axis (none for a single scan)."""
-    lanes = len(tables)
+def _pointers(ts, lo: int, hi: int):
+    """ctypes array of the device pointers of lanes lo..hi-1 of ts: a
+    tensor with the lanes leading (its rows by stride, no view made) or a
+    sequence of tensors."""
+    if isinstance(ts, torch.Tensor):
+        step = ts.stride(0) * ts.element_size()
+        at = [ts.data_ptr() + k * step for k in range(lo, hi)]
+    else:
+        at = [t.data_ptr() for t in ts[lo:hi]]
+    return (ctypes.c_void_p * (hi - lo))(*at)
+
+
+def _launch(tables, pos, lo, hi, r, p, ids, valid, ok, prr, n,
+            outs) -> None:
+    """One K11 launch over lanes lo..hi-1 of tables and pos (hi - lo <=
+    LANES): ids, valid, ok and outs have them on their leading axis (none
+    for a single scan)."""
     _build.launch("gather_pack", "urf_gather_pack", ids.device,
-                  (ctypes.c_void_p * lanes)(*(t.data_ptr() for t in tables)),
-                  (ctypes.c_void_p * lanes)(*(q.data_ptr() for q in pos)),
-                  lanes, r, p, _build.ptr(ids), _build.ptr(valid),
+                  _pointers(tables, lo, hi), _pointers(pos, lo, hi),
+                  hi - lo, r, p, _build.ptr(ids), _build.ptr(valid),
                   _build.ptr(ok), int(prr), n, *map(_build.ptr, outs))
 
 
@@ -77,11 +89,13 @@ def _outputs(shape, dev):
 
 def gather_pack_batch(tables, ids, pos, valid, ok, probably_road_ring: int):
     """(labels int8, roi bool, probably_road bool, packed uint8), each
-    (B, N), of B scans: tables, B separate (R, P) int32 label tables; pos,
-    B separate (N,) int32 slot vectors; ids: (B, N) int32 ring ids; valid:
-    (B, N) bool ROI masks; ok: (B,) bool scan gates (device flags: the host
-    never waits).  On the card one launch per LANES lanes; the tables and
-    slot vectors are not stacked or copied."""
+    (B, N), of B scans: tables, B (R, P) int32 label tables (a (B, R, P)
+    tensor, as the batch path's stages give them, or separate tensors);
+    pos, B (N,) int32 slot vectors (likewise (B, N)); ids: (B, N) int32
+    ring ids; valid: (B, N) bool ROI masks; ok: (B,) bool scan gates
+    (device flags: the host never waits).  On the card one launch per
+    LANES lanes, each lane's table and slots passed by pointer, never
+    stacked or copied."""
     b = len(tables)
     if len(pos) != b or b == 0:
         raise ValueError(f"expected one pos per table, got {len(pos)} for "
@@ -95,17 +109,24 @@ def gather_pack_batch(tables, ids, pos, valid, ok, probably_road_ring: int):
     _build.check(ids, "ids", I32, (b, n), dev)
     _build.check(valid, "valid", torch.bool, (b, n), dev)
     _build.check(ok, "ok", torch.bool, (b,), dev)
-    for k in range(b):
-        _build.check(tables[k], f"tables[{k}]", I32, (r, p), dev)
-        _build.check(pos[k], f"pos[{k}]", I32, (n,), dev)
+    if isinstance(tables, torch.Tensor):
+        _build.check(tables, "tables", I32, (b, r, p), dev)
+    else:
+        for k in range(b):
+            _build.check(tables[k], f"tables[{k}]", I32, (r, p), dev)
+    if isinstance(pos, torch.Tensor):
+        _build.check(pos, "pos", I32, (b, n), dev)
+    else:
+        for k in range(b):
+            _build.check(pos[k], f"pos[{k}]", I32, (n,), dev)
     out = _outputs((b, n), dev)
     for lo in range(0, b, LANES):
         hi = min(lo + LANES, b)
         lanes = (ids, valid, ok, *out)
         if b > LANES:
             lanes = tuple(t[lo:hi] for t in lanes)
-        _launch(tables[lo:hi], pos[lo:hi], r, p, *lanes[:3],
-                probably_road_ring, n, lanes[3:])
+        _launch(tables, pos, lo, hi, r, p, *lanes[:3], probably_road_ring,
+                n, lanes[3:])
     return out
 
 
@@ -125,6 +146,6 @@ def gather_pack(table, ids, pos, valid, ok, probably_road_ring: int):
     _build.check(valid, "valid", torch.bool, (n,), dev)
     _build.check(ok, "ok", torch.bool, (), dev)
     out = _outputs((n,), dev)
-    _launch((table,), (pos,), r, p, ids, valid, ok, probably_road_ring, n,
-            out)
+    _launch((table,), (pos,), 0, 1, r, p, ids, valid, ok,
+            probably_road_ring, n, out)
     return out

@@ -105,7 +105,9 @@ def azimuth_2d(x, y):
 
 
 class RingLayout(NamedTuple):
-    """Padded per-ring tensors, input order along the slot axis."""
+    """Padded per-ring tensors, input order along the slot axis; a batch of
+    scans has a leading lane axis on every field ((B, R, P) planes, (B, R)
+    counts, (B,) overflow)."""
 
     x: torch.Tensor  # (R, P) f32
     y: torch.Tensor
@@ -123,30 +125,46 @@ def tensorize(x, y, z, ring_id, ring_capacity: int, rings: int = CHANNELS):
     Returns (RingLayout, pos): pos[i] is point i's slot within its ring, so
     (ring_id, pos) addresses the layout and per-point results come back by
     gather (ops/gather.py).  Only x/y/z are placed; d2/alpha are recomputed
-    on the layout, labels start at 0 and pid is not carried (-1)."""
+    on the layout, labels start at 0 and pid is not carried (-1).  With a
+    leading lane axis (x, y, z, ring_id (B, N)) the layout and pos have it
+    too: one rank (K5) and one placement (K6) for the batch."""
     p = ring_capacity
+    lead = ring_id.shape[:-1]
     pos, counts_all = group_positions(ring_id, rings + 1)
-    counts = torch.clamp(counts_all[:rings], max=p)
+    counts = torch.clamp(counts_all[..., :rings], max=p)
     lx, ly, lz, overflow = group_place(ring_id, pos, counts_all, (x, y, z),
                                        rings, p)
     ld2, lalpha = azimuth_2d(lx, ly)
     layout = RingLayout(
         x=lx, y=ly, z=lz, d2=ld2, alpha=lalpha,
-        label=torch.zeros((rings, p), dtype=I32, device=x.device),
-        pid=torch.full((rings, p), -1, dtype=I32, device=x.device),
+        label=torch.zeros((*lead, rings, p), dtype=I32, device=x.device),
+        pid=torch.full((*lead, rings, p), -1, dtype=I32, device=x.device),
         counts=counts, overflow=overflow)
     return layout, pos
 
 
+def stacked_rows(layout: RingLayout) -> RingLayout:
+    """A (B, R, P) layout as the (B * R, P) stacked layout of the same
+    memory (views: a write into one is a write into the other), counts
+    (B * R,); a (R, P) layout as it is."""
+    if layout.x.ndim == 2:
+        return layout
+    p = layout.x.shape[-1]
+    planes = {f: getattr(layout, f).view(-1, p)
+              for f in ("x", "y", "z", "d2", "alpha", "label", "pid")}
+    return layout._replace(counts=layout.counts.view(-1), **planes)
+
+
 def _slot_valid(layout: RingLayout) -> torch.Tensor:
-    p = layout.x.shape[1]
+    p = layout.x.shape[-1]
     slot = torch.arange(p, device=layout.x.device)
-    return slot[None, :] < layout.counts[:, None]
+    return slot < layout.counts[..., None]
 
 
 def max_distance(layout: RingLayout) -> torch.Tensor:
     """Per-ring max 2-D radius (lidar_segmentation.cpp:271-274); 0 if empty."""
-    return torch.amax(torch.where(_slot_valid(layout), layout.d2, 0.0), dim=1)
+    return torch.amax(torch.where(_slot_valid(layout), layout.d2, 0.0),
+                      dim=-1)
 
 
 def sort_by_azimuth(layout: RingLayout, carry_pid: bool = False) -> RingLayout:

@@ -24,11 +24,15 @@ input order, as the reference's stable sort does), so per bin:
 A CUDA layout goes through the hand-written kernel csrc/markers.cu (one
 cooperative launch: per-block partials of (maxd, winner key) per bin, a
 grid barrier, then a merge that keeps the larger d and, at equal d, the
-smaller key); a CPU layout through the plain twin below
-(``scatter_reduce`` over the bins).
+smaller key; a batch's (B, R, P) layout is one launch, partials and merge
+per lane, a lane's key counting rings within the lane); a CPU layout
+through the plain twin below (``scatter_reduce`` over the bins, per
+lane).
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -43,9 +47,10 @@ I64 = torch.int64
 
 
 def marker_keys(alpha: torch.Tensor) -> torch.Tensor:
-    """(R, P) int64 scan-order keys (ring << 48 | bits(alpha) << 16 |
-    slot); meaningful where 0 <= alpha <= 360."""
-    r, p = alpha.shape
+    """(..., R, P) int64 scan-order keys (ring << 48 | bits(alpha) << 16 |
+    slot), the ring counted within its lane; meaningful where 0 <= alpha
+    <= 360."""
+    r, p = alpha.shape[-2:]
     dev = alpha.device
     bits = (alpha + 0.0).view(I32).to(I64) & 0xFFFFFFFF  # -0.0 -> +0.0
     ring = torch.arange(r, dtype=I64, device=dev)[:, None] << 48
@@ -56,31 +61,42 @@ def _bins(layout: RingLayout, num_rings):
     """(a_ok, bin_of): slots with a valid azimuth on an active ring, and
     each slot's bin (N_BINS, the dump bin, where not a_ok)."""
     alpha, counts = layout.alpha, layout.counts
-    r, p = alpha.shape
+    r, p = alpha.shape[-2:]
     dev = alpha.device
-    valid = (torch.arange(p, device=dev)[None, :] < counts[:, None]) & (
-        torch.arange(r, device=dev)[:, None] < num_rings)
+    num_rings = torch.as_tensor(num_rings, device=dev)
+    valid = (torch.arange(p, device=dev) < counts[..., None]) & (
+        torch.arange(r, device=dev)[:, None] < num_rings[..., None, None])
     a_ok = valid & (alpha >= 0) & (alpha <= 360.0)
     bin_of = torch.where(a_ok, torch.floor(alpha).to(I64), N_BINS)
     return a_ok, bin_of
 
 
 def _reduce(mask, bin_of, src, how: str, init):
-    """Per-bin reduction of src over mask, (N_BINS + 1,) with the dump bin
-    last."""
-    out = torch.full((N_BINS + 1,), init, dtype=src.dtype, device=src.device)
-    idx = torch.where(mask, bin_of, N_BINS).reshape(-1)
-    return out.scatter_reduce_(0, idx, src.reshape(-1), how)
+    """Per-bin reduction of (..., R, P) src over mask, (..., N_BINS + 1)
+    with the dump bin last."""
+    lead = src.shape[:-2]
+    out = torch.full((*lead, N_BINS + 1), init, dtype=src.dtype,
+                     device=src.device)
+    idx = torch.where(mask, bin_of, N_BINS).reshape(*lead, -1)
+    return out.scatter_reduce_(-1, idx, src.reshape(*lead, -1), how)
+
+
+def _at_bins(table, bin_of):
+    """table[..., bin_of]: each slot's entry of its lane's (..., N_BINS + 1)
+    per-bin table."""
+    lead = bin_of.shape[:-2]
+    return torch.gather(table, -1, bin_of.reshape(*lead, -1)).view(
+        bin_of.shape)
 
 
 def first_nonroad_keys(layout: RingLayout, num_rings) -> torch.Tensor:
     """(361,) int64 kf: per bin, the key of the first non-road point in
     scan order, NO_KEY where the bin has none (the plain twin of K13 and of
-    the marker pass fused into K9)."""
+    the marker pass fused into K9); (B, 361) for a batch's layout."""
     a_ok, bin_of = _bins(layout, num_rings)
     nonroad = a_ok & (layout.label != LABEL_ROAD)
     return _reduce(nonroad, bin_of, marker_keys(layout.alpha), "amin",
-                   NO_KEY)[:N_BINS]
+                   NO_KEY)[..., :N_BINS]
 
 
 def marker_first_nonroad(layout: RingLayout,
@@ -93,6 +109,9 @@ def marker_first_nonroad(layout: RingLayout,
     _build.TICKETED)."""
     if _build.on_cpu(layout.alpha):
         return first_nonroad_keys(layout, num_rings)
+    if layout.alpha.ndim != 2:
+        raise ValueError("marker_first_nonroad (K13) takes one scan's "
+                         "(R, P) layout")
     r, p = layout.alpha.shape
     dev = layout.alpha.device
     _build.check_marker_dims(r, p)
@@ -112,22 +131,27 @@ def marker_points_plain(layout: RingLayout, num_rings, kf) -> torch.Tensor:
     a_ok, bin_of = _bins(layout, num_rings)
     key = marker_keys(layout.alpha)
     d = layout.d2
-    no = torch.full((1,), NO_KEY, dtype=I64, device=kf.device)
+    lead = d.shape[:-2]
+    p = d.shape[-1]
+    no = torch.full((*lead, 1), NO_KEY, dtype=I64, device=kf.device)
     cand = ((layout.label == LABEL_ROAD) & a_ok & (d > 0)
-            & (key < torch.cat([kf, no])[bin_of]))
+            & (key < _at_bins(torch.cat([kf, no], -1), bin_of)))
     maxd = _reduce(cand, bin_of, d, "amax", 0.0)
-    winner = cand & (d == maxd[bin_of])
-    wkey = _reduce(winner, bin_of, key, "amin", NO_KEY)[:N_BINS]
-    exists = maxd[:N_BINS] > 0
+    winner = cand & (d == _at_bins(maxd, bin_of))
+    wkey = _reduce(winner, bin_of, key, "amin", NO_KEY)[..., :N_BINS]
+    exists = maxd[..., :N_BINS] > 0
     ring = torch.where(exists, wkey >> 48, 0)
     slot = torch.where(exists, wkey & 0xFFFF, 0)
 
-    def pick(a):
-        return torch.where(exists, a[ring, slot], 0.0)
+    def pick(a):  # a[ring, slot] of each lane
+        return torch.where(exists, torch.gather(
+            a.reshape(*lead, -1), -1, ring * p + slot), 0.0)
 
-    bins = torch.arange(N_BINS, dtype=F32, device=d.device)
+    bins = torch.arange(N_BINS, dtype=F32, device=d.device).expand(
+        exists.shape)
     return torch.stack([exists.to(F32), pick(layout.x), pick(layout.y),
-                        pick(layout.z), (kf != NO_KEY).to(F32), bins], dim=1)
+                        pick(layout.z), (kf != NO_KEY).to(F32), bins],
+                       dim=-1)
 
 
 def marker_points(layout: RingLayout, num_rings: torch.Tensor,
@@ -135,30 +159,34 @@ def marker_points(layout: RingLayout, num_rings: torch.Tensor,
     """Dense (361, 6) table [exists, x, y, z, red, bin] from the unsorted
     (tensorize-order) layout after the flood fill.  num_rings: 0-d int32;
     kf: (361,) int64 from ops.blind_spots.blind_spots, or None to compute
-    it here (K13, the JAX marker_points_unsorted_pallas(kf=None))."""
+    it here (K13, the JAX marker_points_unsorted_pallas(kf=None); one
+    scan).  With a leading lane axis (layout (B, R, P), num_rings (B,), kf
+    (B, 361)): (B, 361, 6), lane b the table of lane b, from one launch."""
     if kf is None:
         kf = marker_first_nonroad(layout, num_rings)
     if _build.on_cpu(layout.alpha):
         return marker_points_plain(layout, num_rings, kf)
-    r, p = layout.alpha.shape
+    *lead, r, p = layout.alpha.shape
+    lanes = math.prod(lead)
     dev = layout.alpha.device
     _build.check_marker_dims(r, p)
     for name in ("x", "y", "z", "alpha", "d2"):
-        _build.check(getattr(layout, name), name, F32, (r, p), dev)
-    _build.check(layout.label, "label", I32, (r, p), dev)
-    _build.check(layout.counts, "counts", I32, (r,), dev)
-    _build.check(num_rings, "num_rings", I32, (), dev)
-    _build.check(kf, "kf", I64, (N_BINS,), dev)
-    # Per-block partials: (361, blocks) uint64 keys then uint32 distances,
-    # every entry written by the kernel, which runs at most max(r, 1)
-    # blocks.
+        _build.check(getattr(layout, name), name, F32, (*lead, r, p), dev)
+    _build.check(layout.label, "label", I32, (*lead, r, p), dev)
+    _build.check(layout.counts, "counts", I32, (*lead, r), dev)
+    _build.check(num_rings, "num_rings", I32, tuple(lead), dev)
+    _build.check(kf, "kf", I64, (*lead, N_BINS), dev)
+    # Per-lane partials: (lanes, 361, parts) uint64 keys then uint32
+    # distances, every entry written by the kernel, which cuts a lane into
+    # at most max(r, 1) parts.
     blocks = max(r, 1)
-    scratch = torch.empty((3 * N_BINS * blocks,), dtype=I32, device=dev)
-    table = torch.empty((N_BINS, 6), dtype=F32, device=dev)
+    scratch = torch.empty((3 * N_BINS * lanes * blocks,), dtype=I32,
+                          device=dev)
+    table = torch.empty((*lead, N_BINS, 6), dtype=F32, device=dev)
     _build.launch("marker_points", "urf_marker_points", dev,
                   *(_build.ptr(getattr(layout, f)) for f in
                     ("x", "y", "z", "alpha", "d2", "label", "counts")),
-                  _build.ptr(num_rings), _build.ptr(kf), r, p,
+                  _build.ptr(num_rings), _build.ptr(kf), r, p, lanes,
                   _build.ptr(scratch), blocks, _build.ptr(table))
     return table
 

@@ -9,7 +9,9 @@ scatter (``star_labels``).
 
 On the card the whole search is one kernel from the unsorted keys (K4,
 ``star_search``, csrc/star.cu: partition by beam without a sort, sort each
-beam's bucket in shared memory, walk).  Its plain version is the JAX
+beam's bucket in shared memory, walk), over one scan or a batch of scans
+(a leading lane axis: one launch, each lane's hits its own, as the JAX
+package's batch runs the search under vmap).  Its plain version is the JAX
 package's form: one stable (beam, radius, input order) sort of the streams
 (``beam_streams``) and the walk along each beam's segment
 (``star_walk_plain``); it is the CPU path and the kernel's yardstick.
@@ -25,6 +27,8 @@ the oracle compute it.
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import math
 
 import numpy as np
@@ -66,16 +70,18 @@ def _rect(x, y, f):
 
 
 def _star_keys(x, y, z, valid, cfg: FilterConfig, keys=None):
-    """(fk, r_key) of one scan: ``keys`` from the ingest kernel K1
-    (ops.ingest.ingest_prep), which already sends the points outside the ROI
-    to the sink, or, without it, K1 run here on the scan with the points
-    outside ``valid`` sent to the sink; then, with cfg.starbeam_filter, the
-    points outside their beam's rectangle sent to the sink too (PyTorch
-    glue)."""
+    """(fk, r_key) of one scan ((N,) streams) or a batch ((B, N)): ``keys``
+    from the ingest kernel K1 (ops.ingest.ingest_prep), which already sends
+    the points outside the ROI to the sink, or, without it, K1 run here on
+    the scans with the points outside ``valid`` sent to the sink; then,
+    with cfg.starbeam_filter, the points outside their beam's rectangle
+    sent to the sink too (PyTorch glue)."""
     if keys is None:
-        _, fk, r_key, _ = ingest_prep(x[None], y[None], z[None], cfg)
-        fk = torch.where(valid, fk[0], STAR_REP)
-        r_key = torch.where(valid, r_key[0], math.inf)
+        one = x.ndim == 1
+        _, fk, r_key, _ = ingest_prep(
+            *(t[None] if one else t for t in (x, y, z)), cfg)
+        fk = torch.where(valid, fk[0] if one else fk, STAR_REP)
+        r_key = torch.where(valid, r_key[0] if one else r_key, math.inf)
     else:
         fk, r_key = keys
     if cfg.starbeam_filter:
@@ -151,8 +157,27 @@ def star_walk_plain(fk_s, r_s, z_s, pid_s, cfg: FilterConfig):
 
 
 def star_search_plain(fk, r_key, z, cfg: FilterConfig) -> torch.Tensor:
-    """The plain version of K4: beam_order, then star_walk_plain."""
+    """The plain version of K4: beam_order, then star_walk_plain, per
+    lane of a batch."""
+    if fk.ndim == 2:
+        return torch.stack([star_search_plain(*lane, cfg)
+                            for lane in zip(fk, r_key, z)])
     return star_walk_plain(*beam_order(fk, r_key, z), cfg)
+
+
+@functools.lru_cache(maxsize=64)
+def _scratch_bytes(lanes: int, n: int, dev) -> int:
+    """The scratch of one K4 launch over lanes x n points on ``dev``
+    (csrc/star.cu, urf_star_scratch_bytes: it depends on the co-resident
+    block count), asked once per shape and device."""
+    lib = _build.library()
+    out = ctypes.c_longlong(0)
+    with torch.cuda.device(dev):
+        err = lib.urf_star_scratch_bytes(lanes, n, ctypes.byref(out))
+    if err != 0:
+        raise RuntimeError(f"star_walk: CUDA error {err}: "
+                           f"{lib.urf_error_string(err).decode()}")
+    return out.value
 
 
 def star_search(fk, r_key, z, cfg: FilterConfig) -> torch.Tensor:
@@ -160,48 +185,65 @@ def star_search(fk, r_key, z, cfg: FilterConfig) -> torch.Tensor:
     point, 0 where none, each beam walked in the order of a stable sort by
     r_key (K4).  fk (N,) int32 beams (STAR_REP = the sink; anything outside
     0..359 is skipped), r_key (N,) f32, z (N,) f32 (any stride on the
-    card)."""
+    card).  With a leading lane axis (fk, r_key, z (B, N); z any strides on
+    the card) hp is (B, 360), lane b the search of lane b, from one
+    launch."""
     if _build.on_cpu(fk):
         return star_search_plain(fk, r_key, z, cfg)
-    n = fk.shape[0]
+    one = fk.ndim == 1
+    if one:
+        fk, r_key, z = fk[None], r_key[None], z[None]
+    b, n = fk.shape
     dev = fk.device
-    _build.check(fk, "fk", I32, (n,), dev)
-    _build.check(r_key, "r_key", F32, (n,), dev)
-    _build.check(z, "z", F32, (n,), dev, contiguous=False)
+    _build.check(fk, "fk", I32, (b, n), dev)
+    _build.check(r_key, "r_key", F32, (b, n), dev)
+    _build.check(z, "z", F32, (b, n), dev, contiguous=False)
     if n >= 1 << 24:
         raise ValueError(f"the star search counts walk steps as f32: "
                          f"n < 2^24, got {n}")
     cfg = device_config(cfg, dev)
-    # Per block a region of keys and (r, z), 16 bytes an entry, and the
-    # (360, 360) run table (csrc/star.cu, urf_star_search).
-    scratch = torch.empty(((n + STAR_REP * 256) * 2 + STAR_REP * STAR_REP,),
+    # Per partition unit a region of keys and (r, z), 16 bytes an entry,
+    # and the (units, 360) run table.
+    scratch = torch.empty((-(-_scratch_bytes(b, n, dev) // 8),),
                           dtype=torch.int64, device=dev)
-    hp = torch.empty((STAR_REP,), dtype=I32, device=dev)
+    hp = torch.empty((b, STAR_REP), dtype=I32, device=dev)
     _build.launch("star_walk", "urf_star_search", dev, _build.ptr(fk),
-                  _build.ptr(r_key), _build.ptr(z), z.stride(0), n,
+                  _build.ptr(r_key), _build.ptr(z), z.stride(1), z.stride(0),
+                  n, b,
                   *(_build.ptr(getattr(cfg, k)) for k in (
                       "slope_param", "kdev_param", "kdist_param",
                       "dmin_param")),
                   _build.ptr(scratch), _build.ptr(hp))
-    return hp
+    return hp[0] if one else hp
 
 
 def star_hits(x, y, z, valid, cfg: FilterConfig, keys=None) -> torch.Tensor:
-    """(360,) int32 hp of the star search over one scan's points: ``keys``
-    is this scan's (fk, r_key) from the ingest kernel K1, or None to run K1
-    here (the points outside ``valid`` go to the sink)."""
+    """(360,) int32 hp of the star search over one scan's points ((N,)
+    streams), or (B, 360) over a batch ((B, N)): ``keys`` is the (fk, r_key)
+    of the same scans from the ingest kernel K1, or None to run K1 here
+    (the points outside ``valid`` go to the sink)."""
     return star_search(*_star_keys(x, y, z, valid, cfg, keys), z, cfg)
 
 
 def star_labels(hp, ring_id, pos, rings: int, cap: int) -> torch.Tensor:
     """(rings, cap) int32 layout labels: LABEL_CURB at each hit point's
     (ring, slot), 0 elsewhere; a hit dropped at binning or by capacity
-    lands nowhere (pipeline.py:141-150 of the JAX package)."""
-    n = ring_id.shape[0]
+    lands nowhere (pipeline.py:141-150 of the JAX package).  With a leading
+    lane axis (hp (B, 360), ring_id and pos (B, N)): (B, rings, cap), each
+    lane's hits in its own table, one fill for the batch."""
+    n = ring_id.shape[-1]
+    lead = hp.shape[:-1]
+    plane = rings * cap
     h = torch.clamp(hp - 1, 0, n - 1).long()
-    ring, slot = ring_id[h].long(), pos[h].long()
+    ring = torch.gather(ring_id, -1, h).long()
+    slot = torch.gather(pos, -1, h).long()
     landed = (hp > 0) & (ring < rings) & (slot < cap)
-    dst = torch.where(landed, ring * cap + slot, rings * cap)
-    lab = torch.zeros((rings * cap + 1,), dtype=I32, device=hp.device)
-    lab.index_fill_(0, dst, LABEL_CURB)  # a fill: no host value copied
-    return lab[:rings * cap].reshape(rings, cap)
+    lanes = math.prod(lead)
+    at = ring * cap + slot
+    if lanes > 1:  # lane b's table starts at b * plane
+        at = at + torch.arange(lanes, device=hp.device).view(
+            *lead, 1) * plane
+    dst = torch.where(landed, at, lanes * plane)
+    lab = torch.zeros((lanes * plane + 1,), dtype=I32, device=hp.device)
+    lab.index_fill_(0, dst.reshape(-1), LABEL_CURB)  # no host value copied
+    return lab[:lanes * plane].view(*lead, rings, cap)

@@ -20,7 +20,7 @@ import torch
 from urban_road_filter_torch.config import FilterConfig, device_config
 from urban_road_filter_torch import _build
 from urban_road_filter_torch.constants import LABEL_CURB
-from urban_road_filter_torch.ops.geometry import RingLayout
+from urban_road_filter_torch.ops.geometry import RingLayout, stacked_rows
 from urban_road_filter_torch.ops.xzero import new_y_ladder, x_zero
 from urban_road_filter_torch.ops.zzero import z_zero
 
@@ -55,7 +55,10 @@ def fused_xz_zero_(layout: RingLayout, cfg: FilterConfig,
     place (LABEL_CURB where a stencil marks, no other slot changed).
     x-zero reads newY at slot j, or with ``ladder_offset`` ((R,) int32) at
     clip(ladder_offset[ring] + j, 0, ladder_len - 1).  The marks do not
-    depend on the label, so a second call changes nothing."""
+    depend on the label, so a second call changes nothing.  The stencils
+    work row by row, so a batch's (B, R, P) layout is marked as its
+    (B * R, P) stacked rows (geometry.stacked_rows), in one launch."""
+    layout = stacked_rows(layout)
     cp = int(cfg.curb_points)
     do_x, do_z = bool(cfg.x_zero_method), bool(cfg.z_zero_method)
     r, p = layout.x.shape

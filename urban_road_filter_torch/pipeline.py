@@ -11,18 +11,20 @@ Dataflow, on the card (or, for ``device="cpu"``, through the plain twins):
       -> ingest, once over the (B, N) streams (B = 1 for one scan):
          ROI mask, star keys, in-ROI count (K1), vertical angles, ring
          discovery (K2) and binning (K3)   (ops.ingest)
-    then per scan:
-      -> star-shaped search: <= 360 curb hits (K4 ops.star), when
+    then over a lane axis, one lane per scan (the JAX package's vmap),
+    each kernel launched once for the batch:
+      -> star-shaped search: <= 360 curb hits per lane (K4 ops.star), when
          cfg.star_shaped_method
-      -> stable rank + placement into (rings, P), input order, the star
+      -> stable rank + placement into (B, rings, P), input order, the star
          hits scattered onto it        (K5 ops.rank, K6 ops.place)
-      -> x-zero / z-zero curb stencils (K7 ops.stencil_kernels)
+      -> x-zero / z-zero curb stencils on the (B * rings, P) rows
+                                       (K7 ops.stencil_kernels)
       -> blind-spot flood fill, with the markers' first pass
                                        (K8, K9 ops.blind_spots)
       -> markers on the unsorted layout (K10 ops.markers)
-    then once over the batch:
       -> labels back to input order, gated and packed (K11 ops.gather;
          one launch per 128 scans)
+    One scan is the same code at B = 1.
 
 Nothing here reads a value back to the host, so a CUDA scan or batch is
 enqueued without a synchronisation.  The stages read the configuration's
@@ -86,12 +88,27 @@ class ScanResult(NamedTuple):
 
 
 def _stages(x, y, z, valid, keys, ring_id, num_rings, cfg: FilterConfig,
-            dims: PipelineDims):
-    """(label table, pos, counts, max_distance, markers, overflow) of one
-    scan after the ingest, up to its markers; keys are its star keys (fk,
-    r_key), None with the star search off."""
+            dims: PipelineDims, probe=None):
+    """(label tables (B, R, P), pos (B, N), counts (B, R), max_distance
+    (B, R), markers (B, 361, 6), overflow (B,)) of B scans after the
+    ingest, up to their markers, every stage once over the lane axis: x,
+    y, z, valid, ring_id (B, N) and num_rings (B,) from _ingest; keys are
+    their star keys (fk, r_key), None with the star search off.  ``probe``
+    (a dict) receives what each stage's kernels were given: "star" (x, y,
+    z, valid, keys), "ring_id", "num_rings", and 1-tuples or pairs led by
+    a copy of the layout: as placed ("placed", before K7), stenciled
+    ("stenciled", with max_distance) and flooded ("flooded", with K9's
+    kf)."""
     rings = dims.rings
     hp = None
+
+    def keep(name, rl, *more):
+        if probe is not None:
+            probe[name] = (rl._replace(label=rl.label.clone()), *more)
+
+    if probe is not None:
+        probe.update(star=(x, y, z, valid, keys), ring_id=ring_id,
+                     num_rings=num_rings)
     if keys is not None:
         with _stage("star"):
             hp = star_hits(x, y, z, valid, cfg, keys)
@@ -102,10 +119,13 @@ def _stages(x, y, z, valid, keys, ring_id, num_rings, cfg: FilterConfig,
         if hp is not None:
             rl = rl._replace(label=star_labels(hp, ring_id, pos, rings,
                                                dims.ring_capacity))
+    keep("placed", rl)
     with _stage("xz_zero"):  # the stage's own table: marked in place
         fused_xz_zero_(rl, cfg)
+    keep("stenciled", rl, max_dist)
     with _stage("blind_spots"):
         rl, kf = blind_spots(rl, max_dist, num_rings, cfg)
+    keep("flooded", rl, kf)
     with _stage("markers"):
         markers = marker_points(rl, num_rings, kf)
     return rl.label, pos, rl.counts, max_dist, markers, rl.overflow
@@ -155,16 +175,16 @@ def _scan(pts, cfg: FilterConfig, dims: PipelineDims, layout: str, device):
 
 def _scan_on(pts, cfg, dims: PipelineDims, layout: str):
     """(ScanResult, packed uint8 plane) of one scan on its device, ``cfg``
-    bound to a parameter buffer there: the batch path's kernels at B = 1
-    (the ingest over a batch of one, the gather + pack of one lane), on the
-    scan's own views."""
+    bound to a parameter buffer there: the batch path at B = 1 (the ingest
+    and the stages over a batch of one, the gather + pack of one lane), on
+    the scan's own views."""
     x, y, z, _ = geometry.xyz_of(pts, layout)
-    valid, fk, r_key, ring_id, num_rings, ok = (
-        f if f is None else f[0]
-        for f in _ingest(x[None], y[None], z[None], cfg, dims))
-    table, pos, counts, max_dist, markers, overflow = _stages(
+    x, y, z = x[None], y[None], z[None]
+    valid, fk, r_key, ring_id, num_rings, ok = _ingest(x, y, z, cfg, dims)
+    table, pos, counts, max_dist, markers, overflow = (f[0] for f in _stages(
         x, y, z, valid, None if fk is None else (fk, r_key), ring_id,
-        num_rings, cfg, dims)
+        num_rings, cfg, dims))
+    valid, ring_id, num_rings, ok = valid[0], ring_id[0], num_rings[0], ok[0]
     with _stage("gather"):
         labels, roi, probably_road, packed = gather_pack(
             table, ring_id, pos, valid, ok, int(cfg.probably_road_ring))
@@ -205,9 +225,10 @@ def process_batch(pts, cfg: FilterConfig, dims: PipelineDims,
                   layout: str = "rows", device=None) -> ScanResult:
     """Label a batch of padded scans: ``layout="rows"`` for (B, N, >=3)
     points, ``"planar"`` for (3, B, N) coordinate planes (planarize_batch).
-    The ingest (K1-K3) runs once over the (B, N) streams, the stages up to
-    the markers per scan on views of them, and the gather + pack (K11)
-    once over the batch; nothing reads a value back to the host.  Returns
+    The ingest (K1-K3) runs once over the (B, N) streams, then every stage
+    once over the lane axis (K4-K10 one launch each), and the gather +
+    pack (K11) once per 128 lanes; nothing reads a value back to the
+    host.  Returns
     a ScanResult with a leading B axis on every field (ok, num_rings,
     overflow and star_overflow are (B,); markers (B, 361, 6)): the per-point
     fields are the gather's (B, N) outputs themselves, so lane b of a field
@@ -218,26 +239,25 @@ def process_batch(pts, cfg: FilterConfig, dims: PipelineDims,
     return _batch_on(pts, device_config(cfg, pts.device), dims, layout)
 
 
-def _batch_on(pts, cfg, dims: PipelineDims, layout: str) -> ScanResult:
+def _batch_on(pts, cfg, dims: PipelineDims, layout: str,
+              probe=None) -> ScanResult:
     """process_batch of a batch on its device, ``cfg`` bound to a
-    parameter buffer there."""
+    parameter buffer there; ``probe`` as for _stages."""
     x, y, z, _ = geometry.xyz_of(pts, layout, batched=True)
     if x.shape[0] == 0:
         raise ValueError(f"empty batch: {tuple(pts.shape)}")
     valid, fk, r_key, ring_id, num_rings, ok = _ingest(x, y, z, cfg, dims)
-    tables, pos, counts, max_dist, markers, overflow = zip(*(
-        _stages(x[b], y[b], z[b], valid[b],
-                None if fk is None else (fk[b], r_key[b]), ring_id[b],
-                num_rings[b], cfg, dims)
-        for b in range(x.shape[0])))
+    tables, pos, counts, max_dist, markers, overflow = _stages(
+        x, y, z, valid, None if fk is None else (fk, r_key), ring_id,
+        num_rings, cfg, dims, probe)
     with _stage("gather"):
         labels, roi, probably_road, _ = gather_pack_batch(
             tables, ring_id, pos, valid, ok, int(cfg.probably_road_ring))
-        markers = torch.where(ok[:, None, None], torch.stack(markers), 0.0)
+        markers = torch.where(ok[:, None, None], markers, 0.0)
     return ScanResult(
         ok=ok, roi=roi, labels=labels, ring_id=ring_id, num_rings=num_rings,
-        counts=torch.stack(counts), max_distance=torch.stack(max_dist),
-        markers=markers, overflow=torch.stack(overflow),
+        counts=counts, max_distance=max_dist, markers=markers,
+        overflow=overflow,
         star_overflow=torch.zeros(ok.shape, dtype=I32, device=x.device),
         probably_road=probably_road)
 
@@ -393,8 +413,9 @@ def packed_scan_jit(pts, cfg: FilterConfig, dims: PipelineDims,
 
 def process_batch_jit(pts, cfg: FilterConfig, dims: PipelineDims,
                       layout: str = "rows", device=None) -> ScanResult:
-    """process_batch as a CUDA-graph replay (one ingest, the lanes' stages
-    and one gather + pack over the batch in one graph), cached and
+    """process_batch as a CUDA-graph replay (one ingest, the stages over
+    the lane axis and one gather + pack over the batch in one graph),
+    cached and
     hot-swapped as process_scan_jit.  Its per-point fields are new (B, N)
     tensors."""
     return _run_compiled("batch", pts, cfg, dims, layout, device)
