@@ -1,0 +1,8 @@
+"""Compiled entry points: host ms per scan in the entry's ``urf::launch``
+ranges of the traced segment, the graph's replay enqueued."""
+
+from benchmark import program_trace
+
+
+def read(ctx):
+    return program_trace.span_ms(ctx, "urf::launch")

@@ -38,7 +38,11 @@ of curbs only, other ring counts; chip_smoke.py's phase-2 calls) against
 their twins and lane-by-lane launches, K9's tickets under batched and
 single-lane launches in turns and a graph replay, one launch of each
 kernel per batch and process_batch_jit against process_scan_jit lane by
-lane.  Run on a machine with the
+lane; the traced variants that packed_scan_jit, process_batch_jit and the
+SP run capture while a profiler records: as many kernel, memcpy and memset
+nodes as the plain graph, which stays as it was, outputs bit-equal to its
+replays, no count in CAPTURE_COUNTS, every stage timed and the stages
+within the replay.  Run on a machine with the
 card
 (tests/conftest.py imports jax, which a GPU host without JAX skips with
 --noconftest):
@@ -1924,3 +1928,91 @@ def test_batch_launches_once_and_jit_equals_lanes(dev, cfg):
     for b in range(planes.shape[1]):
         _assert_same([f[b] for f in got], process_scan_jit(
             planes[:, b], cfg, LANE_DIMS, layout="planar"))
+
+
+# ---- the traced variants of the compiled entries (a profiler recording) ----
+
+TRACED_STAGES = {
+    "packed": ("ingest", "star", "tensorize", "xz_zero", "blind_spots",
+               "markers", "gather"),
+    "sp": ("sp_partition", "sp_rings", "sp_star", "sp_tensorize",
+           "sp_xz_zero", "sp_blind_spots", "sp_markers", "sp_gather")}
+TRACED_STAGES["batch"] = TRACED_STAGES["packed"]
+
+
+def _entry_calls(dev, kind, group=None):
+    """(call(seed) -> outputs, the entry's cache, its input shape) of a
+    compiled entry of ``kind`` on the card, at a small size (the SP run
+    over ``group`` where one is given)."""
+    from urban_road_filter_torch import packed_scan_jit, process_batch_jit
+    from urban_road_filter_torch import pipeline as pl
+    from urban_road_filter_torch.parallel.azimuth_parallel import (
+        make_azimuth_pipeline)
+
+    cfg = FilterConfig()
+    if kind == "sp":
+        dims = PipelineDims(max_points=8192, rings=RINGS, ring_capacity=CAP)
+        run = make_azimuth_pipeline(8, cfg, dims, group=group)
+        return ((lambda seed: run(_sp_scan(dev, dims, seed))), run.entries,
+                (8192, 4))
+    if kind == "batch":
+        return ((lambda seed: process_batch_jit(_batch_rows(
+            dev, N, 16, (seed, seed + 1, seed + 2)), cfg, LANE_DIMS)),
+            pl._compiled, (3, N, 4))
+    return ((lambda seed: packed_scan_jit(
+        _batch_rows(dev, N, 16, (seed,))[0], cfg, LANE_DIMS)),
+        pl._compiled, (N, 4))
+
+
+@pytest.mark.parametrize("kind", ["packed", "batch", "sp", "sp-nccl"])
+def test_traced_variant_beside_the_plain_graph(dev, kind, request):
+    """A profiler recording: the entry captures its traced variant once,
+    counted in TRACED_CAPTURES and not in CAPTURE_COUNTS, with as many
+    kernel, memcpy and memset nodes as the plain graph, which it leaves
+    as it was (the same graph, the same nodes); traced replays are
+    bit-equal to plain replays on the same scans and credit the same
+    launches; untraced calls replay the plain graph again; every stage is
+    timed, and the stages sum to at most the replay.  "sp-nccl": the SP
+    run over the one-rank NCCL group, its collectives in both graphs."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from urban_road_filter_torch import pipeline as pl
+    from urban_road_filter_torch.utils import profiling
+
+    group = request.getfixturevalue("nccl") if kind == "sp-nccl" else None
+    kind = kind.split("-")[0]
+    call, cache, shape = _entry_calls(dev, kind, group)
+    plain = [call(s) for s in (3, 5)]
+    (entry,) = [e for k, e in cache.items()
+                if k[0] == kind and k[4] == shape and k[-1] == dev]
+    graph, nodes = entry.graph, _build.graph_nodes(entry.graph)
+    assert nodes == entry.stats["nodes"]
+    captures, traced = dict(pl.CAPTURE_COUNTS), dict(pl.TRACED_CAPTURES)
+    traced[kind] += entry.traced is None  # captured once an entry
+    profiling.flush()
+    record = profiling.replay_record().get(kind, {"timed": 0})
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU]):
+        for want, seed in zip(plain, (3, 5)):
+            _build.reset_launch_counts()
+            got = call(seed)
+            torch.cuda.synchronize()
+            assert _build.launch_counts() == {
+                k: entry.launches.get(k, 0) for k in _build.KERNELS}
+            _assert_same(got, want)
+    assert pl.CAPTURE_COUNTS == captures
+    assert pl.TRACED_CAPTURES == traced
+    assert entry.graph is graph and _build.graph_nodes(graph) == nodes
+    assert _build.graph_nodes(entry.traced[0]) == nodes
+    assert entry.traced_stats["nodes"] == nodes
+    _assert_same(call(3), plain[0])
+    profiling.flush()
+    got = profiling.replay_record()[kind]
+    assert got["timed"] == record["timed"] + 2
+    assert got["untimed"] == record.get("untimed", 0)
+    assert tuple(got["stage_ms"]) == TRACED_STAGES[kind]
+    stages = {k: ms - record.get("stage_ms", {}).get(k, 0.0)
+              for k, ms in got["stage_ms"].items()}
+    assert all(ms > 0 for ms in stages.values()), stages
+    replay = got["replay_ms"] - record.get("replay_ms", 0.0)
+    assert sum(stages.values()) <= replay + 1e-6, (stages, replay)

@@ -1,11 +1,18 @@
 """The port's profiling hooks (urban_road_filter_torch.utils.profiling) on
-the CPU: StageTimers' summary against the JAX package's, device_trace
-writing a Chrome trace that holds the pipeline's urf::<stage> ranges and
-annotate's, the launch wrapper's profiler test (_build._profiling) true
-only inside a trace, and stage_device_time's crediting of device ops,
-the port's kernels included, to the stage windows that hold them
-(tools/profile_torch_scan.py reads it).  On the card, chip_smoke.py
-phase 7 holds each kernel launch inside its stage's range."""
+the CPU: device_trace writing a Chrome trace that holds the pipeline's
+urf::<stage> ranges and span's, the launch wrapper's profiler test
+(_build._profiling) true only inside a trace, stage_device_time's
+crediting of device ops, the port's kernels included, to the stage
+windows that hold them (tools/profile_torch_scan.py reads it); the
+compiled entries' ranges under a profiler (urf::entry.<kind> around the
+call, the body's run in urf::launch, the stages inside it, one call
+number a call), none entered and nothing recorded without one; the
+replay record on fake events (sums by stage, an incomplete replay untimed
+without a wait, flush) and a traced call's order on a fake graph (the
+traced variant captured once, apart from CAPTURE_COUNTS, each replay read
+at the next call).  On the card, chip_smoke.py phase 7 holds each kernel
+launch inside its stage's range, and tests/test_torch_kernels_gpu.py the
+traced variants against the plain graphs."""
 
 import glob
 import json
@@ -14,10 +21,13 @@ import numpy as np
 import pytest
 import torch
 
-from urban_road_filter_tpu.utils import profiling as jax_profiling
 from urban_road_filter_torch import (
-    FilterConfig, PipelineDims, _build, pad_scan, process_scan)
+    FilterConfig, PipelineDims, _build, pad_scan, packed_scan_jit,
+    process_batch_jit, process_scan)
+from urban_road_filter_torch import pipeline as pl
 from urban_road_filter_torch.io import SCENES, make_scan
+from urban_road_filter_torch.parallel.azimuth_parallel import (
+    azimuth_sorted, make_azimuth_pipeline)
 from urban_road_filter_torch.utils import profiling
 
 torch.set_num_threads(1)  # tier-1 runs several pytest workers
@@ -28,31 +38,6 @@ STAGES = ("ingest", "star", "tensorize", "xz_zero", "blind_spots",
           "markers", "gather")
 
 
-def test_stage_timers_summary(monkeypatch):
-    """The same clock readings give the JAX StageTimers' summary."""
-    summaries = []
-    for mod in (profiling, jax_profiling):
-        ticks = iter([0.0, 0.5, 1.0, 1.25, 2.0, 2.125])
-        monkeypatch.setattr(mod.time, "perf_counter", lambda: next(ticks))
-        t = mod.StageTimers()
-        for name in ("tensorize", "ingest", "tensorize"):
-            with t.stage(name):
-                pass
-        summaries.append(t.summary())
-    assert summaries[0] == summaries[1]
-    assert list(summaries[0]) == ["ingest", "tensorize"]
-    assert summaries[0]["tensorize"] == {"total_s": 0.625, "mean_ms": 312.5,
-                                         "calls": 2}
-
-
-def test_stage_timers_count_a_raising_stage():
-    t = profiling.StageTimers()
-    with pytest.raises(ValueError):
-        with t.stage("bad"):
-            raise ValueError
-    assert t.summary()["bad"]["calls"] == 1
-
-
 def test_device_trace_writes_the_stage_ranges(tmp_path):
     pts = torch.from_numpy(pad_scan(make_scan(
         SCENES["two_curbs"](), n_rings=16, n_azimuth=192, seed=3),
@@ -60,7 +45,7 @@ def test_device_trace_writes_the_stage_ranges(tmp_path):
     assert not _build._profiling()
     with profiling.device_trace(str(tmp_path / "trace")) as prof:
         assert _build._profiling()
-        with profiling.annotate("urf::demo_block"):
+        with profiling.span("urf::demo_block"):
             process_scan(pts, FilterConfig(), DIMS, device="cpu")
     assert not _build._profiling()
     files = glob.glob(str(tmp_path / "trace" / "*.pt.trace.json"))
@@ -188,3 +173,256 @@ def test_credit_ops_to_their_ranges():
     for name in want:
         assert got[name][1] == want[name][1]
         assert got[name][0] == pytest.approx(want[name][0])
+
+
+# --- the compiled entries' ranges and the replay record ---
+
+SP_STAGES = ("sp_partition", "sp_rings", "sp_star", "sp_tensorize",
+             "sp_xz_zero", "sp_blind_spots", "sp_markers", "sp_gather")
+
+
+def _scan(seed=3):
+    return make_scan(SCENES["two_curbs"](), n_rings=16, n_azimuth=192,
+                     seed=seed)
+
+
+def _entries():
+    """{kind: a call of that compiled entry on the CPU, and the stages its
+    body runs}."""
+    cfg = FilterConfig()
+    rows = pad_scan(_scan(), DIMS.max_points)
+    batch = np.stack([rows, pad_scan(_scan(4), DIMS.max_points)])
+    sp_rows = pad_scan(azimuth_sorted(_scan()), DIMS.max_points)
+    run = make_azimuth_pipeline(8, cfg, DIMS, device="cpu")
+    return {
+        "packed": (lambda: packed_scan_jit(rows, cfg, DIMS, device="cpu"),
+                   STAGES),
+        "batch": (lambda: process_batch_jit(batch, cfg, DIMS, device="cpu"),
+                  STAGES),
+        "sp": (lambda: run(sp_rows), SP_STAGES)}
+
+
+@pytest.fixture
+def spans(monkeypatch):
+    """[(name, args)] of every range the port opens, in order, the real
+    ranges still opened."""
+    seen = []
+    real = profiling.record_function
+
+    def spy(name, args=None):
+        seen.append((name, args))
+        return real(name, args)
+
+    monkeypatch.setattr(profiling, "record_function", spy)
+    return seen
+
+
+@pytest.mark.parametrize("kind", ["packed", "batch", "sp"])
+def test_entry_ranges_nest_and_carry_the_call_number(kind, spans):
+    """Under a profiler a compiled entry's call is one urf::entry.<kind>
+    range (no urf:: range around it), the body's run a urf::launch inside
+    it (on the CPU it stands for the replay), each stage inside that; the
+    entry and its launch carry the call's number, a new one each call."""
+    call, stages = _entries()[kind]
+    call()  # the entry made, untraced
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        call()
+        call()
+    entry = f"urf::entry.{kind}"
+    got = [e for e in prof.events() if e.name.startswith("urf::")
+           and not e.name.startswith("urf::k::")]
+    parent = {e.name: set() for e in got}
+    for e in got:
+        parent[e.name].add(e.cpu_parent.name if e.cpu_parent else None)
+    assert parent[entry] == {None}
+    assert parent["urf::launch"] == {entry}
+    for stage in stages:
+        assert parent[f"urf::{stage}"] == {"urf::launch"}, stage
+    assert set(parent) == {entry, "urf::launch",
+                           *(f"urf::{s}" for s in stages)}
+    calls = [a for n, a in spans if n == entry]
+    assert len(calls) == 2 and calls[1] == str(int(calls[0]) + 1)
+    assert [a for n, a in spans if n == "urf::launch"] == calls
+    assert profiling.replay_record()[kind]["timed"] == 0
+
+
+def test_no_profiler_no_ranges_and_no_record(monkeypatch):
+    """Without a profiler the compiled entries (and the stages of their
+    bodies) enter no record_function, and the replay record does not
+    move."""
+    entries = _entries()
+    for call, _ in entries.values():
+        call()
+    before = profiling.replay_record()
+    opened = []
+
+    def counted(*args, **kw):
+        opened.append(args)
+        raise AssertionError("a range was opened")
+
+    for mod in (profiling, torch.profiler, torch.autograd.profiler):
+        monkeypatch.setattr(mod, "record_function", counted)
+    for call, _ in entries.values():
+        call()
+    assert opened == []
+    assert profiling.replay_record() == before
+
+
+class _Event:
+    """A timing event: a time on a fake clock; ``replay`` ({"done",
+    "waited"}) is shared by the events of one replay, which complete
+    together, as a stream runs them in order."""
+
+    clock = [0.0]
+
+    def __init__(self, t=None, replay=None):
+        if t is None:
+            _Event.clock[0] += 1.5
+            t = _Event.clock[0]
+        self.t = t
+        self.replay = {"done": True, "waited": 0} if replay is None else replay
+
+    def query(self):
+        return self.replay["done"]
+
+    def synchronize(self):
+        self.replay["waited"] += 1
+        self.replay["done"] = True
+
+    def elapsed_time(self, other):
+        assert self.replay["done"] and other.replay["done"]
+        return other.t - self.t
+
+
+def _events(kind, stages, done=True):
+    replay = {"done": done, "waited": 0}
+    ev = profiling.StageEvents(kind, _Event(0.0, replay))
+    t = 0.0
+    for name, ms in stages:
+        ev.stages.append((name, _Event(t + 0.1, replay),
+                          _Event(t + 0.1 + ms, replay)))
+        t += 0.1 + ms
+    ev.last = _Event(t + 0.2, replay)
+    return ev
+
+
+def test_record_sums_by_stage():
+    rec = profiling.ReplayRecord()
+    a = _events("packed", [("ingest", 0.5), ("star", 0.25)])
+    b = _events("sp", [("sp_partition", 1.0), ("sp_star", 0.5),
+                       ("sp_star", 0.25)])
+    for ev in (a, b, a):
+        rec.replayed(ev)
+        rec.settle(ev)
+    got = rec.totals()
+    assert got["packed"]["timed"] == 2 and got["packed"]["untimed"] == 0
+    assert got["packed"]["stage_ms"] == pytest.approx(
+        {"ingest": 1.0, "star": 0.5})
+    assert got["packed"]["replay_ms"] == pytest.approx(2 * (0.95 + 0.2))
+    assert got["sp"]["stage_ms"] == pytest.approx({"sp_partition": 1.0,
+                                                   "sp_star": 0.75})
+    assert got["sp"]["replay_ms"] == pytest.approx(2.05 + 0.2)
+    assert rec.pending == []
+    rec.settle(a)  # nothing pending: nothing read
+    assert rec.totals() == got
+
+
+def test_record_counts_an_incomplete_replay_untimed_without_waiting():
+    rec = profiling.ReplayRecord()
+    ev = _events("batch", [("ingest", 1.0)], done=False)
+    rec.replayed(ev)
+    rec.settle(ev)
+    assert ev.last.replay["waited"] == 0
+    got = rec.totals()["batch"]
+    assert (got["timed"], got["untimed"], got["stage_ms"]) == (0, 1, {})
+    assert rec.pending == []
+
+
+def test_flush_reads_the_pending_replays():
+    rec = profiling.ReplayRecord()
+    done = _events("packed", [("gather", 0.5)])
+    running = _events("sp", [("sp_gather", 0.25)], done=False)
+    rec.replayed(done)
+    rec.replayed(running)
+    assert rec.totals() == {}
+    rec.flush()
+    assert running.last.replay["waited"] == 1 and rec.pending == []
+    got = rec.totals()
+    assert got["packed"]["timed"] == got["sp"]["timed"] == 1
+    assert got["sp"]["stage_ms"] == pytest.approx({"sp_gather": 0.25})
+    assert got["sp"]["untimed"] == 0
+
+
+class _Graph:
+    """A captured graph: replay() counts."""
+
+    def __init__(self):
+        self.replays = 0
+
+    def replay(self):
+        self.replays += 1
+
+
+def test_traced_call_on_a_fake_graph(monkeypatch, spans):
+    """The card's traced path with the graph faked on the CPU: the first
+    traced call captures the traced variant once (its body run under
+    timed_capture, each stage given its events; TRACED_CAPTURES moves,
+    CAPTURE_COUNTS not), every traced call replays it between its
+    stage_read, copy_in, launch and clone ranges, each replay is read at
+    the next call and the last by flush; untraced calls replay the plain
+    graph and open nothing."""
+    from torch.profiler import ProfilerActivity, profile
+
+    monkeypatch.setattr(profiling, "_event", lambda: _Event())
+    monkeypatch.setattr(profiling, "RECORD", profiling.ReplayRecord())
+    monkeypatch.setattr(_build, "replayed", lambda *a: None)
+    cfg = FilterConfig()
+    rows = torch.from_numpy(pad_scan(_scan(), DIMS.max_points))
+    st, dyn = pl.split_cached(cfg)
+    entry = pl._Compiled("packed", pl._BODIES["packed"], st, dyn, DIMS,
+                         "rows", rows)
+    plain = _Graph()
+    entry.graph, entry.input, entry.launches, entry.ticketed = (
+        plain, torch.empty_like(rows), {}, [])
+    entry.out = pl._packed_outputs(entry.input, entry.cfg, DIMS, "rows")
+    traced = _Graph()
+
+    def graph(around):
+        with around as events:
+            out = entry.body(entry.input, entry.cfg, DIMS, "rows")
+        return traced, out, {}, events, {"nodes": {}}
+
+    monkeypatch.setattr(entry, "_graph", graph)
+    captures, before = dict(pl.CAPTURE_COUNTS), dict(pl.TRACED_CAPTURES)
+    entry(rows, dyn)
+    assert plain.replays == 1 and entry.traced is None and spans == []
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        for k in range(3):
+            call = profiling.entry_call("packed")
+            with profiling.entry_span("packed", call):
+                out = entry(rows, dyn, call)
+            assert [t.shape for t in out] == [t.shape for t in entry.out]
+            assert traced.replays == k + 1
+            assert profiling.replay_record()["packed"]["timed"] == k
+    assert plain.replays == 1
+    assert pl.CAPTURE_COUNTS == captures
+    assert pl.TRACED_CAPTURES["packed"] == before["packed"] + 1
+    _, _, events = entry.traced
+    assert [n for n, _, _ in events.stages] == list(STAGES)
+    profiling.flush()
+    got = profiling.replay_record()["packed"]
+    assert (got["calls"], got["timed"], got["untimed"]) == (3, 3, 0)
+    assert set(got["stage_ms"]) == set(STAGES)
+    assert sum(got["stage_ms"].values()) < got["replay_ms"]
+    children = ("urf::stage_read", "urf::copy_in", "urf::launch",
+                "urf::clone")
+    parents = {e.name: e.cpu_parent and e.cpu_parent.name
+               for e in prof.events() if e.name in children}
+    assert parents == dict.fromkeys(children, "urf::entry.packed")
+    order = [n for n, _ in spans if n in children]
+    assert order == list(children) * 3
+    assert {a for n, a in spans if n in children} == {"1", "2", "3"}
+    entry(rows, dyn)
+    assert plain.replays == 2 and traced.replays == 3

@@ -37,17 +37,20 @@ process_batch against process_batch_jit; with ``--sp D`` the SP run's
 the other way round), in one process: per mode the host enqueue p50 and
 host-to-host wall p50 per scan, and, profiled one pass each in turns,
 the device busy ms per scan, its share of the profiled wall and the
-device ops per scan; for the compiled entry its graph's kernel, memcpy
-and memset nodes, capture and instantiation ms and pool bytes.
+device ops per scan; per stage its device ms per scan, the eager
+pass's from its urf::<stage> ranges and the compiled pass's from the
+replay record (utils.profiling.replay_record: under the profiler the
+entry replays its traced variant, whose stages time themselves with
+event nodes), side by side; for the compiled entry its graph's kernel,
+memcpy and memset nodes, capture and instantiation ms and pool bytes.
 ``--harness`` does the same for the replay harness at 10 Hz on 30
 emulated OS1-64 drive scans (depth 1, drop mode), its default path
 (packed_scan_jit) against the same harness with packed_scan: latency p50
 and its dispatch / stage / fetch / post split; with ``--sp D`` on 10
 OS1-128 drive scans (azimuth-sorted) in SP mode, one SP run (captured
 before the first harness run) replayed against its ``run.eager``.
-The profiler's urf::<stage> ranges are recorded only while a graph is
-captured, so stage device times are an eager-path figure.  Needs a CUDA
-device.
+Without ``--graph`` every stage time is the eager path's (its
+urf::<stage> ranges and their launches).  Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -114,9 +117,13 @@ def _smi() -> str:
 
 def _device_window(run_pass, n):
     """(device busy ms per scan, busy share of the profiled wall, device
-    ops per scan) of one pass of n scans under torch.profiler."""
+    ops per scan, {stage: device ms per scan} of the pass's urf::<stage>
+    ranges: an eager pass's) of one pass of n scans under
+    torch.profiler."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    from urban_road_filter_torch.utils.profiling import stage_device_time
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -125,12 +132,36 @@ def _device_window(run_pass, n):
         run_pass()
         torch.cuda.synchronize()
         window_us = (time.perf_counter() - t0) * 1e6
-    ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+    events = prof.events()
+    ev = [e for e in events if e.device_type == DeviceType.CUDA
           and not e.name.startswith("urf::")]
     if not ev:
-        return None, None, None
+        return None, None, None, {}
     busy = _union_us((e.time_range.start, e.time_range.end) for e in ev)
-    return busy / n / 1e3, busy / window_us, len(ev) / n
+    stages = {st: rec["device_us"] / n / 1e3
+              for st, rec in stage_device_time(events).items()
+              if st != "(outside)"}
+    return busy / n / 1e3, busy / window_us, len(ev) / n, stages
+
+
+def _replay_stages(before: dict, kind: str, per_call: int) -> dict:
+    """{stage: device ms per scan} of the traced replays of ``kind`` since
+    the replay record read ``before``, and "(replay)" for the whole
+    replay."""
+    from urban_road_filter_torch.utils import profiling
+
+    profiling.flush()
+    now = profiling.replay_record().get(kind)
+    if now is None:
+        return {}
+    was = before.get(kind, {"timed": 0, "replay_ms": 0.0, "stage_ms": {}})
+    scans = (now["timed"] - was["timed"]) * per_call
+    if not scans:
+        return {}
+    out = {st: (ms - was["stage_ms"].get(st, 0.0)) / scans
+           for st, ms in now["stage_ms"].items()}
+    out["(replay)"] = (now["replay_ms"] - was["replay_ms"]) / scans
+    return out
 
 
 def graph_main(args) -> int:
@@ -141,6 +172,7 @@ def graph_main(args) -> int:
         planarize_batch, process_batch, process_batch_jit)
     from urban_road_filter_torch import pipeline as pl
     from urban_road_filter_torch.io import SCENES, make_drive, make_scan
+    from urban_road_filter_torch.utils import profiling
 
     dev = torch.device("cuda", 0)
     cfg = FilterConfig(star_shaped_method=not args.star_off)
@@ -205,12 +237,17 @@ def graph_main(args) -> int:
             times[m] += [run(calls[m], host) for host in hosts]
     n = len(hosts) * per_call
     device = {}
+    profiling.flush()
+    record = profiling.replay_record()
     for m in ("eager", "jit", "jit", "eager"):  # in turns, the second kept
         device[m] = _device_window(
             lambda: [run(calls[m], host) for host in hosts], n)
+    summary["stage_ms_per_scan"] = {
+        "eager": device["eager"][3],
+        "jit": _replay_stages(record, kind, per_call)}
     for m in calls:
         enq, wall = zip(*times[m])
-        busy, share, ops = device[m]
+        busy, share, ops, _ = device[m]
         summary["modes"][m] = {
             "enqueue_ms_p50": statistics.median(enq),
             "wall_ms_p50": statistics.median(wall),
@@ -292,7 +329,7 @@ def harness_graph(args, dev, cfg, smi, summary) -> int:
     for m in ("eager", "jit", "jit", "eager"):
         device[m] = _device_window(lambda: harness(m), len(drive))
     for m, ss in runs.items():
-        busy, share, ops = device[m]
+        busy, share, ops, _ = device[m]
         split = {k: statistics.median(s["breakdown_ms_p50"][k] for s in ss)
                  for k in ss[0]["breakdown_ms_p50"]}
         summary["modes"][m] = {
@@ -319,6 +356,14 @@ def _report(args, summary) -> int:
         print(f"  {m:5s} " + ", ".join(
             f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
             for k, v in rec.items()))
+    stages = summary.get("stage_ms_per_scan")
+    if stages:
+        print("  device ms per scan by stage (eager ranges | compiled, the "
+              "traced replays' events):")
+        for st in dict.fromkeys([*stages["eager"], *stages["jit"]]):
+            e, j = stages["eager"].get(st), stages["jit"].get(st)
+            print(f"    {st:16s} " + " | ".join(
+                "not measured" if v is None else f"{v:.4f}" for v in (e, j)))
     for g in summary["graphs"]:
         print(f"  graph {g['key']}: nodes {g['nodes']}, capture "
               f"{g['capture_ms']:.3f} ms, instantiate "

@@ -72,6 +72,7 @@ from urban_road_filter_torch.ops.star import star_hits
 from urban_road_filter_torch.ops.stencil_kernels import fused_xz_zero_halo
 from urban_road_filter_torch.pipeline import (
     ScanResult, _stage, compiled_entry, on_device, target_device)
+from urban_road_filter_torch.utils import profiling
 
 
 class LocalWedges:
@@ -562,7 +563,10 @@ def make_azimuth_pipeline(n_wedges: int, cfg: FilterConfig,
     keep the same cache and counts and run the plain twins on their
     buffer.  ``run.eager`` (same arguments) runs the stages op by op from
     Python, as does ``run`` with a ``probe``: a probe reads intermediates
-    that a replay does not keep.
+    that a replay does not keep.  While a torch profiler records, a call
+    of ``run`` sits in an ``urf::entry.sp`` range and replays the entry's
+    traced variant (pipeline._Compiled; utils.profiling), which holds the
+    same collectives in the same order as the plain graph.
 
     With a torch.distributed process group, the wedges are spread over its
     ranks, n_wedges // world each (RankWedges, ``run.wedges``, with its
@@ -664,20 +668,22 @@ def make_azimuth_pipeline(n_wedges: int, cfg: FilterConfig,
             probe: dict | None = None) -> ScanResult:
         if probe is not None:
             return eager(pts, cfg_now, layout, probe)
-        pts = torch.as_tensor(pts)
-        checked(pts, layout)
-        entry, pts, dyn = compiled_entry(
-            entries, "sp", body, pts, cfg if cfg_now is None else cfg_now,
-            dims, layout, device)
-        if entry.graph is None:  # the CPU: the body runs, and counts
-            return entry(pts, dyn)
-        # A replay runs no Python, so its collectives count nothing: the
-        # census is the capture's, which the body left in lw.census.
-        if entry not in censuses:
-            censuses[entry] = _copy(lw.census)
-        out = entry(pts, dyn)
-        lw.census = _copy(censuses[entry])
-        return out
+        call = profiling.entry_call("sp")  # None unless a profiler records
+        with profiling.entry_span("sp", call):
+            pts = torch.as_tensor(pts)
+            checked(pts, layout)
+            entry, pts, dyn = compiled_entry(
+                entries, "sp", body, pts, cfg if cfg_now is None else cfg_now,
+                dims, layout, device)
+            if entry.graph is None:  # the CPU: the body runs, and counts
+                return entry(pts, dyn, call)
+            # A replay runs no Python, so its collectives count nothing: the
+            # census is the capture's, which the body left in lw.census.
+            if entry not in censuses:
+                censuses[entry] = _copy(lw.census)
+            out = entry(pts, dyn, call)
+            lw.census = _copy(censuses[entry])
+            return out
 
     if group is not None and not _compiles(group, device):
         run = eager

@@ -39,10 +39,15 @@ replay it: a call copies its input in, writes the parameter buffer only
 when the dynamic values changed (a hot swap, no re-capture), replays, and
 returns copies of the graph's outputs.  On the CPU they keep the same
 cache and counts and run the plain twins on their parameter buffer.
+While a torch profiler records, an entry's call sits in named ranges (its
+copy-in, launch and clones apart) and replays a traced variant of its
+graph, whose stages time themselves on the device (utils.profiling); the
+plain graph is left as it was captured.
 """
 
 from __future__ import annotations
 
+import contextlib
 import time
 from typing import NamedTuple
 
@@ -60,14 +65,15 @@ from urban_road_filter_torch.ops.gather import gather_pack, gather_pack_batch
 from urban_road_filter_torch.ops.markers import marker_points
 from urban_road_filter_torch.ops.star import star_hits, star_labels
 from urban_road_filter_torch.ops.stencil_kernels import fused_xz_zero_
+from urban_road_filter_torch.utils import profiling
 
 I32 = torch.int32
 
 
-def _stage(name: str):
-    """A named profiler range ("urf::<stage>"), read by
-    tools/profile_torch_scan.py; near free when no profiler runs."""
-    return torch.profiler.record_function(f"urf::{name}")
+# A pipeline stage: its profiler range ("urf::<stage>") while a profiler
+# records, and inside a compiled entry's traced capture its timing events
+# (utils.profiling.stage).
+_stage = profiling.stage
 
 
 class ScanResult(NamedTuple):
@@ -268,6 +274,9 @@ def _batch_on(pts, cfg, dims: PipelineDims, layout: str,
 # one per new key; a change of dynamic parameters adds none.  "sp" counts
 # the captures of the azimuth-sharded runs (parallel.azimuth_parallel).
 CAPTURE_COUNTS = {"scan": 0, "packed": 0, "batch": 0, "sp": 0}
+# The traced variants' captures per entry kind, apart: at most one an
+# entry, on its first call while a profiler records.
+TRACED_CAPTURES = {"scan": 0, "packed": 0, "batch": 0, "sp": 0}
 
 _compiled: dict = {}  # key -> _Compiled
 
@@ -281,6 +290,11 @@ _BODIES = {"scan": lambda *a: _scan_on(*a)[0], "packed": _packed_outputs,
            "batch": _batch_on}
 
 
+def _clones(out):
+    outs = tuple(t.clone() for t in out)
+    return out._make(outs) if hasattr(out, "_make") else outs
+
+
 class _Compiled:
     """One compiled entry: its body, ``body(input, cfg, dims, layout)``
     (the stages, returning a ScanResult or a tuple of tensors), its
@@ -288,7 +302,11 @@ class _Compiled:
     card its input buffer, CUDA graph and the graph's outputs, the kernel
     launches the graph holds, and what its capture cost (``stats``: capture
     and instantiation ms, the graph's kernel, memcpy and memset nodes, the
-    bytes its memory pool reserved)."""
+    bytes its memory pool reserved).  ``traced``: (graph, outputs,
+    profiling.StageEvents) of the traced variant, the same body captured
+    again with timing events at its stage boundaries, on the first call
+    made while a profiler records (None before); ``traced_stats`` its
+    capture's stats."""
 
     def __init__(self, kind: str, body, st, dyn, dims: PipelineDims,
                  layout: str, pts: torch.Tensor):
@@ -299,6 +317,7 @@ class _Compiled:
         self.cfg = bind_params(st, self.params)
         self.held = None  # the DynConfig params holds
         self.graph = None
+        self.traced = None
         self.stats: dict = {}
         if dev.type == "cuda":
             self._capture(pts, dyn)
@@ -314,12 +333,19 @@ class _Compiled:
         """Capture the entry's stages into a CUDA graph, after one run of
         them on the current stream (it builds the kernels, fills the
         caches, and counts as launches).  A failed capture raises."""
-        body = self.body
-        dev = pts.device
-        self.input = torch.empty(pts.shape, dtype=pts.dtype, device=dev)
+        self.input = torch.empty(pts.shape, dtype=pts.dtype, device=pts.device)
         self.input.copy_(pts)
         self._write_params(dyn)
-        body(self.input, self.cfg, self.dims, self.layout)
+        self.body(self.input, self.cfg, self.dims, self.layout)
+        self.graph, self.out, self.launches, _, self.stats = self._graph(
+            contextlib.nullcontext())
+        self.ticketed = [k for k in _build.TICKETED if k in self.launches]
+
+    def _graph(self, around):
+        """(graph, outputs, launches, what ``around`` yielded, stats) of
+        the body captured on the entry's buffers inside the context
+        ``around``.  A failed capture raises."""
+        dev = self.input.device
         t0 = time.perf_counter()
         graph = torch.cuda.CUDAGraph(keep_graph=True)
         try:
@@ -328,30 +354,61 @@ class _Compiled:
                     # After the context emptied the allocator's cache: the
                     # graph's own pool grows from here.
                     reserved = torch.cuda.memory_reserved(dev)
-                    out = body(self.input, self.cfg, self.dims, self.layout)
+                    with around as got:
+                        out = self.body(self.input, self.cfg, self.dims,
+                                        self.layout)
             t1 = time.perf_counter()
             graph.instantiate()
         except Exception as e:
             raise RuntimeError(f"{self.kind}: CUDA-graph capture failed "
                                f"({type(e).__name__}: {e})") from e
         t2 = time.perf_counter()
-        self.stats = {"capture_ms": (t1 - t0) * 1e3,
-                      "instantiate_ms": (t2 - t1) * 1e3,
-                      "nodes": _build.graph_nodes(graph),
-                      "pool_bytes": torch.cuda.memory_reserved(dev) - reserved}
-        self.graph, self.out, self.launches = graph, out, dict(launches)
-        self.ticketed = [k for k in _build.TICKETED if k in launches]
+        stats = {"capture_ms": (t1 - t0) * 1e3,
+                 "instantiate_ms": (t2 - t1) * 1e3,
+                 "nodes": _build.graph_nodes(graph),
+                 "pool_bytes": torch.cuda.memory_reserved(dev) - reserved}
+        return graph, out, dict(launches), got, stats
 
-    def __call__(self, pts, dyn):
+    def __call__(self, pts, dyn, call: str | None = None):
+        """The call: ``dyn`` into the parameter buffer, then on the card
+        the input copied in, the graph replayed and its outputs cloned (on
+        the CPU the body's run).  ``call``: the call's number while a
+        profiler records (profiling.entry_call), None otherwise."""
         self._write_params(dyn)
+        if call is not None:
+            return self._traced_call(pts, call)
         if self.graph is None:  # the CPU: the plain twins, run each call
             return self.body(pts, self.cfg, self.dims, self.layout)
         # The ticket check (it may raise) before anything is enqueued.
         _build.replayed(self.launches, self.ticketed, self.input.device)
         self.input.copy_(pts, non_blocking=True)
         self.graph.replay()
-        outs = tuple(t.clone() for t in self.out)
-        return self.out._make(outs) if hasattr(self.out, "_make") else outs
+        return _clones(self.out)
+
+    def _traced_call(self, pts, call: str):
+        """__call__ while a profiler records: the traced variant replayed,
+        each phase in its range (profiling's urf::stage_read, copy_in,
+        launch, clone)."""
+        span = profiling.span
+        if self.graph is None:
+            with span("urf::launch", call):
+                return self.body(pts, self.cfg, self.dims, self.layout)
+        if self.traced is None:
+            graph, out, _, events, self.traced_stats = self._graph(
+                profiling.timed_capture(self.kind))
+            self.traced = (graph, out, events)
+            TRACED_CAPTURES[self.kind] += 1
+        graph, out, events = self.traced
+        _build.replayed(self.launches, self.ticketed, self.input.device)
+        with span("urf::stage_read", call):
+            profiling.RECORD.settle(events)
+        with span("urf::copy_in", call):
+            self.input.copy_(pts, non_blocking=True)
+        with span("urf::launch", call):
+            graph.replay()
+        profiling.RECORD.replayed(events)
+        with span("urf::clone", call):
+            return _clones(out)
 
 
 def compiled_entry(cache: dict, kind: str, body, pts, cfg: FilterConfig,
@@ -359,9 +416,9 @@ def compiled_entry(cache: dict, kind: str, body, pts, cfg: FilterConfig,
     """``(entry, pts, dyn)``: the entry of ``cache`` for this call's key
     (kind, static half of cfg, dims, layout, input shape and dtype,
     device), made on a miss (on the card: captured, and counted in
-    CAPTURE_COUNTS[kind]) with ``body`` as its stages; ``entry(pts, dyn)``
-    is the call, which writes the dynamic half of cfg into the entry's
-    parameter buffer."""
+    CAPTURE_COUNTS[kind]) with ``body`` as its stages; ``entry(pts, dyn,
+    call=None)`` is the call, which writes the dynamic half of cfg into
+    the entry's parameter buffer."""
     dev = target_device(device)
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
@@ -381,9 +438,11 @@ def compiled_entry(cache: dict, kind: str, body, pts, cfg: FilterConfig,
 
 def _run_compiled(kind: str, pts, cfg: FilterConfig, dims: PipelineDims,
                   layout: str, device):
-    entry, pts, dyn = compiled_entry(_compiled, kind, _BODIES[kind], pts, cfg,
-                                     dims, layout, device)
-    return entry(pts, dyn)
+    call = profiling.entry_call(kind)  # None unless a profiler records
+    with profiling.entry_span(kind, call):
+        entry, pts, dyn = compiled_entry(_compiled, kind, _BODIES[kind], pts,
+                                         cfg, dims, layout, device)
+        return entry(pts, dyn, call)
 
 
 def compiled_entries() -> dict:

@@ -1,21 +1,48 @@
 """Tracing and profiling hooks (the reference has none).
 
-Port of urban_road_filter_tpu/utils/profiling.py:
+Port of urban_road_filter_tpu/utils/profiling.py, with the port's own
+tracing inside its compiled entries.  The port traces only while a torch
+profiler records (``_build._profiling``, one C call, the switch that also
+gates the kernels' ``urf::k::<kernel>`` ranges in _build.launch); with no
+profiler nothing is entered and nothing is recorded.
 
-  * ``StageTimers``: wall-clock stage timers for the host loop (a copy);
   * ``device_trace``: torch.profiler around a block, CPU and CUDA
     activities, writing a Chrome / Perfetto trace into a directory;
-  * ``annotate``: a named range (``record_function``) in the trace.
+  * ``span``: a named range (``record_function``) in the trace;
+  * ``stage``: a pipeline stage's range (pipeline._stage), and inside a
+    traced capture its timing events;
+  * the replay record (``replay_record``, ``flush``): the device time of
+    the compiled entries' traced replays, by stage.
 
-The pipeline names its stages ``urf::<stage>`` (pipeline._stage), and
-while a profiler runs each kernel launch sits in a ``urf::k::<kernel>``
-range inside its stage's (_build.launch).  The profiler links a ctypes
-launch to the innermost such range, and only on the device timeline: the
-range's projection there spans the device ops launched directly inside
-it, while a CPU op's device time and the enclosing stage's projection
-leave the kernel out.  ``stage_device_time`` therefore rebuilds each
-stage's window on the device from its own projection and its launches',
-and credits every device op to the window that holds it.
+The ranges:
+
+  urf::<stage>         a pipeline stage, in an eager run or a capture
+  urf::k::<kernel>     one kernel launch inside its stage
+  urf::entry.<kind>    one call of a compiled entry (pipeline's "scan",
+                       "packed", "batch"; the SP run's "sp"), from the
+                       call to its return; args: the call's number among
+                       its kind's traced calls.  Inside it, with the same
+                       args:
+    urf::stage_read    the previous traced replay's events read
+    urf::copy_in       the input copied into the entry's buffer
+    urf::launch        the graph's replay (on the CPU, the body's run)
+    urf::clone         the outputs' clones
+
+A CUDA-graph replay runs no Python, so a replay has no stage ranges.
+Instead each compiled entry captures, on its first call while tracing, a
+second, traced variant of its body whose stages record timing events
+(CUDA event-record nodes, no device row) at their entry and exit, and one
+each before and after the body; traced calls replay it, and the entry
+reads a replay's events at its next traced call, once the last has
+completed (``ReplayRecord``).
+
+The profiler links a ctypes launch to the innermost range, and only on
+the device timeline: the range's projection there spans the device ops
+launched directly inside it, while a CPU op's device time and the
+enclosing stage's projection leave the kernel out.  ``stage_device_time``
+therefore rebuilds each eager stage's window on the device from its own
+projection and its launches', and credits every device op to the window
+that holds it.
 """
 
 from __future__ import annotations
@@ -24,33 +51,13 @@ import bisect
 import contextlib
 import os
 import time
-from collections import defaultdict
-from typing import Iterator
 
 import torch
+from torch.profiler import record_function
 
+from urban_road_filter_torch import _build
 
-class StageTimers:
-    """Accumulating wall-clock timers: `with timers.stage("tensorize"): ...`"""
-
-    def __init__(self) -> None:
-        self.totals: dict[str, float] = defaultdict(float)
-        self.counts: dict[str, int] = defaultdict(int)
-
-    @contextlib.contextmanager
-    def stage(self, name: str) -> Iterator[None]:
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            self.totals[name] += time.perf_counter() - t0
-            self.counts[name] += 1
-
-    def summary(self) -> dict:
-        return {k: {"total_s": round(v, 4),
-                    "mean_ms": round(1e3 * v / max(self.counts[k], 1), 3),
-                    "calls": self.counts[k]}
-                for k, v in sorted(self.totals.items())}
+_NULL = contextlib.nullcontext()
 
 
 @contextlib.contextmanager
@@ -175,9 +182,165 @@ def stage_device_time(events) -> dict:
     return out
 
 
-def annotate(name: str):
-    """A named range in the trace viewer (torch.profiler.record_function)."""
-    return torch.profiler.record_function(name)
+def span(name: str, args: str | None = None):
+    """A named range in the trace (record_function, ``args`` its
+    identifier) while a profiler records; a null context otherwise."""
+    return record_function(name, args) if _build._profiling() else _NULL
 
 
-__all__ = ["StageTimers", "device_trace", "annotate", "stage_device_time"]
+# The [(stage, start, end)] events of the traced capture under way, or None.
+_marks: list | None = None
+
+
+def stage(name: str):
+    """The range of pipeline stage ``name``, ``urf::<name>``, while a
+    profiler records; inside a traced capture (``timed_capture``) also a
+    timing event on the capturing stream at the stage's entry and one at
+    its exit."""
+    if _marks is None:
+        return span("urf::" + name)
+    return _timed_stage(name)
+
+
+@contextlib.contextmanager
+def _timed_stage(name: str):
+    marks = _marks
+    with span("urf::" + name):
+        start = _event()
+        yield
+        marks.append((name, start, _event()))
+
+
+def _event():
+    """A timing event recorded on the current stream: inside a capture,
+    an event-record node of the graph."""
+    ev = torch.cuda.Event(enable_timing=True, external=True)
+    ev.record()
+    return ev
+
+
+class StageEvents:
+    """The timing events of one traced capture of an entry of ``kind``:
+    ``first`` and ``last`` around the body, ``stages`` [(stage, start,
+    end)] in the body's order.  Each replay of the graph records them
+    anew."""
+
+    def __init__(self, kind: str, first):
+        self.kind = kind
+        self.first = first
+        self.last = None
+        self.stages: list = []
+
+
+@contextlib.contextmanager
+def timed_capture(kind: str):
+    """Around the body of a CUDA-graph capture: the stages entered inside
+    record their timing events, and the body gets one event before it and
+    one after.  Yields the StageEvents."""
+    global _marks
+    if _marks is not None:
+        raise RuntimeError("a traced capture is already under way")
+    events = StageEvents(kind, _event())
+    _marks = events.stages
+    try:
+        yield events
+    finally:
+        _marks = None
+    events.last = _event()
+
+
+class ReplayRecord:
+    """Device time inside the compiled entries' traced replays, per entry
+    kind (``totals``): "calls", the traced calls; "timed", the replays
+    whose events were read; "untimed", the replays whose events the next
+    replay of their graph overwrote before they had completed;
+    "stage_ms", {stage: device ms from its entry event to its exit event,
+    summed over the timed replays}; "replay_ms", device ms from the body's
+    first event to its last, summed.  A replay is ``pending`` from its
+    launch until its events are read."""
+
+    def __init__(self):
+        self.kinds: dict = {}
+        self.pending: list = []
+
+    def _kind(self, kind: str) -> dict:
+        return self.kinds.setdefault(kind, {
+            "calls": 0, "timed": 0, "untimed": 0, "stage_ms": {},
+            "replay_ms": 0.0})
+
+    def call(self, kind: str) -> str:
+        """Count a traced call of ``kind``; its number, as span args."""
+        rec = self._kind(kind)
+        rec["calls"] += 1
+        return str(rec["calls"])
+
+    def replayed(self, events: StageEvents) -> None:
+        """A replay of the graph that records ``events`` was launched."""
+        self.pending.append(events)
+
+    def settle(self, events: StageEvents) -> None:
+        """Before the graph that records ``events`` replays again: read its
+        pending replay if the last event has completed, else count it as
+        untimed.  Never waits."""
+        for k, ev in enumerate(self.pending):
+            if ev is events:
+                del self.pending[k]
+                self._read(events, wait=False)
+                return
+
+    def flush(self) -> None:
+        """Read every pending replay, waiting for its last event."""
+        while self.pending:
+            self._read(self.pending.pop(0), wait=True)
+
+    def _read(self, events: StageEvents, wait: bool) -> None:
+        rec = self._kind(events.kind)
+        if wait:
+            events.last.synchronize()
+        elif not events.last.query():
+            rec["untimed"] += 1
+            return
+        ms = rec["stage_ms"]
+        for name, start, end in events.stages:
+            ms[name] = ms.get(name, 0.0) + start.elapsed_time(end)
+        rec["replay_ms"] += events.first.elapsed_time(events.last)
+        rec["timed"] += 1
+
+    def totals(self) -> dict:
+        return {kind: dict(rec, stage_ms=dict(rec["stage_ms"]))
+                for kind, rec in self.kinds.items()}
+
+
+# The process's record.  It outlives the entries: an SP run may be freed
+# before its last replay is read.
+RECORD = ReplayRecord()
+
+
+def replay_record() -> dict:
+    """{entry kind: totals} of the process's traced replays
+    (ReplayRecord), pending ones left out until ``flush``."""
+    return RECORD.totals()
+
+
+def flush() -> None:
+    """Read the process's pending traced replays, waiting for them."""
+    RECORD.flush()
+
+
+def entry_call(kind: str) -> str | None:
+    """While a profiler records, count a call of a compiled entry of
+    ``kind`` and return its number; None otherwise (the entries' only
+    test of the switch when no profiler runs)."""
+    return RECORD.call(kind) if _build._profiling() else None
+
+
+def entry_span(kind: str, call: str | None):
+    """``urf::entry.<kind>`` with args ``call`` (entry_call's), or a null
+    context where ``call`` is None."""
+    return _NULL if call is None else record_function(
+        f"urf::entry.{kind}", call)
+
+
+__all__ = ["RECORD", "ReplayRecord", "StageEvents", "device_trace",
+           "entry_call", "entry_span", "flush", "replay_record", "span",
+           "stage", "stage_device_time", "timed_capture"]
