@@ -164,9 +164,12 @@
    fields swapped in turn and all at once on scan, packed and batch, no
    capture and the eager outputs under the new configuration (max_x=12
    changes the labels); a static swap, one capture; the launch counters
-   credited per replay; and, under torch.cuda.set_sync_debug_mode("error"),
-   no synchronising call on the eager or compiled scan, packed and batch
-   paths.  Prints each graph's nodes, capture and instantiation time and
+   credited per replay; phase 4's batch from pinned host memory (its copy
+   in lane groups behind the compute) bit-equal to process_batch, each
+   batch kernel launched once per lane group and LANE_GROUP_COPIES
+   counting every call's groups; and, under
+   torch.cuda.set_sync_debug_mode("error"), no synchronising call on the
+   eager or compiled scan, packed and batch paths.  Prints each graph's nodes, capture and instantiation time and
    pool bytes.
 10. Drives the compiled SP run (make_azimuth_pipeline(8) on the card: one
    CUDA graph of the whole SP run per key, replayed, the dynamic
@@ -2868,8 +2871,13 @@ def phase_compiled(dev, dims, bench_dims, configs, scans, bench, smi,
     output equal to the eager entry points' under the new configuration,
     max_x=12 changing the labels; a static swap, exactly one capture; (e)
     launch_counts credits each kernel of a graph once per launch it holds,
-    per replay; (f) under torch.cuda.set_sync_debug_mode("error") the eager
-    and compiled scan, packed and batch paths make no synchronising call.
+    per replay; (f) phase 4's batch from pinned host memory, as the replay
+    cell hands it (the lane-group entry, pipeline._LaneGroups), bit-equal
+    to process_batch, and over its replays LANE_GROUP_COPIES one call of
+    ceil(B / LANE_GROUP) groups each, every batch kernel (K11 too) once
+    per group; (g) under torch.cuda.set_sync_debug_mode("error") the eager
+    and compiled scan, packed and batch paths (the pinned batch too) make
+    no synchronising call.
     Prints each graph's kernel, memcpy and memset nodes, capture and
     instantiation ms and pool bytes.  Returns (f)'s launch counts."""
     import os
@@ -2997,7 +3005,42 @@ def phase_compiled(dev, dims, bench_dims, configs, scans, bench, smi,
     print(f"  (e) {reps} replays each of packed_scan_jit and "
           f"process_batch_jit (B = {b}): launches {launches}", flush=True)
 
-    # (f) No synchronising call, eager or compiled.
+    # (f) The batch from pinned host memory, as the replay cell hands it:
+    # the lane-group entry (pipeline._LaneGroups), each group's body after
+    # its group's copy.
+    pinned = planar.cpu().pin_memory()
+    for cfg in (FilterConfig(), FilterConfig(beam_zone=45.5)):
+        same_fields(process_batch_jit(pinned, cfg, bench_dims,
+                                      layout="planar", device=dev),
+                    process_batch(planar, cfg, bench_dims, layout="planar",
+                                  device=dev),
+                    f"process_batch_jit, pinned, beam_zone {cfg.beam_zone}")
+    groups = pl.lane_groups(b, pl.LANE_GROUP)
+    entries = [e for key, e in pl.compiled_entries().items()
+               if key[-1] == dev and isinstance(e, pl._LaneGroups)]
+    assert len(entries) == 1 and entries[0].groups == groups, entries
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    copies = dict(pl.LANE_GROUP_COPIES)
+    for _ in range(reps):
+        process_batch_jit(pinned, FilterConfig(), bench_dims,
+                          layout="planar", device=dev)
+    grouped = launch_counts()
+    assert pl.LANE_GROUP_COPIES == {
+        "calls": copies["calls"] + reps,
+        "groups": copies["groups"] + reps * len(groups)}, (
+        copies, pl.LANE_GROUP_COPIES)
+    for k in SCAN_KERNELS:  # one per group (K11 one per 128 of its lanes)
+        per = sum(-(-(hi - lo) // 128) if k == "gather_pack" else 1
+                  for lo, hi in groups)
+        assert grouped[k] == reps * per, (k, grouped[k], reps * per)
+    print(f"  (f) process_batch_jit on the {b} planar scans from pinned "
+          f"memory: {len(groups)} lane groups of {pl.LANE_GROUP}, bit-equal "
+          f"to process_batch (default and beam_zone 45.5); {reps} replays: "
+          f"LANE_GROUP_COPIES {pl.LANE_GROUP_COPIES}, launches {grouped}",
+          flush=True)
+
+    # (g) No synchronising call, eager or compiled.
     on = dict(device=dev)
     bat = dict(layout="planar", device=dev)
     calls = {
@@ -3012,6 +3055,8 @@ def phase_compiled(dev, dims, bench_dims, configs, scans, bench, smi,
                                                    **on),
         "process_batch_jit": lambda: process_batch_jit(
             planar, FilterConfig(), bench_dims, **bat),
+        "process_batch_jit, pinned": lambda: process_batch_jit(
+            pinned, FilterConfig(), bench_dims, **bat),
         "packed_scan_jit, hot swap": lambda: packed_scan_jit(
             pts, FilterConfig(beam_zone=42.5), dims, **on)}
     for fn in calls.values():
@@ -3025,7 +3070,7 @@ def phase_compiled(dev, dims, bench_dims, configs, scans, bench, smi,
         finally:
             torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
-    print(f"  (f) no synchronising call under set_sync_debug_mode('error'):"
+    print(f"  (g) no synchronising call under set_sync_debug_mode('error'):"
           f" {', '.join(calls)}", flush=True)
     for key, e in pl.compiled_entries().items():
         if key[-1] == dev:

@@ -3,9 +3,9 @@ the CPU: the counterpart of tests/test_config_dynamic.py.
 
 process_scan_jit, packed_scan_jit and process_batch_jit keep one entry per
 (static half of the configuration, dims, layout, input shape and dtype,
-device), with a parameter buffer of its own that the stages read (on the
-card a CUDA graph captured once and replayed; here the plain twins on the
-same buffer).  A change of any of the 15 dynamic fields must reuse the
+entry class, device), with a parameter buffer of its own that the stages
+read (on the card a CUDA graph captured once and replayed; here the plain
+twins on the same buffer).  A change of any of the 15 dynamic fields must reuse the
 entry (CAPTURE_COUNTS unchanged) and take effect: every output equals the
 eager entry point's under the new configuration bit for bit, and the JAX
 package's jitted entry points exactly or within the classes of
@@ -13,7 +13,9 @@ tests/test_torch_pipeline.py (0 unexplained flips: XLA's jitted CPU code
 fuses multiply-adds).  A change of a static field makes one new entry.
 make_sharded_pipeline's ``cfg_now`` swap makes none and changes the
 labels.  On the card chip_smoke.py phase 9 runs the same swaps through the
-graphs.
+graphs.  The batch entry's lane groups (a batch from pinned host memory):
+its body over the groups equals the body over the whole batch, and the
+rule that picks it (tests/test_torch_kernels_gpu.py runs it on the card).
 """
 
 import numpy as np
@@ -170,7 +172,7 @@ def test_entry_reads_its_parameter_buffer(pts):
     cfg = FilterConfig(beam_zone=42.5, dmin_param=8)
     process_scan_jit(pts, cfg, DIMS, device="cpu")
     key = ("scan", cfg.split()[0], DIMS, "rows", tuple(pts.shape),
-           torch.float32, torch.device("cpu"))
+           torch.float32, pl._Compiled, torch.device("cpu"))
     entry = pl.compiled_entries()[key]
     want = torch.from_numpy(C.pack_dyn(cfg.split()[1]))
     assert torch.equal(entry.params.view(torch.int32),
@@ -217,3 +219,60 @@ def test_sharded_swap_no_capture(n_devices, batch):
     _same(out2, process_batch(torch.from_numpy(stack),
                               FilterConfig(max_x=12.0), DIMS, device="cpu"),
           "sharded")
+
+
+@pytest.fixture(scope="module")
+def eight_lanes(pts):
+    """(8, N, 4) rows of scans that differ: three scenes, two seeds each,
+    an empty lane and a lane under the 30-point gate."""
+    scans = [make_scan(SCENES[s](), n_rings=24, n_azimuth=384, seed=k)
+             for s in ("two_curbs", "blind_spot", "curb_gap")
+             for k in (7, 8)]
+    scans += [np.zeros((0, 4), np.float32),
+              np.tile(np.float32([[1, 0, -2, 0]]), (10, 1))]
+    return torch.from_numpy(np.stack([pad_scan(s, DIMS.max_points)
+                                      for s in scans]))
+
+
+@pytest.mark.parametrize("b,group,layout", [(8, 2, "rows"),
+                                            (8, 4, "planar"),
+                                            (7, 2, "rows")])
+def test_lane_groups_equal_the_whole_batch(b, group, layout, eight_lanes):
+    """The pinned batch entry's body (pipeline._LaneGroups) on the plain
+    twins: the stages over each lane group of the batch (ceil(b / group)
+    groups, the last one short where group does not divide b), each
+    group's outputs written into its lanes of new (b, ...) fields, are
+    bit-equal on every ScanResult field to the stages over the whole
+    batch."""
+    rows = eight_lanes[:b]
+    pts = rows if layout == "rows" else torch.from_numpy(
+        pl.planarize_batch(rows.numpy()))
+    cfg = C.device_config(FilterConfig(), "cpu")
+    groups = pl.lane_groups(b, group)
+    assert len(groups) == -(-b // group) and groups[-1][1] == b
+    assert [hi - lo for lo, hi in groups][:-1] == [group] * (len(groups) - 1)
+    got = pl._joined(pl._batch_groups(pl._batch_on, pts, cfg, DIMS, layout,
+                                      groups))
+    want = pl._batch_on(pts, cfg, DIMS, layout)
+    assert got._fields == want._fields
+    _same(got, want, f"{b} lanes in groups of {group}")
+    assert got.ok.tolist() == [True] * 6 + [False] * (b - 6)
+
+
+@pytest.mark.parametrize("on_host,pinned,lanes,group,want", [
+    (True, True, 32, 16, True),
+    (True, True, 128, 16, True),
+    (True, True, 7, 2, True),
+    (True, True, 31, 16, False),   # fewer than two groups
+    (True, True, 16, 16, False),
+    (True, False, 128, 16, False),  # pageable
+    (False, False, 128, 16, False),  # on the card already
+])
+def test_grouped_copy_in_rule(on_host, pinned, lanes, group, want):
+    """The batch entry copies in by lane groups only from pinned host
+    memory and with at least two groups; everything else, and every
+    entry on the CPU, takes the whole-batch copy."""
+    assert pl.grouped_copy_in(on_host, pinned, lanes, group) is want
+    batch = torch.zeros((2 * pl.LANE_GROUP, 8, 4))
+    assert pl._batch_entry(batch, "rows", "cpu") is pl._Compiled
+    assert pl._batch_entry(batch.numpy(), "rows", "cpu") is pl._Compiled

@@ -42,7 +42,11 @@ lane; the traced variants that packed_scan_jit, process_batch_jit and the
 SP run capture while a profiler records: as many kernel, memcpy and memset
 nodes as the plain graph, which stays as it was, outputs bit-equal to its
 replays, no count in CAPTURE_COUNTS, every stage timed and the stages
-within the replay.  Run on a machine with the
+within the replay; the batch entry's lane groups (a batch from pinned host
+memory): 128 OS1-64 scans bit-equal to the same batch from device memory,
+calls back to back with the copy stream held back, a hot swap without
+re-capture, and LANE_GROUP_COPIES moved only by pinned batches of two
+groups or more.  Run on a machine with the
 card
 (tests/conftest.py imports jax, which a GPU host without JAX skips with
 --noconftest):
@@ -1930,6 +1934,144 @@ def test_batch_launches_once_and_jit_equals_lanes(dev, cfg):
             planes[:, b], cfg, LANE_DIMS, layout="planar"))
 
 
+# ---- the batch entry's lane groups (a batch from pinned host memory) ----
+
+OS1_64 = PipelineDims(max_points=131072, rings=64, ring_capacity=2048,
+                      beam_capacity=512)
+
+
+@pytest.fixture(scope="module")
+def os1_64_batches(dev):
+    """Two (128, 131072, 4) batches in pinned host memory: 8 OS1-64 scans
+    (4 scenes, 64 rings x 2048 azimuths) on 16 lanes each, in two
+    orders."""
+    names = ("two_curbs", "blind_spot", "curb_gap", "high_curbs")
+    scans = [pad_scan(make_scan(SCENES[names[k % 4]](), n_rings=64,
+                                n_azimuth=2048, seed=k), OS1_64.max_points)
+             for k in range(8)]
+    rng = np.random.default_rng(0)
+    return [torch.from_numpy(np.stack([scans[j] for j in rng.permutation(
+        np.repeat(np.arange(8), 16))])).pin_memory() for _ in range(2)]
+
+
+def _lane_group_entry(shape, layout="rows"):
+    from urban_road_filter_torch import pipeline as pl
+
+    (entry,) = [e for k, e in pl._compiled.items()
+                if type(e) is pl._LaneGroups and k[3] == layout
+                and k[4] == tuple(shape)]
+    return entry
+
+
+@pytest.mark.parametrize("layout", ["rows", "planar"])
+def test_lane_groups_equal_the_device_batch(dev, os1_64_batches, layout):
+    """A pinned batch of 128 OS1-64 scans goes in by lane groups: one new
+    entry, one call of ceil(128 / LANE_GROUP) groups in LANE_GROUP_COPIES,
+    and every ScanResult field bit-equal to process_batch_jit of the same
+    batch handed over from device memory (the whole batch copied in, one
+    body over the 128 lanes)."""
+    from urban_road_filter_torch import pipeline as pl
+    from urban_road_filter_torch import process_batch_jit
+
+    host = os1_64_batches[0]
+    if layout == "planar":
+        host = torch.from_numpy(planarize_batch(host.numpy())).pin_memory()
+    cfg = FilterConfig()
+    want = process_batch_jit(host.to(dev), cfg, OS1_64, layout=layout)
+    captures = dict(pl.CAPTURE_COUNTS)
+    before = dict(pl.LANE_GROUP_COPIES)
+    got = process_batch_jit(host, cfg, OS1_64, layout=layout)
+    captures["batch"] += 1
+    assert pl.CAPTURE_COUNTS == captures
+    assert pl.LANE_GROUP_COPIES == {
+        "calls": before["calls"] + 1,
+        "groups": before["groups"] + -(-128 // pl.LANE_GROUP)}
+    entry = _lane_group_entry(host.shape, layout)
+    assert entry.groups == pl.lane_groups(128, pl.LANE_GROUP)
+    _assert_same(got, want)
+    assert got.ok.shape == (128,) and bool(got.ok.all())
+
+
+def test_lane_groups_back_to_back(dev, os1_64_batches):
+    """Pinned batches through the lane-group entry with no synchronisation
+    between the calls, the copy stream held back before the second (its
+    graph must wait for every group's copy) and the first batch again
+    right after it (its copies must wait for the last replay): each
+    result bit-equal to its batch's from device memory, none overwritten
+    by a later call."""
+    from urban_road_filter_torch import process_batch_jit
+
+    cfg = FilterConfig()
+    first, second = os1_64_batches
+    wants = [process_batch_jit(h.to(dev), cfg, OS1_64)
+             for h in (first, second)]
+    process_batch_jit(first, cfg, OS1_64)
+    entry = _lane_group_entry(first.shape)
+    torch.cuda.synchronize()
+    a = process_batch_jit(first, cfg, OS1_64)
+    with torch.cuda.stream(entry.stream):
+        torch.cuda._sleep(100_000_000)  # tens of ms at the card's clocks
+    b = process_batch_jit(second, cfg, OS1_64)
+    c = process_batch_jit(first, cfg, OS1_64)
+    torch.cuda.synchronize()
+    _assert_same(a, wants[0])
+    _assert_same(b, wants[1])
+    _assert_same(c, wants[0])
+    assert not torch.equal(a.labels, b.labels)
+
+
+def test_lane_groups_hot_swap_without_recapture(dev, os1_64_batches):
+    """Other dynamic values on the lane-group entry: no new capture
+    (CAPTURE_COUNTS unchanged), and the new values take effect, bit-equal
+    to the batch's from device memory under them."""
+    from urban_road_filter_torch import pipeline as pl
+    from urban_road_filter_torch import process_batch_jit
+
+    host = os1_64_batches[1]
+    default = process_batch_jit(host, FilterConfig(), OS1_64)
+    swapped = FilterConfig(beam_zone=45.5, max_x=12.0)
+    before = dict(pl.CAPTURE_COUNTS)
+    got = process_batch_jit(host, swapped, OS1_64)
+    assert pl.CAPTURE_COUNTS == before
+    _assert_same(got, process_batch_jit(host.to(dev), swapped, OS1_64))
+    assert int(got.roi.sum()) < int(default.roi.sum())
+
+
+def test_lane_group_copies_only_for_pinned_batches(dev):
+    """LANE_GROUP_COPIES moves only for a batch in pinned host memory of
+    at least two lane groups: not for a scan from pinned memory
+    (packed_scan_jit, process_scan_jit, the SP run), nor for a batch on
+    the card, in pageable memory or one lane short of two groups; then
+    2 * LANE_GROUP pinned lanes make one call of two groups, bit-equal
+    lane by lane to the device batch's."""
+    from urban_road_filter_torch import pipeline as pl
+    from urban_road_filter_torch import (
+        packed_scan_jit, process_batch_jit, process_scan_jit)
+    from urban_road_filter_torch.parallel.azimuth_parallel import (
+        make_azimuth_pipeline)
+
+    cfg = FilterConfig()
+    b = 2 * pl.LANE_GROUP
+    wide = _batch_rows("cpu", N, 16, range(b + 1))
+    sp_dims = PipelineDims(max_points=8192, rings=RINGS, ring_capacity=CAP)
+    sp_run = make_azimuth_pipeline(8, cfg, sp_dims)
+    before = dict(pl.LANE_GROUP_COPIES)
+    scan = wide[0].pin_memory()
+    packed_scan_jit(scan, cfg, LANE_DIMS)
+    process_scan_jit(scan, cfg, LANE_DIMS)
+    sp_run(_sp_scan("cpu", sp_dims).pin_memory())
+    want = process_batch_jit(wide.to(dev), cfg, LANE_DIMS)
+    process_batch_jit(wide, cfg, LANE_DIMS)
+    short = process_batch_jit(wide[:b - 1].pin_memory(), cfg, LANE_DIMS)
+    torch.cuda.synchronize()
+    assert pl.LANE_GROUP_COPIES == before
+    got = process_batch_jit(wide[:b].pin_memory(), cfg, LANE_DIMS)
+    assert pl.LANE_GROUP_COPIES == {"calls": before["calls"] + 1,
+                                    "groups": before["groups"] + 2}
+    _assert_same(got, [f[:b] for f in want])
+    _assert_same(short, [f[:b - 1] for f in want])
+
+
 # ---- the traced variants of the compiled entries (a profiler recording) ----
 
 TRACED_STAGES = {
@@ -1943,7 +2085,8 @@ TRACED_STAGES["batch"] = TRACED_STAGES["packed"]
 def _entry_calls(dev, kind, group=None):
     """(call(seed) -> outputs, the entry's cache, its input shape) of a
     compiled entry of ``kind`` on the card, at a small size (the SP run
-    over ``group`` where one is given)."""
+    over ``group`` where one is given; "batch-pinned": the batch entry of
+    two lane groups from pinned host memory)."""
     from urban_road_filter_torch import packed_scan_jit, process_batch_jit
     from urban_road_filter_torch import pipeline as pl
     from urban_road_filter_torch.parallel.azimuth_parallel import (
@@ -1959,12 +2102,18 @@ def _entry_calls(dev, kind, group=None):
         return ((lambda seed: process_batch_jit(_batch_rows(
             dev, N, 16, (seed, seed + 1, seed + 2)), cfg, LANE_DIMS)),
             pl._compiled, (3, N, 4))
+    if kind == "batch-pinned":
+        b = 2 * pl.LANE_GROUP
+        return ((lambda seed: process_batch_jit(_batch_rows(
+            "cpu", N, 16, range(seed, seed + b)).pin_memory(), cfg,
+            LANE_DIMS)), pl._compiled, (b, N, 4))
     return ((lambda seed: packed_scan_jit(
         _batch_rows(dev, N, 16, (seed,))[0], cfg, LANE_DIMS)),
         pl._compiled, (N, 4))
 
 
-@pytest.mark.parametrize("kind", ["packed", "batch", "sp", "sp-nccl"])
+@pytest.mark.parametrize("kind", ["packed", "batch", "batch-pinned", "sp",
+                                  "sp-nccl"])
 def test_traced_variant_beside_the_plain_graph(dev, kind, request):
     """A profiler recording: the entry captures its traced variant once,
     counted in TRACED_CAPTURES and not in CAPTURE_COUNTS, with as many
@@ -1973,15 +2122,19 @@ def test_traced_variant_beside_the_plain_graph(dev, kind, request):
     bit-equal to plain replays on the same scans and credit the same
     launches; untraced calls replay the plain graph again; every stage is
     timed, and the stages sum to at most the replay.  "sp-nccl": the SP
-    run over the one-rank NCCL group, its collectives in both graphs."""
+    run over the one-rank NCCL group, its collectives in both graphs;
+    "batch-pinned": the batch entry's lane groups, each stage entered once
+    a group and its times summed over them."""
     from torch.profiler import ProfilerActivity, profile
 
     from urban_road_filter_torch import pipeline as pl
     from urban_road_filter_torch.utils import profiling
 
     group = request.getfixturevalue("nccl") if kind == "sp-nccl" else None
+    call, cache, shape = _entry_calls(
+        dev, "batch-pinned" if kind == "batch-pinned" else kind.split("-")[0],
+        group)
     kind = kind.split("-")[0]
-    call, cache, shape = _entry_calls(dev, kind, group)
     plain = [call(s) for s in (3, 5)]
     (entry,) = [e for k, e in cache.items()
                 if k[0] == kind and k[4] == shape and k[-1] == dev]

@@ -22,9 +22,7 @@ import torch
 
 from urban_road_filter_torch.config import FilterConfig, PipelineDims
 from urban_road_filter_torch.pipeline import (
-    ScanResult, process_batch_jit, target_device)
-
-_SCAN_AXIS = {"rows": 0, "planar": 1}
+    _LANE_AXIS, ScanResult, process_batch_jit, target_device)
 
 
 def make_sharded_pipeline(devices, cfg: FilterConfig, dims: PipelineDims):
@@ -42,14 +40,14 @@ def make_sharded_pipeline(devices, cfg: FilterConfig, dims: PipelineDims):
     def run(pts, cfg_now: FilterConfig | None = None,
             layout: str = "rows") -> ScanResult:
         c = cfg if cfg_now is None else cfg_now
-        if layout not in _SCAN_AXIS:
+        if layout not in _LANE_AXIS:
             raise ValueError(f"layout must be 'rows' or 'planar', got "
                              f"{layout!r}")
         if len(devices) == 1:
             return process_batch_jit(pts, c, dims, layout=layout,
                                      device=devices[0])
         pts = torch.as_tensor(pts)
-        axis = _SCAN_AXIS[layout]
+        axis = _LANE_AXIS[layout]
         if pts.ndim != 3 or pts.shape[axis] == 0:
             raise ValueError(f"expected a non-empty {layout} batch, got "
                              f"shape {tuple(pts.shape)}")

@@ -33,12 +33,16 @@ dynamic half (config.DynConfig) from a device parameter buffer
 of scans under one configuration makes no host-to-device copy for it).
 
 The compiled entry points (``*_jit``) capture the same stages once per key
-(the static half, dims, layout, input shape and dtype, device) into a CUDA
-graph, with an input buffer and a parameter buffer of their own, and
-replay it: a call copies its input in, writes the parameter buffer only
-when the dynamic values changed (a hot swap, no re-capture), replays, and
-returns copies of the graph's outputs.  On the CPU they keep the same
-cache and counts and run the plain twins on their parameter buffer.
+(the static half, dims, layout, input shape and dtype, how the input is
+copied in, device) into a CUDA graph, with an input buffer and a parameter
+buffer of their own, and replay it: a call copies its input in, writes the
+parameter buffer only when the dynamic values changed (a hot swap, no
+re-capture), replays, and returns copies of the graph's outputs.  A batch
+in pinned host memory of at least two lane groups (LANE_GROUP lanes) goes
+in by groups on a copy stream of its own, and the graph runs each group's
+stages as soon as its lanes have landed, so the copy runs behind the
+compute (_LaneGroups).  On the CPU the entries keep the same cache and
+counts and run the plain twins on their parameter buffer.
 While a torch profiler records, an entry's call sits in named ranges (its
 copy-in, launch and clones apart) and replays a traced variant of its
 graph, whose stages time themselves on the device (utils.profiling); the
@@ -277,6 +281,19 @@ CAPTURE_COUNTS = {"scan": 0, "packed": 0, "batch": 0, "sp": 0}
 # The traced variants' captures per entry kind, apart: at most one an
 # entry, on its first call while a profiler records.
 TRACED_CAPTURES = {"scan": 0, "packed": 0, "batch": 0, "sp": 0}
+# The batch calls whose input went in by lane groups (_LaneGroups), and
+# the groups they made.
+LANE_GROUP_COPIES = {"calls": 0, "groups": 0}
+
+# Lanes a group of a batch copied in behind its compute (_LaneGroups).
+# Smaller groups expose less of the first copy but add a body's fixed
+# device cost per group; on one H100 with OS1-64 batches of 128, 32 came
+# out ahead of 8, 16 and 64.
+LANE_GROUP = 32
+
+# The lane axis of a batch in each layout: (B, N, >=3) rows, (3, B, N)
+# planar.
+_LANE_AXIS = {"rows": 0, "planar": 1}
 
 _compiled: dict = {}  # key -> _Compiled
 
@@ -293,6 +310,47 @@ _BODIES = {"scan": lambda *a: _scan_on(*a)[0], "packed": _packed_outputs,
 def _clones(out):
     outs = tuple(t.clone() for t in out)
     return out._make(outs) if hasattr(out, "_make") else outs
+
+
+def grouped_copy_in(on_host: bool, pinned: bool, lanes: int,
+                    group: int) -> bool:
+    """Whether a batch of ``lanes`` lanes goes into the card by lane groups
+    of ``group`` behind its compute: only from pinned host memory, whose
+    copy runs on the copy engine without the host (a pageable copy blocks
+    the host while it stages, a device copy-in is short), and only with
+    two groups or more."""
+    return on_host and pinned and lanes >= 2 * group
+
+
+def lane_groups(lanes: int, group: int) -> list:
+    """[(first lane, end lane)] of ``lanes`` lanes cut into groups of
+    ``group``, the last group holding the rest."""
+    return [(lo, min(lo + group, lanes)) for lo in range(0, lanes, group)]
+
+
+def _lanes(pts, layout: str, lo: int, hi: int):
+    """Lanes lo:hi of a batch, a view."""
+    return pts[lo:hi] if layout == "rows" else pts[:, lo:hi]
+
+
+def _batch_groups(body, pts, cfg, dims: PipelineDims, layout: str, groups,
+                  landed=()) -> list:
+    """[body over each lane group of a batch], in the order of ``groups``
+    (lane_groups'); with ``landed``, one event per group, the current
+    stream waits for a group's event before its stages."""
+    outs = []
+    for k, (lo, hi) in enumerate(groups):
+        if landed:
+            landed[k].wait()
+        outs.append(body(_lanes(pts, layout, lo, hi), cfg, dims, layout))
+    return outs
+
+
+def _joined(outs) -> ScanResult:
+    """The lane groups' ScanResults as one: every field a new (B, ...)
+    tensor, each group's lanes written into its slice (one copy of every
+    output, as _clones makes)."""
+    return ScanResult(*(torch.cat(parts) for parts in zip(*outs)))
 
 
 class _Compiled:
@@ -381,9 +439,17 @@ class _Compiled:
             return self.body(pts, self.cfg, self.dims, self.layout)
         # The ticket check (it may raise) before anything is enqueued.
         _build.replayed(self.launches, self.ticketed, self.input.device)
-        self.input.copy_(pts, non_blocking=True)
+        self._copy_in(pts)
         self.graph.replay()
-        return _clones(self.out)
+        return self._outputs(self.out)
+
+    def _copy_in(self, pts) -> None:
+        """The call's input into the input buffer, on the current stream."""
+        self.input.copy_(pts, non_blocking=True)
+
+    def _outputs(self, out):
+        """The call's outputs: copies of the graph's ``out``."""
+        return _clones(out)
 
     def _traced_call(self, pts, call: str):
         """__call__ while a profiler records: the traced variant replayed,
@@ -403,22 +469,77 @@ class _Compiled:
         with span("urf::stage_read", call):
             profiling.RECORD.settle(events)
         with span("urf::copy_in", call):
-            self.input.copy_(pts, non_blocking=True)
+            self._copy_in(pts)
         with span("urf::launch", call):
             graph.replay()
         profiling.RECORD.replayed(events)
         with span("urf::clone", call):
-            return _clones(out)
+            return self._outputs(out)
+
+
+class _LaneGroups(_Compiled):
+    """The batch entry for a batch in pinned host memory
+    (grouped_copy_in): its input goes in by lane groups of LANE_GROUP on a
+    copy stream of its own, each group's copy followed by its event, and
+    the graph holds one body per group (``body`` over the group's lanes,
+    _batch_groups), each after a wait on its group's event (an event-wait
+    node), so group g + 1's copy runs while group g computes.  Compute
+    stays on the current stream; only the copies leave it.  A call
+    returns new (B, ...) fields, each group's outputs copied into its
+    lanes (_joined), and counts in LANE_GROUP_COPIES."""
+
+    def __init__(self, kind: str, body, st, dyn, dims: PipelineDims,
+                 layout: str, pts: torch.Tensor):
+        self.groups = lane_groups(pts.shape[_LANE_AXIS[layout]], LANE_GROUP)
+        self.stream = torch.cuda.Stream(pts.device)
+        self.landed = [torch.cuda.Event(external=True) for _ in self.groups]
+        self.free = torch.cuda.Event()  # the current stream's work, per call
+
+        def groups(pts, cfg, dims, layout):
+            return _batch_groups(body, pts, cfg, dims, layout, self.groups,
+                                 self.landed)
+
+        super().__init__(kind, groups, st, dyn, dims, layout, pts)
+
+    def _capture(self, pts: torch.Tensor, dyn) -> None:
+        # An event exists from its first record on: the capture's waits
+        # need theirs (a wait on an event never recorded enqueues nothing).
+        for landed in self.landed:
+            landed.record(self.stream)
+        super()._capture(pts, dyn)
+
+    def _copy_in(self, pts) -> None:
+        """Each group's lanes into its lanes of the input buffer on the copy
+        stream, each followed by its group's event, once the work already
+        on the current stream (the last replay reads the buffer; the input
+        may come from that stream's work) is done."""
+        LANE_GROUP_COPIES["calls"] += 1
+        LANE_GROUP_COPIES["groups"] += len(self.groups)
+        self.free.record(torch.cuda.current_stream(self.input.device))
+        self.stream.wait_event(self.free)
+        planar = self.layout == "planar"
+        with torch.cuda.stream(self.stream):
+            for (lo, hi), landed in zip(self.groups, self.landed):
+                dst = _lanes(self.input, self.layout, lo, hi)
+                src = _lanes(pts, self.layout, lo, hi)
+                # One contiguous block a plane: a strided copy from the
+                # host would stage through pageable memory.
+                for d, s in (zip(dst, src) if planar else ((dst, src),)):
+                    d.copy_(s, non_blocking=True)
+                landed.record()
+
+    def _outputs(self, out) -> ScanResult:
+        return _joined(out)
 
 
 def compiled_entry(cache: dict, kind: str, body, pts, cfg: FilterConfig,
-                   dims: PipelineDims, layout: str, device):
+                   dims: PipelineDims, layout: str, device, make=_Compiled):
     """``(entry, pts, dyn)``: the entry of ``cache`` for this call's key
-    (kind, static half of cfg, dims, layout, input shape and dtype,
-    device), made on a miss (on the card: captured, and counted in
-    CAPTURE_COUNTS[kind]) with ``body`` as its stages; ``entry(pts, dyn,
-    call=None)`` is the call, which writes the dynamic half of cfg into
-    the entry's parameter buffer."""
+    (kind, static half of cfg, dims, layout, input shape and dtype, the
+    entry's class ``make``, device), made on a miss (on the card:
+    captured, and counted in CAPTURE_COUNTS[kind]) with ``body`` as its
+    stages; ``entry(pts, dyn, call=None)`` is the call, which writes the
+    dynamic half of cfg into the entry's parameter buffer."""
     dev = target_device(device)
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
@@ -426,23 +547,35 @@ def compiled_entry(cache: dict, kind: str, body, pts, cfg: FilterConfig,
     if dev.type == "cpu":
         pts = pts.to(dev)
     st, dyn = split_cached(cfg)
-    key = (kind, st, dims, layout, tuple(pts.shape), pts.dtype, dev)
+    key = (kind, st, dims, layout, tuple(pts.shape), pts.dtype, make, dev)
     entry = cache.get(key)
     if entry is None:
-        entry = _Compiled(kind, body, st, dyn, dims, layout,
-                          pts.to(dev, non_blocking=True))
+        entry = make(kind, body, st, dyn, dims, layout,
+                     pts.to(dev, non_blocking=True))
         cache[key] = entry
         CAPTURE_COUNTS[kind] += 1
     return entry, pts, dyn
 
 
 def _run_compiled(kind: str, pts, cfg: FilterConfig, dims: PipelineDims,
-                  layout: str, device):
+                  layout: str, device, make=_Compiled):
     call = profiling.entry_call(kind)  # None unless a profiler records
     with profiling.entry_span(kind, call):
         entry, pts, dyn = compiled_entry(_compiled, kind, _BODIES[kind], pts,
-                                         cfg, dims, layout, device)
+                                         cfg, dims, layout, device, make)
         return entry(pts, dyn, call)
+
+
+def _batch_entry(pts, layout: str, device) -> type:
+    """The batch entry's class for this input: _LaneGroups where
+    grouped_copy_in says so of a host tensor bound for the card."""
+    if (isinstance(pts, torch.Tensor) and pts.ndim == 3
+            and layout in _LANE_AXIS
+            and target_device(device).type == "cuda"
+            and grouped_copy_in(pts.device.type == "cpu", pts.is_pinned(),
+                                pts.shape[_LANE_AXIS[layout]], LANE_GROUP)):
+        return _LaneGroups
+    return _Compiled
 
 
 def compiled_entries() -> dict:
@@ -476,8 +609,11 @@ def process_batch_jit(pts, cfg: FilterConfig, dims: PipelineDims,
     the lane axis and one gather + pack over the batch in one graph),
     cached and
     hot-swapped as process_scan_jit.  Its per-point fields are new (B, N)
-    tensors."""
-    return _run_compiled("batch", pts, cfg, dims, layout, device)
+    tensors.  A batch in pinned host memory of at least 2 * LANE_GROUP
+    lanes goes in by lane groups behind its compute (_LaneGroups), with
+    the same results."""
+    return _run_compiled("batch", pts, cfg, dims, layout, device,
+                         _batch_entry(pts, layout, device))
 
 
 def unpack_planes(packed):

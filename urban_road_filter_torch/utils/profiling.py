@@ -24,9 +24,11 @@ The ranges:
                        its kind's traced calls.  Inside it, with the same
                        args:
     urf::stage_read    the previous traced replay's events read
-    urf::copy_in       the input copied into the entry's buffer
+    urf::copy_in       the input copied into the entry's buffer (a batch
+                       in lane groups: the groups' copies enqueued)
     urf::launch        the graph's replay (on the CPU, the body's run)
-    urf::clone         the outputs' clones
+    urf::clone         the outputs' clones (lane groups: each group's
+                       outputs written into the call's fields)
 
 A CUDA-graph replay runs no Python, so a replay has no stage ranges.
 Instead each compiled entry captures, on its first call while tracing, a
@@ -34,7 +36,8 @@ second, traced variant of its body whose stages record timing events
 (CUDA event-record nodes, no device row) at their entry and exit, and one
 each before and after the body; traced calls replay it, and the entry
 reads a replay's events at its next traced call, once the last has
-completed (``ReplayRecord``).
+completed (``ReplayRecord``).  A stage entered more than once in a body
+(the batch entry's lane groups) is timed each time, and its times add.
 
 The profiler links a ctypes launch to the innermost range, and only on
 the device timeline: the range's projection there spans the device ops
