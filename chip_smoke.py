@@ -6,8 +6,10 @@
 1. Builds the port's CUDA kernels from urban_road_filter_torch/csrc with
    nvcc (sm_90a) and prints the build time and the card's name and power
    limit.
-2. Holds each of the 14 kernels (the list is _build.KERNELS) against its
-   plain PyTorch twin on the card; every output must be bit-equal.  The
+2. Holds each of the 15 kernels (the list is _build.KERNELS: the 14 that
+   replace TPU kernels and the ring geometry, which replaces the tensorize
+   stage's glue) against its plain PyTorch twin on the card; every output
+   must be bit-equal.  The
    batch ingest (K1 ingest_prep, with and without the star keys, K2
    discover_rings, K3 assign_rings) runs, timed, on the phase-4 batch (128
    planar scans of 131072 points, 64 rings), at B = 1 on one OS1-64 drive
@@ -26,7 +28,8 @@
    launch zeroes its in-ROI counts itself).
    The per-scan kernels (K4 star search, K5 rank, K6 place, K7 x/z-zero,
    K8 + K9 flood fill, K10 markers, K11 gather+pack, K12 road mask, K13
-   marker keys, K14 marker state) run on one emulated OS1-64 scan (131072
+   marker keys, K14 marker state, the ring geometry after K6, also in the
+   SP path's form) run on one emulated OS1-64 scan (131072
    points, 64 rings x 4096 slots), and again at the two shapes phase 4
    gives them: a bench lane (64 rings x 2048 slots) and a merged
    multi-LiDAR scan (262144 points, 128 rings x 2048 slots).  At each
@@ -49,11 +52,15 @@
    op, timed on one table: its marks ignore the label) and, returning a
    new table, at window sizes 3, 10 and 30; its bound counts the slots it
    must read and the marks it writes, printed with the byte formula.
-   K8 also with every slot a curb (its worst case, timed).  K7's SP entry
-   (the stencils over every wedge's ring segments with their halo points,
-   in place, one device op), K8 and K14's two passes also at the SP
-   path's stacked shape (8 wedges of 128 x 384 slots of the OS1-128 scan,
-   one launch each over all wedges), timed.
+   K8 also with every slot a curb (its worst case, timed).  The ring
+   geometry timed at 64 x 4096 and on the bench lane (64 x 2048), its
+   plain twin being the glue it replaced, its bound 16 B a slot written,
+   8 B a placed slot read and 8 B a row (rg_bytes).  K7's SP entry (the
+   stencils over every wedge's ring segments with their halo points, in
+   place, one device op), the ring geometry as sp_tensorize and
+   sort_by_azimuth call it, K8 and K14's two passes also at the SP path's
+   stacked shape (8 wedges of 128 x 384 slots of the OS1-128 scan, one
+   launch each over all wedges), timed.
    On the OS1-64 scan the unfused path (blind_spots(want_marker_f=False),
    K8 + K12, then marker_points(kf=None), K13 + K10) must equal the fused
    one bit for bit; K13 must be one device op a call (no fill).  Prints
@@ -91,11 +98,11 @@
    oracle gate as in phase 3 (128 channels for the 128-ring scan); no
    overflow.  Prints the SP scan latency p50 host to host.  The SP runs
    here are the stages op by op (run.eager; phase 10 replays them).  Each
-   SP scan
-   must launch K7 and K8 once and K14 twice.  K12 and K13 are held
-   against their twins again at the per-wedge shapes, K7's SP entry, K8
-   and K14 over the stacked wedges, K14 with the run's own g_offset and
-   f_init; the sp_xz_zero stage's device ops are printed (torch.profiler).
+   SP scan must launch K7 and K8 once and K14 and the ring geometry
+   twice.  K12 and K13 are held against their twins again at the
+   per-wedge shapes, K7's SP entry, K8 and K14 over the stacked wedges,
+   K14 with the run's own g_offset and f_init; the sp_xz_zero stage's
+   device ops are printed (torch.profiler).
 6. Drives the port's replay harness (io.replay.ReplayHarness) on the card:
    (a) the three recorded-style PCD fixtures of tests/fixtures (16384
    points, binary_compressed, NaN rows sent as they are), read by the
@@ -124,8 +131,8 @@
    utils.profiling.device_trace: a trace file written, each launch of
    K1-K11 in its urf::k::<kernel> range inside its stage's urf::<stage>
    range on the host and on the device, the stages' device ms with their
-   kernels printed, and 217 device ops (the H2D and D2H of the outputs
-   included), as before the ranges, in a fresh process; (e)
+   kernels printed, and SCAN_DEVICE_OPS device ops (the H2D and D2H of
+   the outputs included), as before the ranges, in a fresh process; (e)
    examples/demo_torch.py at
    --render-every 0 on 4 scans with the beam_zone hot swap.
 8. Drives the SP path over the ranks of a torch.distributed process group
@@ -182,16 +189,17 @@
    and a hot swap under torch.cuda.set_sync_debug_mode("error"); (d) the
    launch counters zeroed just before 5 replays and read just after: K1,
    K2, K3, K8 and K7's SP entry once a scan, K4 and K12 once a wedge, K5,
-   K6 and K14 twice; (e) each graph's nodes, capture and instantiation ms
-   and pool bytes; (f) eager against compiled in turns on the OS1-128
-   scan: host enqueue and host-to-host p50, device busy and ops; (g) the
-   harness in SP mode at 10 Hz on OS1-128 drive scans, compiled against
-   eager in turns: latency p50 / p99, drops, dispatch / stage / fetch /
+   K6, K14 and the ring geometry twice; (e) each graph's nodes, capture
+   and instantiation ms and pool bytes; (f) eager against compiled in
+   turns on the OS1-128 scan: host enqueue and host-to-host p50, device
+   busy and ops; (g) the harness in SP mode at 10 Hz on OS1-128 drive
+   scans, compiled against eager in turns: latency p50 / p99, drops, dispatch / stage / fetch /
    post, and the same topics.
 11. Prints one JSON line of per-kernel results (K1-K3 with their grid and
    their times at B = 1, "b1", at the SP call's shape, "sp", and, K2 and
    K3, on the ring-major scan, "ring_major"; K7's SP entry, "sp"; K11's
-   over the phase-4 batch, "b128") and, last,
+   over the phase-4 batch, "b128"; the ring geometry's on the bench lane,
+   "64x2048") and, last,
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Any failure raises (exit code 1).  Without a CUDA device, or outside a
@@ -222,13 +230,14 @@ FP32_OPS_S = 67e12  # H100 SXM FP32 rate outside the tensor cores; integer
 
 # Kernels each path runs (launch-counter names, _build.KERNELS).
 SCAN_KERNELS = ("ingest_prep", "discover_rings", "assign_rings", "star_walk",
-                "group_rank", "group_place", "xz_zero", "flood_blocked",
-                "flood_labeled", "marker_points", "gather_pack")
+                "group_rank", "group_place", "ring_geometry", "xz_zero",
+                "flood_blocked", "flood_labeled", "marker_points",
+                "gather_pack")
 UNFUSED_KERNELS = ("flood_blocked", "flood_road", "marker_first_nonroad",
                    "marker_points")
 SP_KERNELS = ("ingest_prep", "discover_rings", "assign_rings", "star_walk",
-              "group_rank", "group_place", "xz_zero", "flood_blocked",
-              "flood_road", "marker_state")
+              "group_rank", "group_place", "ring_geometry", "xz_zero",
+              "flood_blocked", "flood_road", "marker_state")
 
 
 def bound(nbytes: float, ops: float) -> dict:
@@ -703,11 +712,22 @@ def star_chain_steps(fk, r_key, z, hp) -> int:
     return int(steps.max())
 
 
+def rg_bytes(counts, p: int, fills: bool = True) -> int:
+    """The least bytes of one ring geometry launch over the rows of
+    ``counts`` at p slots a row: d2 and alpha (and, with ``fills``, label
+    and pid) written for every slot, x and y read for the slots below
+    counts, counts read and the max written."""
+    rows = counts.numel()
+    placed = int(torch.clamp(counts, 0, p).sum())
+    return (16 if fills else 8) * rows * p + 8 * placed + 8 * rows
+
+
 def phase_kernels(dev, dims, cfg, scan, what, timed=True):
     """Each per-scan kernel against its plain twin on one scan (a (M, >=3)
     host array) padded to dims, and the unfused flood/marker path against
-    the fused one.  Timed, the CUDA-event times of kernel, twin and library
-    call are taken and returned with each kernel's bound."""
+    the fused one.  Timed (True, or a set of the kernels to time), the
+    CUDA-event times of kernel, twin and library call are taken and
+    returned with each kernel's bound."""
     from urban_road_filter_torch import _build, launch_counts, pad_scan
     from urban_road_filter_torch import reset_launch_counts
     from urban_road_filter_torch.ops import blind_spots as bs
@@ -740,7 +760,7 @@ def phase_kernels(dev, dims, cfg, scan, what, timed=True):
     def record(name, got, want, kernel, plain, plain_reps=REPS, nbytes=0,
                ops=0, library=None):
         out[name] = {"max_abs_err": max_abs_err(got, want)}
-        if not timed:
+        if timed is not True and name not in (timed or ()):
             print(f"    {name}: bit-equal", flush=True)
             return
         out[name].update(ms=cuda_ms(kernel),
@@ -826,12 +846,25 @@ def phase_kernels(dev, dims, cfg, scan, what, timed=True):
            nbytes=20 * n + 4 * (r + 1) + 12 * r * p + 4, ops=2 * n,
            library=l6)
 
+    # The ring geometry after K6: d2, alpha, the label and pid planes and
+    # each ring's max radius; untimed also the SP path's form (d2, alpha
+    # and the max).  Its plain twin is the glue it replaced.  The bound:
+    # rg_bytes.
+    lx, ly, _, _ = k6()
+    cnt = torch.clamp(counts[:r], max=p)
+    kg = lambda: geometry.ring_geometry(lx, ly, cnt)
+    pg = lambda: geometry.ring_geometry_plain(lx, ly, cnt)
+    max_abs_err(*(tuple(t for t in g if t is not None) for g in (
+        geometry.ring_geometry(lx, ly, cnt, False),
+        geometry.ring_geometry_plain(lx, ly, cnt, False))))
+    record("ring_geometry", kg(), pg(), kg, pg, nbytes=rg_bytes(cnt, p))
+
     # K7: both stencils on the placed layout, at window sizes 3, 10 and 30
     # (the returning form) and 5, in place on one table: the marks ignore
     # the label, so the timed launches rewrite the same marks.  The bound
     # counts x/y/z of the slots below counts read once, counts read and
     # each mark written once.
-    layout, _ = geometry.tensorize(x, y, z, ring_id, p, rings=r)
+    layout, _, _ = geometry.tensorize(x, y, z, ring_id, p, rings=r)
     for cp in (3, 10, 30):
         c = cfg.replace(curb_points=cp)
         max_abs_err((fused_xz_zero(layout, c).label,),
@@ -914,7 +947,7 @@ def phase_kernels(dev, dims, cfg, scan, what, timed=True):
     p10 = lambda: mk.marker_points_plain(road, num_rings, kf)
     markers = k10()
     assert float(markers[:, 0].sum()) > 0, "the scan must yield markers"
-    ragged, _ = geometry.tensorize(x, y, z, ring_id, 1023, rings=r)
+    ragged, _, _ = geometry.tensorize(x, y, z, ring_id, 1023, rings=r)
     ragged = fused_xz_zero(ragged, cfg)
     ragged, r_kf = bs.blind_spots(ragged, geometry.max_distance(ragged),
                                   num_rings, cfg)
@@ -1094,8 +1127,8 @@ def phase_gather_batch(dev, planar, dims):
 
 # ---- phase 2: the batched kernels (the batch path's lane axis) ----
 
-BATCHED_KERNELS = ("star_walk", "group_rank", "group_place", "flood_blocked",
-                   "flood_labeled", "marker_points")
+BATCHED_KERNELS = ("star_walk", "group_rank", "group_place", "ring_geometry",
+                   "flood_blocked", "flood_labeled", "marker_points")
 
 
 def lane_scans(bench):
@@ -1160,6 +1193,7 @@ def batch_kernel_calls(d, bound_cfg, dims, curbs: bool) -> dict:
     slot a curb.  The bounds sum phase 2's per-scan formulas over the
     lanes."""
     from urban_road_filter_torch.ops import blind_spots as bs
+    from urban_road_filter_torch.ops import geometry
     from urban_road_filter_torch.ops import markers as mk
     from urban_road_filter_torch.ops import star
     from urban_road_filter_torch.ops.place import (
@@ -1189,6 +1223,10 @@ def batch_kernel_calls(d, bound_cfg, dims, curbs: bool) -> dict:
         lambda i, q, c, *f: group_place(i, q, c, f, r, p),
         lambda i, q, c, *f: group_place_plain(i, q, c, f, r, p),
         20 * b * n + 4 * (r + 1) * b + 12 * b * r * p + 4 * b, 2 * b * n)
+    (placed,) = d["placed"]
+    calls["ring_geometry"] = (
+        (placed.x, placed.y, placed.counts), geometry.ring_geometry,
+        geometry.ring_geometry_plain, rg_bytes(placed.counts, p), 0)
     layout, max_dist = d["stenciled"]
     num_rings = d["num_rings"]
     if curbs:
@@ -1614,11 +1652,13 @@ def sp_stencil_calls(probe, cfg):
 
 
 def phase_sp_stacked(dev, cfg) -> dict:
-    """K7's SP entry, K8 and K14's two passes at the SP path's stacked
-    shape (8 wedges of the OS1-128 scan's 128 x 384 slots) against their
-    twins, on the inputs of one SP run, timed beside their bounds; returns
-    K7's entry's results (its "sp" entry of the kernels line)."""
+    """K7's SP entry, the ring geometry in both its SP calls, K8 and K14's
+    two passes at the SP path's stacked shape (8 wedges of the OS1-128
+    scan's 128 x 384 slots) against their twins, on the inputs of one SP
+    run, timed beside their bounds; returns K7's entry's results (its "sp"
+    entry of the kernels line)."""
     from urban_road_filter_torch import _build, pad_scan
+    from urban_road_filter_torch.ops import geometry
     from urban_road_filter_torch.parallel.azimuth_parallel import (
         make_azimuth_pipeline)
 
@@ -1651,6 +1691,23 @@ def phase_sp_stacked(dev, cfg) -> dict:
           f"slots + {halo_pts} halo points) + 16 B x {rows} rows + 4 B x "
           f"{dims.rings} totals + 4 B x {n_marks} new marks = {nbytes} B)",
           flush=True)
+    # The ring geometry as sp_tensorize calls it (d2, alpha and the max of
+    # the placed wedges: the layout K7 was given) and as sort_by_azimuth
+    # does (the same of those rows sorted by azimuth), no label or pid
+    # planes.  The bound: rg_bytes without them.
+    for what, rl in (("sp_tensorize", lay),
+                     ("sort_by_azimuth",
+                      geometry.sort_by_azimuth(lay, carry_pid=True))):
+        args = (rl.x, rl.y, rl.counts, False)
+        kg = lambda: geometry.ring_geometry(*args)
+        pg = lambda: geometry.ring_geometry_plain(*args)
+        max_abs_err(*(tuple(t for t in g() if t is not None)
+                      for g in (kg, pg)))
+        b = bound(rg_bytes(rl.counts, p, False), 0)
+        print(f"    ring_geometry ({what}) at the SP shape ({name}, "
+              f"{WEDGES} wedges x {rows // WEDGES} x {p}): bit-equal, "
+              f"kernel {cuda_ms(kg):.4f} ms, plain {cuda_ms(pg):.4f} ms, "
+              f"bound {b['bound_ms']:.5f} ms ({b['bound_by']})", flush=True)
     for what, (call, (nbytes, ops)) in sp_stacked_calls(
             probe, cfg.beam_zone).items():
         max_abs_err(call(False), call(True))
@@ -1699,9 +1756,11 @@ def phase_sp(dev, configs, smi, device_parity_gate):
             want = SP_KERNELS if cfg.star_shaped_method else tuple(
                 k for k in SP_KERNELS if k != "star_walk")
             assert_launched(launches, want, f"the SP path ({name} {cname})")
-            runs = 1 + SCAN_REPS  # K7 and K8 once, K14 twice per SP scan
+            runs = 1 + SCAN_REPS  # K7 and K8 once, K14 and the ring
+            # geometry twice per SP scan
             assert launches["flood_blocked"] == runs, launches
             assert launches["marker_state"] == 2 * runs, launches
+            assert launches["ring_geometry"] == 2 * runs, launches
             assert launches["xz_zero"] == runs, launches
             assert int(fetched.overflow) == 0, "SP overflow"
             assert bool(fetched.ok) and int(fetched.num_rings) > 0
@@ -1920,10 +1979,10 @@ def phase_replay(dev, smi, device_parity_gate) -> dict:
 STAGE_OF = {"ingest_prep": "ingest", "discover_rings": "ingest",
             "assign_rings": "ingest", "star_walk": "star",
             "group_rank": "tensorize", "group_place": "tensorize",
-            "xz_zero": "xz_zero", "flood_blocked": "blind_spots",
-            "flood_labeled": "blind_spots", "marker_points": "markers",
-            "gather_pack": "gather"}
-SCAN_DEVICE_OPS = 217  # packed_scan's device ops at the OS1-64 preset,
+            "ring_geometry": "tensorize", "xz_zero": "xz_zero",
+            "flood_blocked": "blind_spots", "flood_labeled": "blind_spots",
+            "marker_points": "markers", "gather_pack": "gather"}
+SCAN_DEVICE_OPS = 179  # packed_scan's device ops at the OS1-64 preset,
 # H2D and D2H of its outputs included (PERF.md section 5)
 
 
@@ -3094,11 +3153,12 @@ HARNESS_HZ = 10.0  # their rate (drop mode)
 def sp_per_scan(local: int, star: bool) -> dict:
     """Launches of each kernel per SP scan on a rank of ``local`` wedges:
     K4 (where the star search is on) and K12 one a local wedge, K5 and K6
-    two passes, K14 two, the others one."""
+    two passes, K14 two, the ring geometry two (sp_tensorize and
+    sort_by_azimuth), the others one."""
     return {"ingest_prep": 1, "discover_rings": 1, "assign_rings": 1,
             "star_walk": local if star else 0, "group_rank": 2,
-            "group_place": 2, "xz_zero": 1, "flood_blocked": 1,
-            "flood_road": local, "marker_state": 2}
+            "group_place": 2, "ring_geometry": 2, "xz_zero": 1,
+            "flood_blocked": 1, "flood_road": local, "marker_state": 2}
 
 
 def device_busy(fn, n: int):
@@ -3379,8 +3439,9 @@ def main() -> int:
     kernels["xz_zero"]["sp"] = phase_sp_stacked(dev, FilterConfig())
     # The per-scan kernels again at the shapes the batch path gives them
     # in phase 4: a bench lane and a merged multi-LiDAR scan (128 rings).
-    phase_kernels(dev, bench_dims, cfg, bench[0][1], "bench lane",
-                  timed=False)
+    lane, _ = phase_kernels(dev, bench_dims, cfg, bench[0][1], "bench lane",
+                            timed={"ring_geometry"})
+    kernels["ring_geometry"]["64x2048"] = lane["ring_geometry"]
     phase_kernels(dev, mdims, cfg, merged[0][1], "multi-LiDAR scan",
                   timed=False)
 

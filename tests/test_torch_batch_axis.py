@@ -279,10 +279,13 @@ def _star_twin_lanes(probe):
     assert (hp[[2, 4]] == 0).all() and hp[0].any()
     ring_id = d["ring_id"]
     pos = rank.group_positions_plain(ring_id, DIMS.rings + 1)[0]
-    _same(star.star_labels(hp, ring_id, pos, DIMS.rings, DIMS.ring_capacity),
-          _per_lane(lambda *a: star.star_labels(*a, DIMS.rings,
-                                                DIMS.ring_capacity),
-                    hp, ring_id, pos), "star_labels")
+    def labels(hp, ring_id, pos):
+        plane = torch.zeros((*hp.shape[:-1], DIMS.rings, DIMS.ring_capacity),
+                            dtype=torch.int32)
+        return star.star_labels(hp, ring_id, pos, plane)
+
+    _same(labels(hp, ring_id, pos), _per_lane(labels, hp, ring_id, pos),
+          "star_labels")
 
 
 def _rank_place_twin_lanes(probe):
@@ -309,9 +312,10 @@ def _rank_place_twin_lanes(probe):
     assert small[-1][0] > 0 and small[-1][4] == 0
 
     def tensorize(*a):
-        layout, p = geometry.tensorize(*a, DIMS.ring_capacity,
-                                       rings=DIMS.rings)
-        return (*layout, p, geometry.max_distance(layout))
+        layout, p, max_dist = geometry.tensorize(*a, DIMS.ring_capacity,
+                                                 rings=DIMS.rings)
+        assert torch.equal(max_dist, geometry.max_distance(layout))
+        return (*layout, p, max_dist)
 
     _same(tensorize(x, y, z, ring_id),
           _per_lane(tensorize, x, y, z, ring_id), "tensorize")

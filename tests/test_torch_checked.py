@@ -134,14 +134,14 @@ def _bad_tensorize(monkeypatch, what):
     orig = geometry.tensorize
 
     def bad(x, y, z, ring_id, cap, rings):
-        layout, pos = orig(x, y, z, ring_id, cap, rings=rings)
+        layout, pos, max_dist = orig(x, y, z, ring_id, cap, rings=rings)
         if what == "bin":
             alpha = layout.alpha.clone()
             alpha[..., 0, 0] = 400.0
-            return layout._replace(alpha=alpha), pos
+            return layout._replace(alpha=alpha), pos, max_dist
         pos = pos.clone()
         pos.view(-1)[int(torch.nonzero(ring_id.reshape(-1) < rings)[0])] = -1
-        return layout, pos
+        return layout, pos, max_dist
 
     monkeypatch.setattr(geometry, "tensorize", bad)
 

@@ -46,7 +46,15 @@ within the replay; the batch entry's lane groups (a batch from pinned host
 memory): 128 OS1-64 scans bit-equal to the same batch from device memory,
 calls back to back with the copy stream held back, a hot swap without
 re-capture, and LANE_GROUP_COPIES moved only by pinned batches of two
-groups or more.  Run on a machine with the
+groups or more; the ring geometry after K6 (csrc/ring_geometry.cu)
+bit-equal to its plain twin, the glue it replaced, on every plane (NaNs
+included) and the ring maxima in each form its callers use, on the CPU
+tests' cases, 61-slot rows and OS1-64 / OS1-128 drive scans; eager scans
+and batches fewer device ops by the glue's, less the kernel's one;
+process_scan_jit, the pinned process_batch_jit and the compiled SP run
+bit-equal to the same entries under the glue, with one launch a scan
+replay, one a lane group (4 a batch of 128) and two an SP scan.  Run on a
+machine with the
 card
 (tests/conftest.py imports jax, which a GPU host without JAX skips with
 --noconftest):
@@ -61,6 +69,9 @@ import numpy as np
 import pytest
 import torch
 
+from ring_geometry_cases import CASES as RING_CASES
+from ring_geometry_cases import (glue_of_record, placed, ring_geometry_case,
+                                 star_labels_of_record)
 from star_streams import scatter_streams, walk_streams
 
 from urban_road_filter_torch import (
@@ -292,7 +303,7 @@ def test_marker_kernel_full_size(dev, os1_64, case, cap):
     smoke, pts, ring_id, num_rings = os1_64
     cfg = FilterConfig()
     x, y, z, _ = geometry.xyz_of(pts, "rows")
-    layout, _ = geometry.tensorize(x, y, z, ring_id, cap, rings=RINGS)
+    layout, _, _ = geometry.tensorize(x, y, z, ring_id, cap, rings=RINGS)
     layout = fused_xz_zero(layout, cfg)
     road, kf = blind_spots(layout, geometry.max_distance(layout), num_rings,
                            cfg)
@@ -310,7 +321,7 @@ def test_marker_kernel_full_size(dev, os1_64, case, cap):
 def test_xz_zero_kernel(dev, scene, cp):
     cfg = FilterConfig(curb_points=cp)
     x, y, z, _, ring_id, _ = _rings(dev, scene, cfg=cfg)
-    layout, _ = geometry.tensorize(x, y, z, ring_id, CAP, rings=RINGS)
+    layout, _, _ = geometry.tensorize(x, y, z, ring_id, CAP, rings=RINGS)
     got = fused_xz_zero(layout, cfg).label
     assert int((got == 2).sum()) > 0
     _assert_same((got,), (z_zero(x_zero(layout, cfg), cfg).label,))
@@ -325,7 +336,7 @@ def test_xz_zero_empty_and_short_rings(dev):
         rng.standard_normal(512).astype(np.float32),
         rng.standard_normal(512).astype(np.float32),
         (rng.standard_normal(512) * 0.3).astype(np.float32), ring_id)]
-    layout, _ = geometry.tensorize(*fields, 512)
+    layout, _, _ = geometry.tensorize(*fields, 512)
     got = fused_xz_zero(layout, cfg).label
     _assert_same((got,), (z_zero(x_zero(layout, cfg), cfg).label,))
     assert int(got[1:].max()) == 0
@@ -352,7 +363,7 @@ def stencil_layouts(dev):
         angles, num_rings = geometry.discover_rings(alpha, valid,
                                                     cfg.interval, rings=rings)
         ring_id = geometry.assign_rings(alpha, valid, angles, cfg.interval)
-        layout, _ = geometry.tensorize(x, y, z, ring_id, cap, rings=rings)
+        layout, _, _ = geometry.tensorize(x, y, z, ring_id, cap, rings=rings)
         star = np.where(rng.random((rings, cap)) < 0.03, 2, 0)
         out[name] = layout._replace(label=torch.from_numpy(
             star.astype(np.int32)).to(dev))
@@ -425,7 +436,7 @@ def test_xz_zero_halo_kernel(dev, sp_halo_inputs, cp):
 
 def _stenciled(dev, scene, cfg):
     x, y, z, _, ring_id, num_rings = _rings(dev, scene, cfg=cfg)
-    layout, _ = geometry.tensorize(x, y, z, ring_id, CAP, rings=RINGS)
+    layout, _, _ = geometry.tensorize(x, y, z, ring_id, CAP, rings=RINGS)
     layout = fused_xz_zero(layout, cfg)
     return layout, num_rings, bs.window_widths(
         geometry.max_distance(layout), cfg.beam_zone)
@@ -472,7 +483,7 @@ def test_flood_and_marker_kernels_empty(dev):
 def test_gather_pack_kernel(dev, ok):
     cfg = FilterConfig()
     x, y, z, valid, ring_id, num_rings = _rings(dev, "curb_gap")
-    layout, pos = geometry.tensorize(x, y, z, ring_id, CAP, rings=RINGS)
+    layout, pos, _ = geometry.tensorize(x, y, z, ring_id, CAP, rings=RINGS)
     layout = fused_xz_zero(layout, cfg)
     table = blind_spots(layout, geometry.max_distance(layout), num_rings,
                         cfg)[0].label
@@ -492,7 +503,7 @@ def test_gather_pack_probably_road_ring_is_rings(dev):
     """probably_road_ring == rings, the ring id of every point without a
     ring: K11 flags no point, as its twin."""
     x, y, z, valid, ring_id, num_rings = _rings(dev, "curb_gap")
-    layout, pos = geometry.tensorize(x, y, z, ring_id, CAP, rings=RINGS)
+    layout, pos, _ = geometry.tensorize(x, y, z, ring_id, CAP, rings=RINGS)
     gate = torch.tensor(True, device=dev)
     got = gather_pack(layout.label, ring_id, pos, valid, gate, RINGS)
     _assert_same(got, gather_pack_plain(layout.label, ring_id, pos, valid,
@@ -519,7 +530,7 @@ def flood_layouts(dev):
         angles, num_rings = geometry.discover_rings(alpha, valid,
                                                     cfg.interval, rings=rings)
         ring_id = geometry.assign_rings(alpha, valid, angles, cfg.interval)
-        layout, _ = geometry.tensorize(x, y, z, ring_id, cap, rings=rings)
+        layout, _, _ = geometry.tensorize(x, y, z, ring_id, cap, rings=rings)
         layout = fused_xz_zero(layout, cfg)
         out[name] = smoke.flood_cases(layout, num_rings)
     return out
@@ -929,7 +940,7 @@ def test_xz_zero_ladder_kernel(dev):
 
     cfg = FilterConfig(curb_points=5, z_zero_method=False)
     x, y, z, _, ring_id, _ = _rings(dev, "two_curbs", cfg=cfg)
-    layout, _ = geometry.tensorize(x, y, z, ring_id, CAP, rings=RINGS)
+    layout, _, _ = geometry.tensorize(x, y, z, ring_id, CAP, rings=RINGS)
     rng = np.random.default_rng(8)
     length = 8 * CAP
     off = torch.from_numpy(rng.integers(-10, length, RINGS).astype(
@@ -2169,3 +2180,159 @@ def test_traced_variant_beside_the_plain_graph(dev, kind, request):
     assert all(ms > 0 for ms in stages.values()), stages
     replay = got["replay_ms"] - record.get("replay_ms", 0.0)
     assert sum(stages.values()) <= replay + 1e-6, (stages, replay)
+
+
+# ---- the ring geometry after K6 (csrc/ring_geometry.cu) ----
+
+def _drive_layout(dev, sensor, seed, n, rings):
+    """(x, y, counts) of one emulated 2048-firing drive scan as tensorize
+    places it at 2048 slots a ring (the benchmark's configurations)."""
+    from urban_road_filter_torch.io import make_drive
+
+    cfg = FilterConfig()
+    scan = next(make_drive(1, sensor=sensor, seed=seed, firings=2048))
+    pts = torch.from_numpy(pad_scan(scan, n)).to(dev)
+    x, y, z, _ = geometry.xyz_of(pts, "rows")
+    x, y, z = x.contiguous(), y.contiguous(), z.contiguous()
+    valid = geometry.roi_mask_xyz(x, y, z, cfg)
+    _, alpha = geometry.vertical_angles(x, y, z)
+    angles, _ = geometry.discover_rings(alpha, valid, cfg.interval, rings)
+    ring_id = geometry.assign_rings(alpha, valid, angles, cfg.interval)
+    layout, _, _ = geometry.tensorize(x, y, z, ring_id, 2048, rings=rings)
+    return layout.x, layout.y, layout.counts
+
+
+@pytest.fixture(scope="module")
+def ring_layouts(dev):
+    """{case: (x, y, counts)} on the card: the CPU tests' cases
+    (tests/ring_geometry_cases.py), a layout of 61 slots a ring (the
+    kernel's one-slot path: rows off 16-byte alignment) and an OS1-64 and
+    an OS1-128 drive scan at 64 and 128 rings x 2048 slots."""
+    out = {c: ring_geometry_case(c, dev) for c in RING_CASES}
+    out["61 slots"] = placed("two_curbs", 3, 61, device=dev)
+    out["os1-64"] = _drive_layout(dev, "os1_64", 41, 131072, 64)
+    out["os1-128"] = _drive_layout(dev, "os1_128", 31, 262144, 128)
+    return out
+
+
+@pytest.mark.parametrize("planes", ["all", "max"])
+@pytest.mark.parametrize("case", [*RING_CASES, "61 slots", "os1-64",
+                                  "os1-128"])
+def test_ring_geometry_kernel(dev, ring_layouts, case, planes):
+    """The ring geometry kernel bit-equal to its plain twin on the card on
+    every plane it writes (d2, alpha with its NaNs, label, pid) and on
+    max_distance, in each form its callers use (every plane; d2, alpha and
+    the max), one launch a call; on the twin's CPU cases, a
+    ragged row length and OS1-64 and OS1-128 drive scans."""
+    x, y, counts = ring_layouts[case]
+    fills = planes == "all"
+    before = _build.launch_counts()["ring_geometry"]
+    got = geometry.ring_geometry(x, y, counts, fills)
+    assert _build.launch_counts()["ring_geometry"] == before + 1
+    want = geometry.ring_geometry_plain(x, y, counts, fills)
+    assert [t is None for t in got] == [t is None for t in want]
+    assert [t is None for t in got] == [
+        False, False, not fills, not fills, False]
+    _assert_same(tuple(t for t in got if t is not None),
+                 tuple(t for t in want if t is not None))
+    _assert_same(tuple(t for t in got if t is not None), tuple(
+        t for t, g in zip(glue_of_record(x, y, counts), got)
+        if g is not None))
+    torch.cuda.synchronize()
+
+
+def test_ring_geometry_in_the_graphs(dev, ring_layouts):
+    """The glue the kernel replaced is gone from process_scan's and
+    process_batch's device ops: each makes as many fewer as the glue made,
+    less the kernel's one (the glue's own count: its plain twin's device
+    ops on the scan's layout)."""
+    pts = torch.from_numpy(pad_scan(make_scan(
+        SCENES["two_curbs"](), n_rings=24, n_azimuth=384, seed=0),
+        N)).to(dev)
+    planes = _lane_planes(dev)
+    x, y, counts = ring_layouts["scan"]
+    glue = _build.device_ops(
+        lambda: geometry.ring_geometry_plain(x, y, counts))
+    assert glue >= 30, glue
+    assert _build.device_ops(
+        lambda: geometry.ring_geometry(x, y, counts)) == 1
+    calls = (lambda: process_scan(pts, FilterConfig(), LANE_DIMS),
+             lambda: process_batch(planes, FilterConfig(), LANE_DIMS,
+                                   layout="planar"))
+    for call in calls:
+        ops = _build.device_ops(call)
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(geometry, "ring_geometry", geometry.ring_geometry_plain)
+            assert _build.device_ops(call) == ops + glue - 1
+
+
+@pytest.fixture(scope="module")
+def glue_outputs(dev, os1_64_batches):
+    """The entry points' outputs as the glue made them (ring_geometry's
+    plain twin on the card and star labels in a fresh plane, the eager
+    entries): one OS1-64 scan, lane batch 0 of os1_64_batches and an
+    8-wedge SP scan, with their inputs on the card."""
+    from urban_road_filter_torch import pipeline as pl
+    from urban_road_filter_torch.parallel.azimuth_parallel import (
+        azimuth_sorted, make_azimuth_pipeline)
+
+    cfg = FilterConfig()
+    scan = os1_64_batches[0][0].to(dev)
+    batch = os1_64_batches[0].to(dev)
+    sp_dims = PipelineDims(max_points=8192, rings=RINGS, ring_capacity=CAP)
+    sp_pts = torch.from_numpy(pad_scan(azimuth_sorted(make_scan(
+        SCENES["two_curbs"](), n_rings=16, n_azimuth=384, seed=11)),
+        sp_dims.max_points)).to(dev)
+    run = make_azimuth_pipeline(8, cfg, sp_dims)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(geometry, "ring_geometry", geometry.ring_geometry_plain)
+        mp.setattr(pl, "star_labels", star_labels_of_record)
+        _build.reset_launch_counts()
+        want = {"scan": process_scan(scan, cfg, OS1_64),
+                "batch": process_batch(batch, cfg, OS1_64),
+                "sp": run.eager(sp_pts)}
+        torch.cuda.synchronize()
+        assert _build.launch_counts()["ring_geometry"] == 0
+    return want, scan, run, sp_pts
+
+
+def test_ring_geometry_entries_equal_the_glue(dev, os1_64_batches,
+                                              glue_outputs):
+    """process_scan_jit, the pinned process_batch_jit (lane groups) and
+    the compiled SP run, through the kernel, bit-equal on every field to
+    the same entries' outputs under the glue it replaced."""
+    from urban_road_filter_torch import process_batch_jit, process_scan_jit
+
+    want, scan, run, sp_pts = glue_outputs
+    cfg = FilterConfig()
+    _assert_same(process_scan_jit(scan, cfg, OS1_64), want["scan"])
+    _assert_same(process_batch_jit(os1_64_batches[0], cfg, OS1_64),
+                 want["batch"])
+    run(sp_pts)  # the capture, after one eager run
+    _assert_same(run(sp_pts), want["sp"])
+    _assert_same(run.eager(sp_pts), want["sp"])
+
+
+def test_ring_geometry_launches_per_entry(dev, os1_64_batches, glue_outputs):
+    """Ring geometry launches credited per call: one a scan replay, one a
+    lane group of the pinned batch (4 for 128 lanes), two an SP scan
+    (sp_tensorize and sort_by_azimuth), replayed or eager."""
+    from urban_road_filter_torch import pipeline as pl
+    from urban_road_filter_torch import process_batch_jit, process_scan_jit
+
+    _, scan, run, sp_pts = glue_outputs
+    cfg = FilterConfig()
+    groups = len(pl.lane_groups(128, pl.LANE_GROUP))
+    assert groups == 4
+    calls = [(1, lambda: process_scan_jit(scan, cfg, OS1_64)),
+             (groups, lambda: process_batch_jit(os1_64_batches[0], cfg,
+                                                OS1_64)),
+             (2, lambda: run(sp_pts)), (2, lambda: run.eager(sp_pts))]
+    for _, fn in calls:
+        fn()  # captured
+    torch.cuda.synchronize()
+    for want, fn in calls:
+        _build.reset_launch_counts()
+        fn()
+        torch.cuda.synchronize()
+        assert _build.launch_counts()["ring_geometry"] == want

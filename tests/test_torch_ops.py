@@ -51,6 +51,9 @@ from urban_road_filter_torch.ops.place import group_place
 from urban_road_filter_torch.ops.rank import group_positions
 from urban_road_filter_torch.ops.stencil_kernels import fused_xz_zero
 from star_streams import scatter_streams, walk_streams
+from ring_geometry_cases import CASES as RING_CASES
+from ring_geometry_cases import (glue_of_record, ring_geometry_case,
+                                 same_bits, star_labels_of_record)
 from torch_azimuth import assert_azimuth
 
 torch.set_num_threads(1)  # tier-1 runs several pytest workers
@@ -136,6 +139,53 @@ class TestGeometry:
             tgeo.max_distance(tl).numpy(),
             np.asarray(jgeo.max_distance(layout)))
 
+    @pytest.mark.parametrize("case", RING_CASES)
+    def test_ring_geometry_twin(self, case):
+        """ring_geometry's plain twin bit-equal to the glue it replaced (the
+        record, tests/ring_geometry_cases.py), with each set of planes its
+        callers ask for (every plane; d2, alpha and the max; d2 and
+        alpha); and the kernel's rule (csrc/ring_geometry.cu: the recipe
+        on the slots below counts, d2 0 and alpha NaN past them, no
+        arithmetic there) equal to the twin on layouts whose empty slots
+        hold +-0.0, as K6's do.  Scan (R, P), batch (B, R, P) with an
+        empty lane and SP (wedges * R, P) layouts from tensorize, rows at
+        capacity among them; and hand-made rows: an empty row, quadrant
+        edges (x or y +-0.0 beside each sign of the other), NaN
+        coordinates, -0.0 in the tail, an f32 overflow, counts past P.
+        One case a test, the forms in a loop: this file's item count sets
+        its place in pytest-xdist's loadfile queue, and the JAX retrace
+        test (tests/test_config_dynamic.py) fails on a worker that ran
+        tests/test_pipeline_parity.py before it."""
+        x, y, counts = ring_geometry_case(case)
+        want = glue_of_record(x, y, counts)
+        if case != "edges":
+            assert (counts == x.shape[-1]).any() and (counts == 0).any()
+        for fills in (True, False):
+            got = tgeo.ring_geometry(x, y, counts, fills=fills)
+            same_bits(got.d2, want.d2)
+            same_bits(got.alpha, want.alpha)
+            if fills:
+                assert torch.equal(got.label, want.label)
+                assert torch.equal(got.pid, want.pid)
+            else:
+                assert got.label is None and got.pid is None
+            same_bits(got.max_distance, want.max_distance)
+
+        # The kernel's rule, in numpy, per slot.
+        xn, yn = x.numpy(), y.numpy()
+        slot = np.arange(xn.shape[-1])
+        valid = slot < np.clip(counts.numpy(), 0, xn.shape[-1])[..., None]
+        assert (xn[~valid] == 0).all() and (yn[~valid] == 0).all()
+        with np.errstate(invalid="ignore", over="ignore"):
+            d2 = np.where(valid, np.sqrt(xn * xn + yn * yn), F32(0))
+            alpha = np.where(valid, oracle.azimuth_2d(xn, yn)[1],
+                             F32(np.nan))
+        same_bits(want.d2, torch.from_numpy(d2))
+        same_bits(want.alpha, torch.from_numpy(alpha))
+        row_max = np.where(np.isnan(d2).any(-1), np.nan, np.nanmax(
+            np.where(np.isnan(d2), 0, d2), -1)).astype(F32)
+        same_bits(want.max_distance, torch.from_numpy(row_max))
+
     def test_orientation_is_explicit(self):
         # Four points: (4, 4) rows and (3, 4) planar.  The JAX package reads
         # any trailing dim of 4 as rows (ADVICE r5 fault 3); the port reads
@@ -187,8 +237,10 @@ class TestPlace:
         ring_id = _jax_ring_ids(x, y, z, cfg)
         jl, jpos = jgeo.tensorize(*map(jnp.asarray, (x, y, z, ring_id)), cap,
                                   rings=64)
-        tl, tpos = tgeo.tensorize(*map(_t, (x, y, z, ring_id)), cap,
-                                  rings=64)
+        tl, tpos, tmax = tgeo.tensorize(*map(_t, (x, y, z, ring_id)), cap,
+                                        rings=64)
+        np.testing.assert_array_equal(tmax.numpy(),
+                                      np.asarray(jgeo.max_distance(jl)))
         tl = to_numpy(tl)
         np.testing.assert_array_equal(tpos.numpy(), np.asarray(jpos))
         for f in ("x", "y", "z", "d2", "label", "pid", "counts", "overflow"):
@@ -474,7 +526,12 @@ class TestStar:
         pos = _t(np.array([0, 0, 0, 1, 4, 0], I32))  # 4: over capacity
         hp = _t(np.zeros(360, I32))
         hp[[5, 6, 7, 8]] = _t(np.array([2, 3, 5, 6], I32))  # points 1,2,4,5
-        lab = tstar.star_labels(hp, ring_id, pos, 3, 4).numpy()
+        plane = torch.zeros((3, 4), dtype=torch.int32)
+        lab = tstar.star_labels(hp, ring_id, pos, plane)
+        assert lab is plane
+        lab = lab.numpy()
+        np.testing.assert_array_equal(lab, star_labels_of_record(
+            hp, ring_id, pos, plane).numpy())
         want = np.zeros((3, 4), I32)
         want[1, 0] = want[2, 0] = 2
         np.testing.assert_array_equal(lab, want)

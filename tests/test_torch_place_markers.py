@@ -177,7 +177,7 @@ class TestPlaceRule:
         rows = _t(pts[:, :4].astype(F32))
         tx, ty, tz, _ = tgeo.xyz_of(rows, "rows")
         assert tx.stride(0) == 4
-        tl, tpos = tgeo.tensorize(tx, ty, tz, _t(ring_id), cap, rings=64)
+        tl, tpos, _ = tgeo.tensorize(tx, ty, tz, _t(ring_id), cap, rings=64)
         tl = to_numpy(tl)
         np.testing.assert_array_equal(tpos.numpy(), np.asarray(jpos))
         for f in ("x", "y", "z", "d2", "label", "pid", "counts", "overflow"):

@@ -215,7 +215,7 @@ def main() -> int:
         angles, _ = geometry.discover_rings(alpha, valid, cfg.interval,
                                             rings=rings)
         ring_id = geometry.assign_rings(alpha, valid, angles, cfg.interval)
-        layout, _ = geometry.tensorize(x, y, z, ring_id, cap, rings=rings)
+        layout, _, _ = geometry.tensorize(x, y, z, ring_id, cap, rings=rings)
         calls[name] = (lambda lay=layout: fused_xz_zero_(lay, cfg),
                        layout.label)
     _, dims, scan, _ = c.sp_deployments()[0]

@@ -115,7 +115,7 @@ def scan_calls(dev, dims, cfg, scan) -> dict:
     keys = (fk1[0], rk1[0])
     rvalid = geometry.roi_mask_xyz(rx, ry, rz, cfg)
     pos, counts = group_positions(ring_id, r + 1)
-    layout, _ = geometry.tensorize(x, y, z, ring_id, p, rings=r)
+    layout, _, _ = geometry.tensorize(x, y, z, ring_id, p, rings=r)
     stenciled = layout._replace(
         label=stencil_kernels.fused_xz_zero(layout, cfg).label)
     if hasattr(stencil_kernels, "fused_xz_zero_"):  # K7 in place

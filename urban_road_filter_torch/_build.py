@@ -34,7 +34,8 @@ BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-Xptxas=-v", "-Xcompiler", "-fPIC")
 
-# Launch-counter name -> (its CUDA source, the TPU kernel it replaces).
+# Launch-counter name -> (its CUDA source, the TPU kernel it replaces, None
+# for a kernel that replaces PyTorch glue).
 KERNELS = {
     "ingest_prep": ("urban_road_filter_torch/csrc/ingest.cu",
                     "urban_road_filter_tpu/ops/ingest_scan.py:159"),
@@ -64,6 +65,7 @@ KERNELS = {
                              "urban_road_filter_tpu/ops/marker_scan.py:187"),
     "marker_state": ("urban_road_filter_torch/csrc/markers.cu",
                      "urban_road_filter_tpu/ops/marker_scan.py:139"),
+    "ring_geometry": ("urban_road_filter_torch/csrc/ring_geometry.cu", None),
 }
 
 _P = ctypes.c_void_p
@@ -96,6 +98,7 @@ _SIGNATURES = {
     "urf_marker_first_nonroad": (_P, _P, _P, _P, _I, _I, _P, _P),
     "urf_marker_state": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I,
                          _P, _I, _P, _P),
+    "urf_ring_geometry": (_P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P),
 }
 
 # Kernels whose blocks take tickets from per-device counters that run on

@@ -10,6 +10,9 @@ rounded to float32 on the host first, as the JAX package does with
 Input order along the slot axis is load-bearing: the x/z-zero stencils
 read it (lidar_segmentation.cpp:280-291), so placement is a stable rank
 (ops/rank.py, kernel K5) followed by an indexed store (ops/place.py, K6).
+The planes computed from the placed x/y (d2, alpha, the label and pid
+fills) and each ring's max radius come from one kernel after K6
+(ring_geometry, csrc/ring_geometry.cu).
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from urban_road_filter_torch import _build
 from urban_road_filter_torch.constants import CHANNELS
 from urban_road_filter_torch.ops import ingest
 from urban_road_filter_torch.ops.numerics import (  # noqa: F401 (re-exported)
@@ -120,27 +124,84 @@ class RingLayout(NamedTuple):
     overflow: torch.Tensor  # 0-d int32: points dropped by capacity
 
 
+class RingGeometry(NamedTuple):
+    """The layout planes computed from the placed x/y (ring_geometry)."""
+
+    d2: torch.Tensor  # (..., P) f32 2-D radius
+    alpha: torch.Tensor  # (..., P) f32 2-D azimuth, degrees
+    label: torch.Tensor | None  # (..., P) int32 zeros
+    pid: torch.Tensor | None  # (..., P) int32 -1
+    max_distance: torch.Tensor  # (...,) f32 max d2 of a row's points
+
+
+def _row_max(d2, counts) -> torch.Tensor:
+    """Per-row max of d2 over the row's first ``counts`` slots; 0 if none."""
+    slot = torch.arange(d2.shape[-1], device=d2.device)
+    return torch.amax(torch.where(slot < counts[..., None], d2, 0.0), dim=-1)
+
+
+def ring_geometry_plain(x, y, counts, fills: bool = True) -> RingGeometry:
+    """The kernel's plain twin: azimuth_2d over every slot, the label and
+    pid fills and the per-row max."""
+    d2, alpha = azimuth_2d(x, y)
+    label = pid = None
+    if fills:
+        label = torch.zeros(x.shape, dtype=I32, device=x.device)
+        pid = torch.full(x.shape, -1, dtype=I32, device=x.device)
+    return RingGeometry(d2, alpha, label, pid, _row_max(d2, counts))
+
+
+def ring_geometry(x, y, counts, fills: bool = True) -> RingGeometry:
+    """d2, alpha and each row's max_distance of placed (..., P) x/y
+    planes whose row r holds its points in slots 0 .. counts[r] - 1 and
+    +0.0 past them (K6's layout); with ``fills`` the label (0) and pid (-1)
+    planes.  A CUDA tensor goes through csrc/ring_geometry.cu, one launch
+    over the stacked rows, which writes the empty slots' values (d2 0,
+    alpha NaN) without reading them; a CPU tensor through
+    ring_geometry_plain."""
+    if _build.on_cpu(x):
+        return ring_geometry_plain(x, y, counts, fills)
+    lead, p = x.shape[:-1], x.shape[-1]
+    dev = x.device
+    _build.check(x, "x", F32)
+    _build.check(y, "y", F32, x.shape, dev)
+    _build.check(counts, "counts", I32, lead, dev)
+    d2, alpha = torch.empty_like(x), torch.empty_like(x)
+    maxd = torch.empty(lead, dtype=F32, device=dev)
+    label = pid = None
+    if fills:
+        label = torch.empty(x.shape, dtype=I32, device=dev)
+        pid = torch.empty(x.shape, dtype=I32, device=dev)
+
+    def ptr(t):
+        return None if t is None else _build.ptr(t)
+
+    _build.launch("ring_geometry", "urf_ring_geometry", dev, ptr(x), ptr(y),
+                  ptr(counts), math.prod(lead), p, ptr(d2), ptr(alpha),
+                  ptr(label), ptr(pid), _build.ptr(maxd))
+    return RingGeometry(d2, alpha, label, pid, maxd)
+
+
 def tensorize(x, y, z, ring_id, ring_capacity: int, rings: int = CHANNELS):
     """Stable placement into (rings, P), input order preserved per ring.
-    Returns (RingLayout, pos): pos[i] is point i's slot within its ring, so
-    (ring_id, pos) addresses the layout and per-point results come back by
-    gather (ops/gather.py).  Only x/y/z are placed; d2/alpha are recomputed
-    on the layout, labels start at 0 and pid is not carried (-1).  With a
-    leading lane axis (x, y, z, ring_id (B, N)) the layout and pos have it
-    too: one rank (K5) and one placement (K6) for the batch."""
+    Returns (RingLayout, pos, max_distance): pos[i] is point i's slot
+    within its ring, so (ring_id, pos) addresses the layout and per-point
+    results come back by gather (ops/gather.py); max_distance is
+    max_distance(layout).  Only x/y/z are placed (K6); d2/alpha are
+    recomputed on the layout, labels start at 0 and pid is not carried
+    (-1), all in one ring_geometry launch.  With a leading lane axis (x, y,
+    z, ring_id (B, N)) the outputs have it too: one rank (K5), one
+    placement (K6) and one ring_geometry for the batch."""
     p = ring_capacity
-    lead = ring_id.shape[:-1]
     pos, counts_all = group_positions(ring_id, rings + 1)
     counts = torch.clamp(counts_all[..., :rings], max=p)
     lx, ly, lz, overflow = group_place(ring_id, pos, counts_all, (x, y, z),
                                        rings, p)
-    ld2, lalpha = azimuth_2d(lx, ly)
+    g = ring_geometry(lx, ly, counts)
     layout = RingLayout(
-        x=lx, y=ly, z=lz, d2=ld2, alpha=lalpha,
-        label=torch.zeros((*lead, rings, p), dtype=I32, device=x.device),
-        pid=torch.full((*lead, rings, p), -1, dtype=I32, device=x.device),
+        x=lx, y=ly, z=lz, d2=g.d2, alpha=g.alpha, label=g.label, pid=g.pid,
         counts=counts, overflow=overflow)
-    return layout, pos
+    return layout, pos, g.max_distance
 
 
 def stacked_rows(layout: RingLayout) -> RingLayout:
@@ -163,8 +224,7 @@ def _slot_valid(layout: RingLayout) -> torch.Tensor:
 
 def max_distance(layout: RingLayout) -> torch.Tensor:
     """Per-ring max 2-D radius (lidar_segmentation.cpp:271-274); 0 if empty."""
-    return torch.amax(torch.where(_slot_valid(layout), layout.d2, 0.0),
-                      dim=-1)
+    return _row_max(layout.d2, layout.counts)
 
 
 def sort_by_azimuth(layout: RingLayout, carry_pid: bool = False) -> RingLayout:
@@ -173,8 +233,10 @@ def sort_by_azimuth(layout: RingLayout, carry_pid: bool = False) -> RingLayout:
     on the first ``counts`` slots (a NaN azimuth sorts as 1e30: after every
     finite azimuth, before the +inf padding), x/y/z/label (and pid, with
     ``carry_pid``; else -1) ride along, d2/alpha are recomputed from the
-    sorted x/y.  The JAX package leaves this sort to XLA; here it is one
-    stable torch.sort per call over the ring rows."""
+    sorted x/y by ring_geometry (the first ``counts`` slots stay the
+    points, the rest the layout's empty slots).  The JAX package leaves
+    this sort to XLA; here it is one stable torch.sort per call over the
+    ring rows."""
     key = torch.where(_slot_valid(layout),
                       torch.where(torch.isnan(layout.alpha), 1e30,
                                   layout.alpha), math.inf)
@@ -184,8 +246,8 @@ def sort_by_azimuth(layout: RingLayout, carry_pid: bool = False) -> RingLayout:
         return torch.gather(a, 1, order)
 
     xs, ys = take(layout.x), take(layout.y)
-    d2s, als = azimuth_2d(xs, ys)
+    g = ring_geometry(xs, ys, layout.counts, fills=False)
     pid = (take(layout.pid) if carry_pid
            else torch.full_like(layout.pid, -1))
-    return layout._replace(x=xs, y=ys, z=take(layout.z), d2=d2s, alpha=als,
-                           label=take(layout.label), pid=pid)
+    return layout._replace(x=xs, y=ys, z=take(layout.z), d2=g.d2,
+                           alpha=g.alpha, label=take(layout.label), pid=pid)

@@ -225,25 +225,28 @@ def star_hits(x, y, z, valid, cfg: FilterConfig, keys=None) -> torch.Tensor:
     return star_search(*_star_keys(x, y, z, valid, cfg, keys), z, cfg)
 
 
-def star_labels(hp, ring_id, pos, rings: int, cap: int) -> torch.Tensor:
-    """(rings, cap) int32 layout labels: LABEL_CURB at each hit point's
-    (ring, slot), 0 elsewhere; a hit dropped at binning or by capacity
-    lands nowhere (pipeline.py:141-150 of the JAX package).  With a leading
-    lane axis (hp (B, 360), ring_id and pos (B, N)): (B, rings, cap), each
-    lane's hits in its own table, one fill for the batch."""
+def star_labels(hp, ring_id, pos, label) -> torch.Tensor:
+    """LABEL_CURB at each hit point's (ring, slot) of ``label``, the
+    layout's (rings, cap) int32 plane of zeros, in place; returns it.  A
+    hit dropped at binning or by capacity lands nowhere
+    (pipeline.py:141-150 of the JAX package): it takes the max with 0 at
+    slot 0.  With a leading lane axis (hp (B, 360), ring_id and pos (B, N),
+    label (B, rings, cap)): each lane's hits in its own table, one scatter
+    for the batch."""
+    rings, cap = label.shape[-2:]
     n = ring_id.shape[-1]
     lead = hp.shape[:-1]
     plane = rings * cap
     h = torch.clamp(hp - 1, 0, n - 1).long()
     ring = torch.gather(ring_id, -1, h).long()
     slot = torch.gather(pos, -1, h).long()
-    landed = (hp > 0) & (ring < rings) & (slot < cap)
+    landed = (hp > 0) & (ring < rings) & (slot >= 0) & (slot < cap)
     lanes = math.prod(lead)
-    at = ring * cap + slot
+    at = torch.where(landed, ring * cap + slot, 0)
     if lanes > 1:  # lane b's table starts at b * plane
         at = at + torch.arange(lanes, device=hp.device).view(
             *lead, 1) * plane
-    dst = torch.where(landed, at, lanes * plane)
-    lab = torch.zeros((lanes * plane + 1,), dtype=I32, device=hp.device)
-    lab.index_fill_(0, dst.reshape(-1), LABEL_CURB)  # no host value copied
-    return lab[:lanes * plane].view(*lead, rings, cap)
+    label.view(-1).scatter_reduce_(0, at.reshape(-1),
+                                   (landed.to(I32) * LABEL_CURB).reshape(-1),
+                                   "amax")  # no host value copied
+    return label

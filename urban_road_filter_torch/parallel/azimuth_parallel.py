@@ -460,7 +460,8 @@ def _run(x, y, z, cfg: FilterConfig, dims: PipelineDims, lw,
     with _stage("sp_tensorize"):
         # Ring r of local wedge w is group w * rings + r of one K5 + K6
         # pass; the local point index (+1) and the star marks ride a
-        # second K6 pass.
+        # second K6 pass; d2, alpha and the ring maxima come from one
+        # ring_geometry launch.
         group = torch.where(ring_w < rings,
                             torch.arange(loc, device=dev)[:, None] * rings
                             + ring_w, loc * rings).to(I32).reshape(-1)
@@ -476,13 +477,12 @@ def _run(x, y, z, cfg: FilterConfig, dims: PipelineDims, lw,
         lab = star[:, :per_wedge].reshape(-1)
         lpid, llab, _ = group_place(group, pos, counts_all, (pid1, lab),
                                     loc * rings, cap)
-        d2, alpha = geometry.azimuth_2d(lx, ly)
+        counts = torch.clamp(counts_all[:loc * rings], max=cap)
+        g = geometry.ring_geometry(lx, ly, counts, fills=False)
         layout = RingLayout(
-            x=lx, y=ly, z=lz, d2=d2, alpha=alpha, label=llab.to(I32),
-            pid=lpid.to(I32) - 1,
-            counts=torch.clamp(counts_all[:loc * rings], max=cap),
-            overflow=overflow)
-        max_dist = lw.pmax(geometry.max_distance(layout).view(loc, rings))
+            x=lx, y=ly, z=lz, d2=g.d2, alpha=g.alpha, label=llab.to(I32),
+            pid=lpid.to(I32) - 1, counts=counts, overflow=overflow)
+        max_dist = lw.pmax(g.max_distance.view(loc, rings))
         counts_g = lw.all_gather(layout.counts.view(loc, rings))
 
     if cfg.x_zero_method or cfg.z_zero_method:

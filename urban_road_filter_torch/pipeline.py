@@ -123,12 +123,10 @@ def _stages(x, y, z, valid, keys, ring_id, num_rings, cfg: FilterConfig,
         with _stage("star"):
             hp = star_hits(x, y, z, valid, cfg, keys)
     with _stage("tensorize"):
-        rl, pos = geometry.tensorize(x, y, z, ring_id, dims.ring_capacity,
-                                     rings=rings)
-        max_dist = geometry.max_distance(rl)
+        rl, pos, max_dist = geometry.tensorize(
+            x, y, z, ring_id, dims.ring_capacity, rings=rings)
         if hp is not None:
-            rl = rl._replace(label=star_labels(hp, ring_id, pos, rings,
-                                               dims.ring_capacity))
+            rl = rl._replace(label=star_labels(hp, ring_id, pos, rl.label))
     keep("placed", rl)
     with _stage("xz_zero"):  # the stage's own table: marked in place
         fused_xz_zero_(rl, cfg)

@@ -245,11 +245,11 @@ def _checked_scan(pts, cfg: FilterConfig, dims: PipelineDims, errors,
             hp = P.star_hits(x, y, z, valid, cfg, (fk, r_key))
         word.check("star_pid", lambda: broken_star_pid(hp, valid))
     with P._stage("tensorize"):
-        rl, pos = geometry.tensorize(x, y, z, ring_id, cap, rings=rings)
-        max_dist = geometry.max_distance(rl)
+        rl, pos, max_dist = geometry.tensorize(x, y, z, ring_id, cap,
+                                               rings=rings)
         if hp is not None:
-            rl = rl._replace(label=P.star_labels(hp, ring_id, pos, rings,
-                                                 cap))
+            rl = rl._replace(label=P.star_labels(hp, ring_id, pos,
+                                                 rl.label))
     word.check("pos", lambda: broken_pos(ring_id, pos, rl.counts,
                                          rl.overflow, rings, cap))
     with P._stage("xz_zero"):
